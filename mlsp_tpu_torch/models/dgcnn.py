@@ -1,0 +1,133 @@
+"""DGCNN encoder with the MLSP heads (counterpart of `mlsp_tpu/models/dgcnn.py`).
+
+Channels-last, parameters in the reference `DGCNN` state_dict layout (see
+`models/layers.py`). Eval forward only: the EdgeConv layers run through the
+neighbourhood-statistics kernel, which has no backward kernel yet; training
+is the next slice of the port (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mlsp_tpu_torch.models.layers import (
+    Classifier,
+    DensityHead,
+    PointMLPHead,
+    PointwiseConv,
+    TransformNet,
+    batch_norm,
+)
+from mlsp_tpu_torch.ops.edge import edge_moments
+from mlsp_tpu_torch.ops.knn import edge_features, knn_indices
+
+HEADS = ("defrec", "normal", "scan", "density")
+
+
+class EdgeConvM(nn.Module):
+    """EdgeConv + BN + LeakyReLU + max over k, through neighbourhood
+    statistics (the JAX `EdgeConvM`, eval mode).
+
+    The reference applies `max_k act(BN(W [x_j - x_i | x_i]))`. With
+    W = [W_d | W_c], u = W_d x and v = W_c x, the edge value is
+    u_j - u_i + v_i, and since BN is affine and LeakyReLU monotone,
+
+        max_j act(BN(z_ij)) = act(s * ((s >= 0 ? max_j u_j : min_j u_j)
+                                       + v_i - u_i - mean) + beta),
+        s = gamma / sqrt(var + eps),
+
+    a negative gamma turning the max into a min. The reference's direct
+    form and this one share the state_dict: `conv.0.weight` [out, 2 cin,
+    1, 1] = [W_d | W_c] and `conv.1` the BN of the edge tensor.
+    """
+
+    def __init__(self, cin: int, cout: int, k: int, knn_backend: str):
+        super().__init__()
+        self.conv = nn.ModuleList([PointwiseConv(2 * cin, cout, 2, False),
+                                   nn.BatchNorm1d(cout)])
+        self.k = k
+        self.knn_backend = knn_backend
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "EdgeConvM trains in the training slice of the port "
+                "(ROADMAP.md); call .eval() first")
+        w = self.conv[0].weight.flatten(1)
+        cin = x.shape[-1]
+        u = F.linear(x, w[:, :cin])
+        v = F.linear(x, w[:, cin:])
+        mx, mn = edge_moments(x, u, self.k, False, backend=self.knn_backend)
+        bn = self.conv[1]
+        s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        sel = torch.where(s >= 0, mx, mn)
+        y = s * (sel + (v - u) - bn.running_mean) + bn.bias
+        return F.leaky_relu(y, negative_slope=0.2)
+
+
+class DGCNN(nn.Module):
+    """PointDA DGCNN: input transform, EdgeConv 64/64/128/256, a 1024-wide
+    global feature, the classifier and the four MLSP heads (the reference
+    builds every head, so a strict load needs them all).
+
+    `knn_backend` picks the kNN and statistics path ("auto": the kernels
+    for CUDA tensors, their plain versions for CPU tensors; "torch": the
+    plain versions anywhere). On the card, run it under `torch.no_grad()`.
+    """
+
+    def __init__(self, num_classes: int = 10, k: int = 20,
+                 dropout: float = 0.5, density_num_cls: int = 16,
+                 pergroup: float = 2.0, knn_backend: str = "auto"):
+        super().__init__()
+        self.config = {"k": k, "dropout": dropout,
+                       "density_num_cls": density_num_cls,
+                       "pergroup": pergroup}
+        self.k = k
+        self.knn_backend = knn_backend
+        self.input_transform_net = TransformNet(3)
+        self.conv1 = EdgeConvM(3, 64, k, knn_backend)
+        self.conv2 = EdgeConvM(64, 64, k, knn_backend)
+        self.conv3 = EdgeConvM(64, 128, k, knn_backend)
+        self.conv4 = EdgeConvM(128, 256, k, knn_backend)
+        self.conv5 = PointwiseConv(512, 1024, 1, False)
+        self.bn5 = nn.BatchNorm1d(1024)
+        self.C = Classifier(1024, num_classes, dropout)
+        self.DefRec = PointMLPHead(1536, 3, dropout)
+        self.Norm_pred = PointMLPHead(1536, 3, dropout)
+        self.Rec_scan = PointMLPHead(1536, 3, dropout)
+        self.Density_cls = DensityHead(1536, density_num_cls, pergroup,
+                                       dropout)
+
+    def forward(self, x: torch.Tensor,
+                heads: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+        """x [B, N, 3] -> dict with "cls" [B, num_classes], "feat"
+        [B, 1024] and the per-point heads asked for."""
+        unknown = set(heads) - set(HEADS)
+        if unknown:
+            raise ValueError(f"unknown heads {sorted(unknown)}; know {HEADS}")
+        idx = knn_indices(x, self.k, backend=self.knn_backend)
+        T = self.input_transform_net(edge_features(x, idx))
+        # The reference applies T @ x_col; channels-last that is x_row @ T^T.
+        x = torch.einsum("bnc,bdc->bnd", x, T)
+
+        x1 = self.conv1(x)
+        x2 = self.conv2(x1)
+        x3 = self.conv3(x2)
+        x4 = self.conv4(x3)
+        x_cat = torch.cat([x1, x2, x3, x4], dim=-1)  # [B, N, 512]
+        x5 = F.leaky_relu(batch_norm(self.bn5, self.conv5(x_cat)), 0.2)
+        x5 = x5.amax(1)  # global feature [B, 1024]
+
+        out = {"feat": x5, "cls": self.C(x5)}
+        pp = (x_cat, x5)  # the heads' input, concat [x_cat | x5] implied
+        if "defrec" in heads:
+            out["defrec"] = self.DefRec(pp)
+        if "normal" in heads:
+            out["normal"] = self.Norm_pred(pp)
+        if "scan" in heads:
+            out["scan"] = self.Rec_scan(pp)
+        if "density" in heads:
+            out["density"], out["density_mse"] = self.Density_cls(pp)
+        return out

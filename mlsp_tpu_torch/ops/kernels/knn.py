@@ -1,0 +1,55 @@
+"""Wrapper of the kNN kernel (`csrc/knn.cu`), the port of `knn_pallas`.
+
+`knn_cuda` launches the kernel on a CUDA tensor or raises; it never falls
+back. Its plain version is `ops.knn.knn_indices_torch`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mlsp_tpu_torch.ops.kernels import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+MAX_K = 32  # the kernel's register top-k holds at most this many
+_SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("knn")
+    lib.mlsp_knn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    lib.mlsp_knn.restype = _I
+    lib.mlsp_knn_smem_bytes.argtypes = [_I]
+    lib.mlsp_knn_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def knn_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
+    """kNN graph of x [B, N, C] on the card: int64 [B, N, k]."""
+    if not x.is_cuda:
+        raise ValueError(f"knn_cuda: needs a CUDA tensor, got {x.device}")
+    if x.ndim != 3:
+        raise ValueError(f"knn_cuda: expected [B, N, C], got {tuple(x.shape)}")
+    B, N, C = x.shape
+    if not 1 <= k <= min(N, MAX_K):
+        raise ValueError(f"knn_cuda: k={k} outside [1, min(N={N}, {MAX_K})]")
+    lib = _lib()
+    if lib.mlsp_knn_smem_bytes(C) > _SMEM_LIMIT:
+        raise ValueError(f"knn_cuda: C={C} channels exceed shared memory")
+    x = x.float().contiguous()
+    out = torch.empty((B, N, k), dtype=torch.int64, device=x.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.mlsp_knn(x.data_ptr(), out.data_ptr(), B, N, C, k,
+                                  stream), "knn")
+    knn_cuda.launches += 1
+    return out
+
+
+knn_cuda.launches = 0

@@ -1,0 +1,81 @@
+"""Brute-force k-nearest-neighbour graph (counterpart of `mlsp_tpu/ops/knn.py`).
+
+`knn_indices` runs the hand-written CUDA kernel (`ops/kernels/knn.py`) on a
+CUDA tensor and its plain PyTorch version, below, on a CPU tensor. The plain
+version is also what the tests and `chip_smoke.py` hold the kernel against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mlsp_tpu_torch.ops.kernels.knn import knn_cuda
+from mlsp_tpu_torch.ops.pairwise import self_sqdist
+
+BACKENDS = ("auto", "cuda", "torch")
+
+
+def use_kernel(t: torch.Tensor, backend: str) -> bool:
+    """Whether a kernel wrapper launches its CUDA kernel for tensor `t`.
+
+    "auto" launches it for a CUDA tensor and takes the plain version for a
+    CPU tensor; "cuda" insists on the kernel; "torch" takes the plain
+    version on any device (the comparison path).
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "torch":
+        return False
+    if t.is_cuda:
+        return True
+    if backend == "auto" and t.device.type == "cpu":
+        return False
+    raise ValueError(
+        f"backend={backend!r} has no path for a tensor on {t.device}")
+
+
+def knn_indices_torch(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of the kNN kernel: int64 [B, N, k].
+
+    A stable sort keeps equal distances in index order, as `lax.top_k`
+    does (`torch.topk` leaves the order of ties unspecified).
+    """
+    d = self_sqdist(x)
+    return torch.sort(d, dim=-1, stable=True).indices[..., :k].contiguous()
+
+
+def knn_indices(x: torch.Tensor, k: int, backend: str = "auto") -> torch.Tensor:
+    """Indices of the k nearest points of `x` per point of `x`.
+
+    Self-matches are included, distances are clamped at 0 and ties go to
+    the lower index, as in the JAX package's XLA path.
+
+    Args:
+      x: [B, N, C] points or features.
+      k: number of neighbours.
+      backend: "auto" | "cuda" | "torch" (see `use_kernel`).
+
+    Returns:
+      int64 [B, N, k] neighbour indices, ready for `knn_gather`.
+    """
+    if x.ndim != 3:
+        raise ValueError(f"knn_indices: expected [B, N, C], got {tuple(x.shape)}")
+    if k > x.shape[1]:
+        raise ValueError(
+            f"knn_indices: k={k} exceeds the {x.shape[1]} database points")
+    if use_kernel(x, backend):
+        return knn_cuda(x, k)
+    return knn_indices_torch(x, k)
+
+
+def knn_gather(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-neighbour features: feats [B, M, C], idx [B, N, k] -> [B, N, k, C]."""
+    b = torch.arange(feats.shape[0], device=feats.device)[:, None, None]
+    return feats[b, idx]
+
+
+def edge_features(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """EdgeConv input features: concat(x_j - x_i, x_i) -> [B, N, k, 2C]."""
+    neigh = knn_gather(feats, idx)
+    center = feats[:, :, None, :].expand_as(neigh)
+    return torch.cat([neigh - center, center], dim=-1)

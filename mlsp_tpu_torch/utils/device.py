@@ -1,0 +1,19 @@
+"""Where the port's entry points run."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """`device` if given, else the CUDA card.
+
+    Without a card and without an explicit device this raises: an entry
+    point never carries on silently on the CPU. Pass device="cpu" for that.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
