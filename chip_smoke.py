@@ -5,26 +5,46 @@ Usage: python3 chip_smoke.py
 It needs one CUDA card and nvcc, and exits non-zero without them. Phases,
 one JSON line each; any failure exits non-zero before the last line:
 
-  device  the card, with the name and power limit nvidia-smi reports
-  build   compile every kernel of the serving path from mlsp_tpu_torch/csrc
-  knn     the kNN kernel (K1) against its plain version, on the inputs the
-          serving forward gives it, plus a ragged N
-  edge    the neighbourhood-statistics kernel (K2, forward) against its
-          plain version, on the serving forward's inputs
-  serve   the main path: a full-width DGCNN (k=20, N=1024, 10 classes,
-          random seeded weights and BatchNorm) is saved as a serving bundle,
-          loaded with ServingModel on the card, and answers 5 requests
-          (4 x 32 clouds, 1 x 7); launches of each kernel are counted over
-          exactly those requests, and the answers are held against the same
-          weights run through the plain versions on the card
-  times   median kernel and plain-version times (CUDA events) beside each
-          kernel's bound, and serving latency and throughput at B=32
+  device       the card, with the name and power limit nvidia-smi reports
+  build        compile every kernel in mlsp_tpu_torch/csrc (ptxas registers
+               and spills per kernel)
+  knn          the kNN kernel (K1) against its plain version, on the inputs
+               the serving forward gives it, plus a ragged N
+  edge         the neighbourhood-statistics kernel (K2-fwd) against its
+               plain version, on the serving forward's inputs
+  fps          the FPS kernel (K4) against its plain version at B=32,
+               N = npoint = 1024 (PCM's shape), 1000 and 2048, random
+               starts: the indices must be equal
+  knn_moments  the kNN normal-moments kernel (K3) at B=32, N=1024, k=20:
+               its neighbour sets, its sums against sums over its own
+               neighbours, and the normals of both routes
+  edge_bwd     the EdgeConv backward kernel (K2-bwd) against autograd of
+               the plain version at the four train shapes and on values
+               tied at the max and min
+  serve        a main path: a full-width DGCNN (k=20, N=1024, 10 classes,
+               random seeded weights and BatchNorm) is saved as a serving
+               bundle, loaded with ServingModel on the card, and answers 5
+               requests (4 x 32 clouds, 1 x 7); launches counted over
+               exactly those requests; answers held against the plain path
+  train        the other main path: 3 paper-recipe PointDA train steps
+               (PointDAConfig().paper_recipe: B=32, N=1024, k=20, dropout
+               0.5, bf16 heads) from seeded random weights and BatchNorm;
+               launches counted over exactly those steps (per step K1 10,
+               K2-fwd 8, K2-bwd 8, K3 1, K4 2); the first step rerun through
+               the plain versions on the card from the same weights and
+               generator seed, on the kernel run's kNN graphs and FPS
+               orders, losses and gradients compared at fixed bounds
+  times        median kernel and plain-version times (CUDA events) beside
+               each kernel's bound, serving latency and throughput at B=32,
+               and the train step's p50 on both routes
 
 Then the `kernels` line, nvidia-smi's line and `{"ok": true, ...}`.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -39,9 +59,31 @@ import torch.nn.functional as F
 from mlsp_tpu_torch import ServingModel, make_model, save_serving_bundle
 from mlsp_tpu_torch.data.synthetic import make_classification
 from mlsp_tpu_torch.ops import kernels
-from mlsp_tpu_torch.ops.edge import edge_moments_torch
-from mlsp_tpu_torch.ops.kernels import _build, edge_moments_cuda, knn_cuda
-from mlsp_tpu_torch.ops.knn import edge_features, knn_indices, knn_indices_torch
+from mlsp_tpu_torch.ops.edge import edge_moments, edge_moments_torch
+from mlsp_tpu_torch.ops.fps import fps_torch
+from mlsp_tpu_torch.ops.kernels import (
+    _build,
+    edge_moments_bwd_cuda,
+    edge_moments_cuda,
+    fps_cuda,
+    knn_cuda,
+    knn_moments_cuda,
+)
+from mlsp_tpu_torch.ops.knn import (
+    edge_features,
+    knn_gather,
+    knn_indices,
+    knn_indices_torch,
+)
+from mlsp_tpu_torch.ops.normals import estimate_normals, knn_moments_torch
+from mlsp_tpu_torch.testing import (
+    Tape,
+    edge_grad_magnitude,
+    grad_gaps,
+    knn_set_gap,
+)
+from mlsp_tpu_torch.train import make_optimizer, pointda_train_step
+from mlsp_tpu_torch.utils.config import PointDAConfig
 
 SEED = 0
 B, N, K, NUM_CLASS = 32, 1024, 20, 10  # utils/config.py PointDAConfig
@@ -55,7 +97,34 @@ PEAK_BYTES = 3.35e12
 # package's AOT self-check (mlsp_tpu/train/evaluation.py).
 MAX_LOGIT_DIFF = 2e-2
 MIN_CLASS_AGREEMENT = 0.99
-U32 = 2.0 ** -24  # float32 unit roundoff
+FPS_SHAPES = ((B, N), (B, RAGGED_N), (B, 2048))  # npoint = N: PCM's call
+TRAIN_STEPS = 3
+STEPS_PER_EPOCH = 100  # the schedule's epoch length; 3 steps stay in epoch 0
+PER_STEP = {"knn": 10, "edge_moments": 8, "edge_moments_bwd": 8,
+            "knn_moments": 1, "fps": 2}
+# First train step, kernel route against plain route (both on the card),
+# with train-mode BN and again with eval-mode BN. The plain run replays
+# the kernel run's kNN graphs and FPS orders (`testing.Tape`), so only
+# rounding separates the routes: a near tie that rounding flips would
+# change a point's features outright, and train-mode BN would carry that
+# to every point. Each loss term within LOSS_RTOL relative, each gradient
+# tensor within GRAD_RTOL (`testing.grad_gaps`). With eval-mode BN the
+# routes differ only in K3's covariance form and K2-bwd's addition order
+# (max 1.4e-5 on an H100, 700 W). With train-mode BN the kernel's sums
+# round the BN statistics differently, and that flips a few ReLU,
+# max-pool and Chamfer kinks, each moving one element's share of a
+# gradient: max 5.0e-3, median 6.6e-4 there, so train mode is held at
+# GRAD_RTOL_TRAIN per tensor and GRAD_MEDIAN_TRAIN over the tensors (a
+# fault in a kernel's sums would move every tensor). The kernel route must
+# repeat itself on identical inputs within REPEAT_RTOL (its atomics add in
+# another order each run: max 2e-6). Its change under inputs moved by
+# ±PERTURB, which flips FPS and kNN choices, is printed and not checked.
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-4
+GRAD_RTOL_TRAIN, GRAD_MEDIAN_TRAIN = 2e-2, 2e-3
+REPEAT_RTOL = 1e-4
+PERTURB = 1e-6
+GRAPHS_PER_STEP, ORDERS_PER_STEP = 11, 2  # 2 forwards x 5 kNN + K3; PCM
 
 
 class SmokeFailure(RuntimeError):
@@ -105,11 +174,15 @@ def knn_cost(x: torch.Tensor) -> tuple[float, float]:
     return b * n * n * (2 * c + 4), b * n * c * 4 + b * n * K * 8
 
 
-def edge_cost(u: torch.Tensor, idx: torch.Tensor) -> tuple[float, float]:
-    """Eval form (max and min): 2 compares per gathered value; u and idx
-    read once, mx and mn written once."""
+def edge_cost(u: torch.Tensor, idx: torch.Tensor,
+              moments: bool = False) -> tuple[float, float]:
+    """Eval form (max and min): 2 compares per gathered value; train form
+    (with the sum and sum of squares): 5. u and idx read once, the 2 or 4
+    outputs written once."""
     b, n, c = u.shape
-    return b * n * K * c * 2, b * n * c * 4 + idx.numel() * 8 + 2 * b * n * c * 4
+    outs = 4 if moments else 2
+    return (b * n * K * c * (5 if moments else 2),
+            b * n * c * 4 + idx.numel() * 8 + outs * b * n * c * 4)
 
 
 def randomise_batch_norm(model: torch.nn.Module, g: torch.Generator) -> None:
@@ -148,18 +221,12 @@ def kernel_inputs(model, x: torch.Tensor):
 
 def check_knn(name: str, x: torch.Tensor) -> dict:
     """Pass: in every row the two neighbour sets' sorted float64 distances
-    agree within the float32 rounding bound of the distance formula,
-    4 (C + 3) u max_j(‖q‖² + ‖x_j‖²); both pick among near ties only."""
+    agree within the float32 rounding bound of the distance formula
+    (`testing.knn_set_gap`); both pick among near ties only."""
     got = knn_cuda(x, K)
     want = knn_indices_torch(x, K)
     torch.cuda.synchronize()
-    xd = x.double()
-    sq = xd.square().sum(-1)
-    d = (sq[:, :, None] + sq[:, None, :] - 2 * xd @ xd.transpose(1, 2))
-    dg = torch.sort(torch.gather(d, -1, got), -1).values
-    dw = torch.sort(torch.gather(d, -1, want), -1).values
-    tol = 4 * (x.shape[-1] + 3) * U32 * (sq + sq.amax(-1, keepdim=True))
-    gap = (dg - dw).abs().amax(-1)
+    gap, tol = knn_set_gap(x, got, want)
     res = {"input": name, "shape": list(x.shape),
            "rows": gap.numel(),
            "rows_same_indices": float((got == want).all(-1).float().mean()),
@@ -197,6 +264,290 @@ def check_edge(name: str, xg: torch.Tensor, u: torch.Tensor) -> dict:
     return {**res, "max_abs_err": err}
 
 
+def fps_cost(b: int, n: int) -> tuple[float, float]:
+    """8 operations per point and step (3 subtractions, 3 products, 2
+    additions; the min and the compare not counted); the cloud read once,
+    the indices written once."""
+    return 8.0 * b * n * n, b * n * 3 * 4 + b * n * 8
+
+
+def knn_moments_cost(b: int, n: int) -> tuple[float, float]:
+    """K1's selection at C=3 plus 12 FMAs per neighbour; x read once, the
+    twelve sums written once."""
+    return (b * n * n * (2 * 3 + 4) + 2.0 * 12 * b * n * K,
+            b * n * 3 * 4 + b * n * 12 * 4)
+
+
+def edge_bwd_cost(u: torch.Tensor, k: int) -> tuple[float, float]:
+    """Per edge and channel 2 compares and about 6 operations to form and
+    add the contribution; u, mx, mn and the four cotangents read once, idx
+    once, du written once."""
+    b, n, c = u.shape
+    return 8.0 * b * n * k * c, 8 * b * n * c * 4 + b * n * k * 8
+
+
+def check_fps(x: torch.Tensor, start: torch.Tensor) -> dict:
+    """Pass: the kernel's indices equal the plain version's."""
+    got = fps_cuda(x, x.shape[1], start)
+    want = fps_torch(x, x.shape[1], start)
+    torch.cuda.synchronize()
+    res = {"shape": list(x.shape), "npoint": x.shape[1],
+           "unequal_indices": int((got != want).sum()),
+           "first_column_is_start": bool(torch.equal(got[:, 0], start))}
+    emit("fps", **res)
+    check(res["unequal_indices"] == 0 and res["first_column_is_start"],
+          f"fps kernel disagrees with its plain version: {res}")
+    return res
+
+
+def check_knn_moments(x: torch.Tensor) -> dict:
+    """Pass: (1) the kernel's neighbour sets pass K1's distance-set check
+    against the plain graph; (2) s1 and s2 are within 1e-5 of the summed
+    magnitudes of their terms against sums over the kernel's own
+    neighbours; (3) the normals of the two routes agree at |cos| > 0.999
+    on at least 99% of the points."""
+    s1, s2, idx = knn_moments_cuda(x, K, return_indices=True)
+    gap, tol = knn_set_gap(x, idx, knn_indices_torch(x, K))
+    g = knn_gather(x, idx)
+    outer = g[..., :, None] * g[..., None, :]
+    w1, w2 = g.sum(-2), outer.sum(-3).flatten(-2)
+    e1, e2 = (s1 - w1).abs(), (s2 - w2).abs()
+    m1, m2 = g.abs().sum(-2), outer.abs().sum(-3).flatten(-2)
+    cos = (estimate_normals(x, K) * estimate_normals(x, K, backend="torch")
+           ).sum(-1).abs()
+    res = {"shape": list(x.shape), "k": K,
+           "rows_same_set": float((gap == 0).float().mean()),
+           "max_gap_over_tol": float((gap / tol).max()),
+           "s1_max_abs_err": float(e1.max()), "s2_max_abs_err": float(e2.max()),
+           "s_max_err_over_tol": max(float((e1 / (1e-5 * m1 + 1e-30)).max()),
+                                     float((e2 / (1e-5 * m2 + 1e-30)).max())),
+           "normals_share_cos_above_0.999": float((cos > 0.999).float().mean())}
+    emit("knn_moments", **res)
+    check(bool((gap <= tol).all()), f"K3 neighbour sets disagree: {res}")
+    check(res["s_max_err_over_tol"] <= 1.0, f"K3 sums outside tolerance: {res}")
+    check(res["normals_share_cos_above_0.999"] >= 0.99,
+          f"K3 normals disagree with the plain route: {res}")
+    return {**res, "max_abs_err": max(res["s1_max_abs_err"],
+                                      res["s2_max_abs_err"])}
+
+
+def check_edge_bwd(name: str, xg: torch.Tensor, u: torch.Tensor,
+                   g: torch.Generator) -> dict:
+    """Pass: du from K2-bwd (through the autograd function) within 1e-5 of
+    the summed magnitudes of its terms of autograd's du through the plain
+    version, on the same graph and random cotangents. The atomics add in
+    a varying order, so du agrees only to rounding."""
+    idx = knn_cuda(xg, K)
+    cots = [torch.randn(u.shape, generator=g).to(u.device) for _ in range(4)]
+
+    def grad(fn):
+        uu = u.detach().clone().requires_grad_()
+        loss = sum((c * o).sum() for c, o in zip(cots, fn(uu)))
+        return torch.autograd.grad(loss, uu)[0]
+
+    got = grad(lambda uu: edge_moments(xg, uu, K, True))
+    want = grad(lambda uu: edge_moments_torch(uu, idx, True))
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = 1e-5 * edge_grad_magnitude(u, idx, cots)
+    res = {"input": name, "shape": list(u.shape),
+           "max_abs_err": float(err.max()),
+           "max_err_over_tol": float((err / (tol + 1e-30)).max())}
+    emit("edge_bwd", **res)
+    check(bool((err <= tol).all()), f"K2-bwd outside tolerance on {name}: {res}")
+    return res
+
+
+def train_cfg() -> PointDAConfig:
+    return PointDAConfig().paper_recipe
+
+
+def train_batches(cfg: PointDAConfig, device) -> list:
+    """Synthetic (src_x, src_y, trgt_x) batches, one per step."""
+    clouds, labels = make_classification(2 * cfg.batch_size * TRAIN_STEPS,
+                                         cfg.num_points, cfg.num_class,
+                                         seed=SEED + 3)
+    x = torch.from_numpy(clouds).to(device).split(cfg.batch_size)
+    y = torch.from_numpy(labels).to(device).split(cfg.batch_size)
+    return [(x[2 * i], y[2 * i], x[2 * i + 1]) for i in range(TRAIN_STEPS)]
+
+
+def train_model(cfg: PointDAConfig, device, knn_backend: str = "auto"):
+    g = torch.Generator().manual_seed(SEED + 4)
+    model = make_model("dgcnn", cfg.num_class, device=device, generator=g,
+                       k=K, dropout=cfg.dropout,
+                       density_num_cls=cfg.density_num_class,
+                       pergroup=cfg.pergroup, head_dtype=cfg.head_dtype,
+                       knn_backend=knn_backend)
+    randomise_batch_norm(model, g)
+    return model.train()
+
+
+def first_step(model, cfg, batch, device, delta: float = 0.0):
+    """One step from `model`'s weights with a fresh optimizer and the
+    step generator's seed; returns (losses as floats, gradients)."""
+    opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                STEPS_PER_EPOCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    src_x, src_y, trgt_x = batch
+    m = pointda_train_step(model, opt, sched, src_x + delta, src_y,
+                           trgt_x + delta, gen, cfg)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return {k: float(v) for k, v in m.items()}, grads
+
+
+def train(device) -> dict:
+    """The train main path, then its first step through the plain route."""
+    cfg = train_cfg()
+    batches = train_batches(cfg, device)
+    model = train_model(cfg, device)
+    init = copy.deepcopy(model.state_dict())
+    opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                STEPS_PER_EPOCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    kernels.reset_launches()
+    steps = [pointda_train_step(model, opt, sched, *b, gen, cfg)
+             for b in batches]
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    losses = [{k: float(v) for k, v in m.items()} for m in steps]
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cmp_train = compare_first_step(cfg, batches[0], init, device)
+    cmp_eval = compare_first_step(dataclasses.replace(cfg, debug_bn_eval=True),
+                                  batches[0], init, device)
+    res = {"config": "PointDAConfig().paper_recipe", "batch": cfg.batch_size,
+           "points": cfg.num_points, "k": K, "steps": TRAIN_STEPS,
+           "launches": launches,
+           "launches_expected": {k: TRAIN_STEPS * v for k, v in PER_STEP.items()},
+           "losses": losses, "finite": finite, "peak_memory_gb": peak_gb,
+           "first_step_plain_vs_kernel": cmp_train,
+           "first_step_plain_vs_kernel_eval_bn": cmp_eval}
+    emit("train", **res)
+    check(finite, f"non-finite train losses: {losses}")
+    check(launches == res["launches_expected"],
+          f"the train path did not launch every kernel as expected: {launches}")
+    for name, c in (("train-mode BN", cmp_train), ("eval-mode BN", cmp_eval)):
+        check(not any(c["plain_route_launches"].values()),
+              f"the plain route launched kernels: {c['plain_route_launches']}")
+        r = c["replayed"]
+        check((r["graphs"], r["fps_orders"])
+              == (GRAPHS_PER_STEP, ORDERS_PER_STEP)
+              and r["plain_own_fps_entries_differ"] == 0,
+              f"first step ({name}): unexpected kNN graphs or FPS orders {r}")
+        check(c["same_grad_set"] and not c["outside"],
+              f"first step ({name}): plain route or kernel rerun disagrees "
+              f"with the kernel route on {c['outside']}")
+    return {**res, "cfg": cfg, "batches": batches, "model": model, "opt": opt,
+            "sched": sched, "gen": gen, "init": init}
+
+
+def compare_first_step(cfg, batch, init, device) -> dict:
+    """The first step from the initial weights and generator seed through
+    the kernels, then through the plain versions on the kernel run's kNN
+    graphs and FPS orders (see LOSS_RTOL)."""
+    def rerun(backend, delta=0.0):
+        m = train_model(cfg, device, backend)
+        m.load_state_dict(init)
+        return first_step(m, dataclasses.replace(cfg, knn_backend=backend),
+                          batch, device, delta)
+
+    tape = Tape()
+    with tape.record():
+        k_loss, k_grad = rerun("auto")
+    repeats = [rerun("auto") for _ in range(2)]
+    shifted = [rerun("auto", d) for d in (PERTURB, -PERTURB)]
+    kernels.reset_launches()
+    with tape.replay():
+        p_loss, p_grad = rerun("torch")
+    torch.cuda.synchronize()
+    plain_launches = kernels.launches()
+
+    def loss_gaps(runs):
+        return {n: max(abs(r[n] - w) for r in runs) / max(abs(w), 1e-12)
+                for n, w in k_loss.items()}
+
+    def grad_gap(runs):
+        per_run = [grad_gaps(g, k_grad) for g in runs]
+        return {n: max(r[n] for r in per_run) for n in k_grad}
+
+    def summary(gaps):
+        worst = max(gaps, key=gaps.get)
+        return {"median": statistics.median(gaps.values()),
+                "max": gaps[worst], "worst": worst}
+
+    loss = {"plain": loss_gaps([p_loss]),
+            "repeat": loss_gaps([r for r, _ in repeats]),
+            "shifted": loss_gaps([r for r, _ in shifted])}
+    grad = {"plain": grad_gap([p_grad]),
+            "repeat": grad_gap([g for _, g in repeats]),
+            "shifted": grad_gap([g for _, g in shifted])}
+    train_bn = not cfg.debug_bn_eval
+    bad = [f"{n} ({what})" for what in ("plain", "repeat")
+           for n, v in loss[what].items() if v > LOSS_RTOL]
+    bad += [f"{n} (plain)" for n, v in grad["plain"].items()
+            if v > (GRAD_RTOL_TRAIN if train_bn else GRAD_RTOL)]
+    if train_bn and statistics.median(grad["plain"].values()) > \
+            GRAD_MEDIAN_TRAIN:
+        bad.append("median over the gradient tensors (plain)")
+    bad += [f"{n} (repeat)" for n, v in grad["repeat"].items()
+            if v > REPEAT_RTOL]
+    return {"bn": "eval" if cfg.debug_bn_eval else "train",
+            "losses": {n: {"kernel": w, "plain": p_loss[n],
+                           **{f"rel_gap_{what}": loss[what][n]
+                              for what in loss}}
+                       for n, w in k_loss.items()},
+            "grad_gap_plain": summary(grad["plain"]),
+            "grad_gap_repeat": summary(grad["repeat"]),
+            "grad_gap_shifted_not_checked": summary(grad["shifted"]),
+            "tensors": len(k_grad),
+            "replayed": {"graphs": len(tape.graphs),
+                         "fps_orders": len(tape.orders),
+                         "plain_own_graph_rows_differ":
+                             tape.own_graph_rows_differ,
+                         "plain_own_fps_entries_differ":
+                             tape.own_order_entries_differ},
+            "plain_route_launches": plain_launches,
+            "same_grad_set": set(p_grad) == set(k_grad), "outside": bad}
+
+
+def step_times(tr: dict, device, card: str) -> dict:
+    """Train step p50 (host clock around a step that ends in a
+    synchronize), kernel route after the main path's steps and plain route
+    from the initial weights."""
+    cfg, batches = tr["cfg"], tr["batches"]
+
+    def p50(model, opt, sched, gen, c, n, warm):
+        out = []
+        for i in range(warm + n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pointda_train_step(model, opt, sched, *batches[i % len(batches)],
+                               gen, c)
+            torch.cuda.synchronize()
+            if i >= warm:
+                out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out), len(out)
+
+    ms, n = p50(tr["model"], tr["opt"], tr["sched"], tr["gen"], cfg, 12, 2)
+    plain = train_model(cfg, device, "torch")
+    plain.load_state_dict(tr["init"])
+    popt, psched = make_optimizer(plain, cfg.lr, cfg.wd, cfg.epochs,
+                                  STEPS_PER_EPOCH)
+    pcfg = dataclasses.replace(cfg, knn_backend="torch")
+    pms, pn = p50(plain, popt, psched,
+                  torch.Generator(device=device).manual_seed(SEED), pcfg, 4, 1)
+    res = {"batch": cfg.batch_size, "steps_timed": n, "p50_ms": ms,
+           "clouds_per_s": cfg.batch_size / (ms / 1e3),
+           "plain_steps_timed": pn, "plain_p50_ms": pms,
+           "plain_clouds_per_s": cfg.batch_size / (pms / 1e3),
+           "launches_per_step": PER_STEP, "card": card}
+    emit("times", what="train_step", **res)
+    return res
+
+
 def serve(model, bundle_dir: str, device) -> dict:
     """The main path: ServingModel answers REQUESTS on the card."""
     clouds, _ = make_classification(sum(REQUESTS), N, NUM_CLASS, seed=SEED)
@@ -217,7 +568,8 @@ def serve(model, bundle_dir: str, device) -> dict:
     got, want = np.concatenate(answers), np.concatenate(want)
     res = {"requests": [len(r) for r in requests], "clouds": len(got),
            "launches": launches,
-           "launches_expected": {"knn": 5 * len(requests),
+           "launches_expected": {**dict.fromkeys(PER_STEP, 0),
+                                 "knn": 5 * len(requests),
                                  "edge_moments": 4 * len(requests)},
            "finite": bool(np.isfinite(got).all()),
            "class_agreement": float((got.argmax(-1) == want.argmax(-1)).mean()),
@@ -260,6 +612,94 @@ def serving_times(served, plain, device, card: str) -> None:
     emit("times", what="serving", **res)
 
 
+def kernel_times(device, card, knn_in, edge_in, g) -> dict:
+    """Per-launch medians beside bound and plain time, by kernel."""
+    rows = {name: [] for name in (*PER_STEP, "edge_moments_train")}
+
+    def row(kname, what, shape, fn, plain_fn, cost, plain_reps=30):
+        b_ms, b_by = bound(*cost)
+        r = {"input": what, "shape": list(shape), "ms": median_ms(fn),
+             "plain_ms": median_ms(plain_fn, reps=plain_reps,
+                                   warmup=min(plain_reps, 5)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        rows[kname].append(r)
+        return r
+
+    for name, t in knn_in:
+        row("knn", name, t.shape, lambda: knn_cuda(t, K),
+            lambda: knn_indices_torch(t, K), knn_cost(t))
+    for name, xg, u in edge_in:
+        idx = knn_cuda(xg, K)
+        row("edge_moments", name, u.shape,
+            lambda: edge_moments_cuda(u, idx, False),
+            lambda: edge_moments_torch(u, idx, False), edge_cost(u, idx))
+
+    # K2-fwd as training calls it (max, min, sum, sum of squares)
+    for name, xg, u in edge_in:
+        idx = knn_cuda(xg, K)
+        row("edge_moments_train", name, u.shape,
+            lambda: edge_moments_cuda(u, idx, True),
+            lambda: edge_moments_torch(u, idx, True), edge_cost(u, idx, True))
+
+    # K2-bwd at the train shapes: the kernel alone against autograd's
+    # backward through the plain version (the same graph and cotangents).
+    for name, xg, u in edge_in:
+        idx = knn_cuda(xg, K)
+        outs = edge_moments_cuda(u, idx, True)
+        cots = [torch.randn(u.shape, generator=g).to(device) for _ in range(4)]
+        uu = u.detach().clone().requires_grad_()
+        plain_outs = edge_moments_torch(uu, idx, True)
+        row("edge_moments_bwd", name, u.shape,
+            lambda: edge_moments_bwd_cuda(u, idx, outs[0], outs[1], *cots),
+            lambda: torch.autograd.grad(plain_outs, uu, cots,
+                                        retain_graph=True),
+            edge_bwd_cost(u, K))
+
+    x = torch.from_numpy(make_classification(B, N, NUM_CLASS, seed=SEED + 5)[0]
+                         ).to(device)
+    row("knn_moments", "target clouds", x.shape,
+        lambda: knn_moments_cuda(x, K), lambda: knn_moments_torch(x, K),
+        knn_moments_cost(B, N))
+
+    fps_chain = {}
+    for b, n in FPS_SHAPES:
+        xf = torch.from_numpy(make_classification(b, n, NUM_CLASS,
+                                                  seed=SEED + n)[0]).to(device)
+        start = torch.randint(0, n, (b,), generator=g).to(device)
+        row("fps", f"N={n}", xf.shape, lambda: fps_cuda(xf, n, start),
+            lambda: fps_torch(xf, n, start), fps_cost(b, n), plain_reps=3)
+        # The chain: one cloud alone, npoint = n against npoint = 2, gives
+        # this design's time per dependent step; n of them is its floor.
+        one, s1 = xf[:1].contiguous(), start[:1].contiguous()
+        step = ((median_ms(lambda: fps_cuda(one, n, s1))
+                 - median_ms(lambda: fps_cuda(one, 2, s1))) / (n - 2))
+        fps_chain[f"N={n}"] = {"us_per_step_one_block": step * 1e3,
+                               "chain_floor_ms": step * n}
+    for kname, per_shape in rows.items():
+        emit("times", what=kname, per_launch=per_shape, card=card,
+             **({"chain": fps_chain} if kname == "fps" else {}))
+    return {"rows": rows, "fps_chain": fps_chain}
+
+
+# What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
+# one B=32 serving forward, the train-only kernels over one B=32 train step.
+KERNELS = {
+    "knn": ("mlsp_tpu_torch/csrc/knn.cu",
+            "mlsp_tpu/ops/pallas/knn_pallas.py:69", "one B=32 serving forward"),
+    "edge_moments": ("mlsp_tpu_torch/csrc/edge_moments.cu",
+                     "mlsp_tpu/ops/pallas/edge_pallas.py:233",
+                     "one B=32 serving forward"),
+    "edge_moments_bwd": ("mlsp_tpu_torch/csrc/edge_moments.cu",
+                         "mlsp_tpu/ops/pallas/edge_pallas.py:302",
+                         "one B=32 train step (the 4 shapes, 2 forwards)"),
+    "knn_moments": ("mlsp_tpu_torch/csrc/knn_moments.cu",
+                    "mlsp_tpu/ops/pallas/normals_pallas.py:93",
+                    "one B=32 train step (1 launch)"),
+    "fps": ("mlsp_tpu_torch/csrc/fps.cu", "mlsp_tpu/ops/pallas/fps_pallas.py:59",
+            "one B=32 train step (2 launches at N=1024)"),
+}
+
+
 def run(device: torch.device, card: str) -> None:
     """Every phase after `device`; prints the `kernels` line."""
     t0 = time.perf_counter()
@@ -282,55 +722,66 @@ def run(device: torch.device, card: str) -> None:
     knn_checks.append(check_knn("ragged", ragged))
     edge_checks = [check_edge(name, xg, u) for name, xg, u in edge_in]
 
+    fps_checks = []
+    for b, n in FPS_SHAPES:
+        xf = torch.from_numpy(make_classification(b, n, NUM_CLASS,
+                                                  seed=SEED + n)[0]).to(device)
+        fps_checks.append(check_fps(xf, torch.randint(0, n, (b,), generator=g
+                                                      ).to(device)))
+    moments_check = check_knn_moments(x)
+    bwd_checks = [check_edge_bwd(name, xg, u, g) for name, xg, u in edge_in]
+    # every odd point repeats its predecessor, in the graph features and in
+    # u: each point's duplicate is its neighbour, so max and min are tied
+    tied = [t.clone() for t in edge_in[1][1:]]
+    for t in tied:
+        t[:, 1::2] = t[:, 0::2]
+    bwd_checks.append(check_edge_bwd("conv2, tied values", *tied, g))
+
     with tempfile.TemporaryDirectory() as bundle_dir:
         srv = serve(model, bundle_dir, device)
+    tr = train(device)
 
-    rows = {"knn": [], "edge_moments": []}
-    for name, t in knn_in:
-        ms = median_ms(lambda: knn_cuda(t, K))
-        plain_ms = median_ms(lambda: knn_indices_torch(t, K))
-        b_ms, b_by = bound(*knn_cost(t))
-        rows["knn"].append({"input": name, "shape": list(t.shape), "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": b_ms,
-                            "bound_by": b_by})
-    for name, xg, u in edge_in:
-        idx = knn_cuda(xg, K)
-        ms = median_ms(lambda: edge_moments_cuda(u, idx, False))
-        plain_ms = median_ms(lambda: edge_moments_torch(u, idx, False))
-        b_ms, b_by = bound(*edge_cost(u, idx))
-        rows["edge_moments"].append({"input": name, "shape": list(u.shape),
-                                     "ms": ms, "plain_ms": plain_ms,
-                                     "bound_ms": b_ms, "bound_by": b_by})
-    for kname, per_shape in rows.items():
-        emit("times", what=kname, per_forward=per_shape, card=card)
+    kt = kernel_times(device, card, knn_in, edge_in, g)
     serving_times(srv["served"], srv["plain"], device, card)
+    step_times(tr, device, card)
 
-    meta = {
-        "knn": ("mlsp_tpu_torch/csrc/knn.cu",
-                "mlsp_tpu/ops/pallas/knn_pallas.py:69",
-                max(c["max_dist_gap"] for c in knn_checks)),
-        "edge_moments": ("mlsp_tpu_torch/csrc/edge_moments.cu",
-                         "mlsp_tpu/ops/pallas/edge_pallas.py:233",
-                         max(c["max_abs_err"] for c in edge_checks)),
+    errs = {
+        "knn": max(c["max_dist_gap"] for c in knn_checks),
+        "edge_moments": max(c["max_abs_err"] for c in edge_checks),
+        "edge_moments_bwd": max(c["max_abs_err"] for c in bwd_checks),
+        "knn_moments": moments_check["max_abs_err"],
+        "fps": float(max(c["unequal_indices"] for c in fps_checks)),
     }
-    entries = []
-    for kname, (source, replaces, err) in meta.items():
-        per_shape = rows[kname]
-        by_ops = sum(r["bound_ms"] for r in per_shape
+    rows = kt["rows"]
+    # (launches, per-launch row) over one train step's shapes, by kernel
+    step_rows = {"knn": [(2, r) for r in rows["knn"]],
+                 "edge_moments": [(2, r) for r in rows["edge_moments_train"]],
+                 "edge_moments_bwd": [(2, r) for r in rows["edge_moments_bwd"]],
+                 "knn_moments": [(1, rows["knn_moments"][0])],
+                 "fps": [(2, rows["fps"][0])]}
+
+    def total(weighted):
+        by_ops = sum(w * r["bound_ms"] for w, r in weighted
                      if r["bound_by"] == "operations")
-        by_bytes = sum(r["bound_ms"] for r in per_shape
+        by_bytes = sum(w * r["bound_ms"] for w, r in weighted
                        if r["bound_by"] == "bytes")
-        # Times are summed over the kernel's launches in one B=32 forward.
+        return {"ms": sum(w * r["ms"] for w, r in weighted),
+                "plain_ms": sum(w * r["plain_ms"] for w, r in weighted),
+                "bound_ms": by_ops + by_bytes,
+                "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+
+    entries = []
+    for kname, (source, replaces, over) in KERNELS.items():
+        main = (total([(1, r) for r in rows[kname]])
+                if kname in ("knn", "edge_moments") else total(step_rows[kname]))
+        by_path = {"serve": srv["launches"][kname],
+                   "train": tr["launches"][kname]}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": srv["launches"][kname],
-            "max_abs_err": err,
-            "ms": sum(r["ms"] for r in per_shape),
-            "plain_ms": sum(r["plain_ms"] for r in per_shape),
-            "bound_ms": by_ops + by_bytes,
-            "bound_by": "operations" if by_ops > by_bytes else "bytes",
-            "library_ms": None,
-            "per_forward_launches": len(per_shape),
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": errs[kname],
+            **main, "library_ms": None, "ms_over": over,
+            "per_train_step": total(step_rows[kname]),
             "check": "passed",  # a failed check exits before this line
         })
     print(json.dumps({"kernels": entries}), flush=True)

@@ -8,12 +8,16 @@ plain PyTorch version beside it, used for CPU tensors and as the reference.
 
 Subpackages
 -----------
-ops      pairwise distances, the kNN graph, EdgeConv neighbourhood
-         statistics; `ops.kernels` wraps the CUDA kernels
-models   DGCNN with the MLSP heads (reference state_dict layout)
-serving  serving bundles: save, load, predict
-utils    device resolution, JAX checkpoint carry-over
-data     synthetic clouds
+ops         pairwise distances, the kNN graph, EdgeConv neighbourhood
+            statistics, FPS, normals, density labels, masked Chamfer;
+            `ops.kernels` wraps the CUDA kernels
+models      DGCNN with the MLSP heads (reference state_dict layout)
+transforms  augmentation and DefRec deformation (draw, then apply)
+losses      the MLSP losses
+train       the PointDA paper-recipe train step, Adam + cosine schedule
+serving     serving bundles: save, load, predict
+utils       device resolution, PointDA config, JAX checkpoint carry-over
+data        synthetic clouds
 
 Entry points run on the CUDA card unless given device="cpu".
 """

@@ -1,9 +1,9 @@
 """DGCNN encoder with the MLSP heads (counterpart of `mlsp_tpu/models/dgcnn.py`).
 
 Channels-last, parameters in the reference `DGCNN` state_dict layout (see
-`models/layers.py`). Eval forward only: the EdgeConv layers run through the
-neighbourhood-statistics kernel, which has no backward kernel yet; training
-is the next slice of the port (ROADMAP.md).
+`models/layers.py`). The EdgeConv layers run through the neighbourhood
+statistics (`ops.edge.edge_moments`: on the card the kNN kernel, K2-fwd
+and, in training, K2-bwd).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ HEADS = ("defrec", "normal", "scan", "density")
 
 class EdgeConvM(nn.Module):
     """EdgeConv + BN + LeakyReLU + max over k, through neighbourhood
-    statistics (the JAX `EdgeConvM`, eval mode).
+    statistics (the JAX `EdgeConvM`).
 
     The reference applies `max_k act(BN(W [x_j - x_i | x_i]))`. With
     W = [W_d | W_c], u = W_d x and v = W_c x, the edge value is
@@ -41,6 +41,12 @@ class EdgeConvM(nn.Module):
     a negative gamma turning the max into a min. The reference's direct
     form and this one share the state_dict: `conv.0.weight` [out, 2 cin,
     1, 1] = [W_d | W_c] and `conv.1` the BN of the edge tensor.
+
+    In train mode the BN statistics of the virtual [B, N, k, C] edge tensor
+    z_ij = u_j + c_i (c = v - u) come from the neighbourhood sums s1 and
+    s2 (means over k): mean = E[s1 + c], E[z²] = E[s2 + 2 c s1 + c²],
+    var = max(E[z²] - mean², 0); the running statistics take torch's
+    momentum and the unbiased variance over n = B·N·k.
     """
 
     def __init__(self, cin: int, cout: int, k: int, knn_backend: str):
@@ -51,19 +57,31 @@ class EdgeConvM(nn.Module):
         self.knn_backend = knn_backend
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "EdgeConvM trains in the training slice of the port "
-                "(ROADMAP.md); call .eval() first")
         w = self.conv[0].weight.flatten(1)
         cin = x.shape[-1]
         u = F.linear(x, w[:, :cin])
-        v = F.linear(x, w[:, cin:])
-        mx, mn = edge_moments(x, u, self.k, False, backend=self.knn_backend)
+        c = F.linear(x, w[:, cin:]) - u
         bn = self.conv[1]
-        s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        if self.training:
+            mx, mn, s1, s2 = edge_moments(x, u, self.k, True,
+                                          backend=self.knn_backend)
+            s1, s2 = s1 / self.k, s2 / self.k
+            mu = (s1 + c).mean((0, 1))
+            ez2 = (s2 + 2.0 * c * s1 + c * c).mean((0, 1))
+            var = torch.clamp_min(ez2 - mu * mu, 0.0)
+            with torch.no_grad():
+                n = x.shape[0] * x.shape[1] * self.k
+                m = bn.momentum
+                bn.running_mean.mul_(1.0 - m).add_(m * mu)
+                bn.running_var.mul_(1.0 - m).add_(m * var * (n / max(n - 1, 1)))
+                bn.num_batches_tracked.add_(1)
+        else:
+            mx, mn = edge_moments(x, u, self.k, False,
+                                  backend=self.knn_backend)
+            mu, var = bn.running_mean, bn.running_var
+        s = bn.weight * torch.rsqrt(var + bn.eps)
         sel = torch.where(s >= 0, mx, mn)
-        y = s * (sel + (v - u) - bn.running_mean) + bn.bias
+        y = s * (sel + c - mu) + bn.bias
         return F.leaky_relu(y, negative_slope=0.2)
 
 
@@ -74,18 +92,25 @@ class DGCNN(nn.Module):
 
     `knn_backend` picks the kNN and statistics path ("auto": the kernels
     for CUDA tensors, their plain versions for CPU tensors; "torch": the
-    plain versions anywhere). On the card, run it under `torch.no_grad()`.
+    plain versions anywhere). `head_dtype="bf16"` runs the per-point heads
+    under bf16 autocast (BatchNorm stays float32) and returns them in
+    float32, as the JAX package's `head_dtype` does.
     """
 
     def __init__(self, num_classes: int = 10, k: int = 20,
                  dropout: float = 0.5, density_num_cls: int = 16,
-                 pergroup: float = 2.0, knn_backend: str = "auto"):
+                 pergroup: float = 2.0, knn_backend: str = "auto",
+                 head_dtype: str = "f32"):
         super().__init__()
+        if head_dtype not in ("f32", "bf16"):
+            raise ValueError(f"head_dtype must be 'f32' or 'bf16', got "
+                             f"{head_dtype!r}")
         self.config = {"k": k, "dropout": dropout,
                        "density_num_cls": density_num_cls,
-                       "pergroup": pergroup}
+                       "pergroup": pergroup, "head_dtype": head_dtype}
         self.k = k
         self.knn_backend = knn_backend
+        self.head_dtype = head_dtype
         self.input_transform_net = TransformNet(3)
         self.conv1 = EdgeConvM(3, 64, k, knn_backend)
         self.conv2 = EdgeConvM(64, 64, k, knn_backend)
@@ -100,14 +125,16 @@ class DGCNN(nn.Module):
         self.Density_cls = DensityHead(1536, density_num_cls, pergroup,
                                        dropout)
 
-    def forward(self, x: torch.Tensor,
-                heads: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, heads: tuple[str, ...] = (),
+                generator: torch.Generator | None = None
+                ) -> dict[str, torch.Tensor]:
         """x [B, N, 3] -> dict with "cls" [B, num_classes], "feat"
-        [B, 1024] and the per-point heads asked for."""
+        [B, 1024] and the per-point heads asked for. In train mode with
+        dropout, the masks come from `generator` (on x's device)."""
         unknown = set(heads) - set(HEADS)
         if unknown:
             raise ValueError(f"unknown heads {sorted(unknown)}; know {HEADS}")
-        idx = knn_indices(x, self.k, backend=self.knn_backend)
+        idx = knn_indices(x.detach(), self.k, backend=self.knn_backend)
         T = self.input_transform_net(edge_features(x, idx))
         # The reference applies T @ x_col; channels-last that is x_row @ T^T.
         x = torch.einsum("bnc,bdc->bnd", x, T)
@@ -120,14 +147,19 @@ class DGCNN(nn.Module):
         x5 = F.leaky_relu(batch_norm(self.bn5, self.conv5(x_cat)), 0.2)
         x5 = x5.amax(1)  # global feature [B, 1024]
 
-        out = {"feat": x5, "cls": self.C(x5)}
+        out = {"feat": x5, "cls": self.C(x5, generator)}
+        if not heads:
+            return out
         pp = (x_cat, x5)  # the heads' input, concat [x_cat | x5] implied
-        if "defrec" in heads:
-            out["defrec"] = self.DefRec(pp)
-        if "normal" in heads:
-            out["normal"] = self.Norm_pred(pp)
-        if "scan" in heads:
-            out["scan"] = self.Rec_scan(pp)
-        if "density" in heads:
-            out["density"], out["density_mse"] = self.Density_cls(pp)
-        return out
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=self.head_dtype == "bf16"):
+            if "defrec" in heads:
+                out["defrec"] = self.DefRec(pp, generator)
+            if "normal" in heads:
+                out["normal"] = self.Norm_pred(pp, generator)
+            if "scan" in heads:
+                out["scan"] = self.Rec_scan(pp, generator)
+            if "density" in heads:
+                out["density"], out["density_mse"] = self.Density_cls(
+                    pp, generator)
+        return {name: t.float() for name, t in out.items()}

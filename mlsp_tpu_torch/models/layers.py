@@ -10,7 +10,12 @@ PyTorch models (what `mlsp_tpu.utils.torch_export` emits), so one strict
 `load_state_dict` takes a reference `model.pt` or a converted JAX
 checkpoint. BatchNorm is torch's own, which updates its running variance
 with the unbiased variance: the semantics that the JAX package's
-`TorchBatchNorm` emulates.
+`TorchBatchNorm` emulates. It always runs in float32, also inside a bf16
+head, as the JAX package's does.
+
+Dropout draws its masks from the `torch.Generator` the caller passes to
+`forward` (`dropout` below), never from the global RNG; in train mode a
+layer with dropout > 0 needs one.
 """
 
 from __future__ import annotations
@@ -57,8 +62,25 @@ def linear_in(layer: nn.Module, x) -> torch.Tensor:
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm over every axis but the last (channels-last)."""
-    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+    """BatchNorm over every axis but the last (channels-last), in at least
+    float32; the result keeps x's dtype."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    y = bn(x.reshape(-1, x.shape[-1]).to(wide)).reshape(x.shape)
+    return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (flax `nn.Dropout`: keep with probability 1 - p,
+    scale kept values by 1 / (1 - p)) with the mask drawn from `generator`,
+    which must live on x's device."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator "
+                         "(pass generator= to the model's forward)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class DenseBN(nn.Module):
@@ -113,11 +135,12 @@ class Classifier(nn.Module):
         self.mlp1 = DenseBN(cin, 512, "leakyrelu", True, conv=False)
         self.mlp2 = DenseBN(512, 256, "leakyrelu", True, conv=False)
         self.mlp3 = nn.Linear(256, num_classes)
-        self.drop = nn.Dropout(dropout)
+        self.p = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(self.mlp1(x))
-        x = self.drop(self.mlp2(x))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = dropout(self.mlp1(x), self.p, self.training, generator)
+        x = dropout(self.mlp2(x), self.p, self.training, generator)
         return self.mlp3(x)
 
 
@@ -135,11 +158,15 @@ class PointMLPHead(nn.Module):
         self.conv3 = PointwiseConv(256, 128, 1, False)
         self.bn3 = nn.BatchNorm1d(128)
         self.conv4 = PointwiseConv(128, out, 1, False)
-        self.drop = nn.Dropout(dropout)
+        self.p = dropout
 
-    def forward(self, x) -> torch.Tensor:
-        x = self.drop(F.relu(batch_norm(self.bn1, linear_in(self.conv1, x))))
-        x = self.drop(F.relu(batch_norm(self.bn2, self.conv2(x))))
+    def forward(self, x, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+        def drop(t):
+            return dropout(t, self.p, self.training, generator)
+
+        x = drop(F.relu(batch_norm(self.bn1, linear_in(self.conv1, x))))
+        x = drop(F.relu(batch_norm(self.bn2, self.conv2(x))))
         x = F.relu(batch_norm(self.bn3, self.conv3(x)))
         return self.conv4(x)
 
@@ -166,14 +193,18 @@ class DensityHead(nn.Module):
         self.fc2 = nn.Linear(num_cls, 1, bias=False)
         self.fc2.weight.requires_grad_(False)
         self.pergroup = pergroup
-        self.drop = nn.Dropout(dropout)
+        self.p = dropout
 
-    def forward(self, x):
-        x = self.drop(F.relu(batch_norm(self.bn1, linear_in(self.conv1, x))))
-        x = self.drop(self.mlp1(x))
-        x = self.drop(self.mlp2(x))
-        p_vec = torch.softmax(self.mlp3(x), dim=-1)
-        return p_vec, self.fc2(p_vec).squeeze(-1)
+    def forward(self, x, generator: torch.Generator | None = None):
+        def drop(t):
+            return dropout(t, self.p, self.training, generator)
+
+        x = drop(F.relu(batch_norm(self.bn1, linear_in(self.conv1, x))))
+        x = drop(self.mlp1(x))
+        x = drop(self.mlp2(x))
+        p_vec = torch.softmax(self.mlp3(x).float(), dim=-1)
+        # elementwise, so a bf16 autocast region leaves it in float32
+        return p_vec, (p_vec * self.fc2.weight[0]).sum(-1)
 
 
 @torch.no_grad()

@@ -1,10 +1,11 @@
 """Builds the CUDA sources in `mlsp_tpu_torch/csrc/` at first use.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library with
-a plain C interface, `_build/<hash>/lib<name>.so` inside the package, and
-loaded with `ctypes`; the wrappers pass `data_ptr()`s and the current CUDA
-stream. The directory name is a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded. All sources are
+Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library
+with a plain C interface, `_build/<hash>/lib<name>.so` inside the package,
+and loaded with `ctypes`; the wrappers pass `data_ptr()`s and the current
+CUDA stream. The directory name is a hash of every file in `csrc/` (the
+shared `*.cuh` headers too) and the flags, so an edited source is rebuilt
+and a stale library is never loaded. All sources are
 compiled together, one `nvcc` process each. A failed build raises with
 nvcc's output.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
-SOURCES = ("knn", "edge_moments")
+SOURCES = ("knn", "edge_moments", "knn_moments", "fps")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -12,6 +12,9 @@ Layout translations:
   * BatchNorm: scale -> weight, bias -> bias, batch_stats mean/var ->
     running_mean/running_var, plus `num_batches_tracked` = 0.
   * Density head: the frozen bins `fc2.weight` = pergroup * arange(num_cls).
+
+`dgcnn_grads_from_jax` maps a gradient tree the same way (parameters
+only), so tests can compare gradients; no optimizer state is carried.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ def _f32(a) -> torch.Tensor:
 class _Converter:
     def __init__(self, variables: Mapping):
         self.params = variables["params"]
-        self.stats = variables.get("batch_stats", {})
+        self.stats = variables.get("batch_stats")  # None: parameters only
         self.out: dict[str, torch.Tensor] = {}
 
     @staticmethod
@@ -49,9 +52,12 @@ class _Converter:
             self.out[dst + ".bias"] = _f32(leaf["bias"])
 
     def bn(self, dst: str, path: tuple[str, ...]) -> None:
-        p, s = self.node(self.params, path), self.node(self.stats, path)
+        p = self.node(self.params, path)
         self.out[dst + ".weight"] = _f32(p["scale"])
         self.out[dst + ".bias"] = _f32(p["bias"])
+        if self.stats is None:
+            return
+        s = self.node(self.stats, path)
         self.out[dst + ".running_mean"] = _f32(s["mean"])
         self.out[dst + ".running_var"] = _f32(s["var"])
         self.out[dst + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
@@ -81,7 +87,23 @@ def dgcnn_state_dict_from_jax(variables: Mapping,
     Takes both EdgeConv forms of the JAX model (`EdgeConvM_i`, moments, and
     `EdgeConv_i`, direct). Raises ValueError if a part is missing.
     """
-    cv = _Converter(variables)
+    out = _convert(_Converter(variables))
+    num_cls = out["Density_cls.mlp3.weight"].shape[0]
+    out["Density_cls.fc2.weight"] = pergroup * torch.arange(
+        num_cls, dtype=torch.float32)[None, :]
+    return out
+
+
+def dgcnn_grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX DGCNN gradient tree (the `params` structure, no
+    `batch_stats`) -> {port parameter name: gradient}, for every trainable
+    parameter of the port's `DGCNN` (the frozen density bins have none).
+    The same layout translations as the weights, so a test can hold the
+    port's `.grad`s against `jax.grad`."""
+    return _convert(_Converter({"params": grads}))
+
+
+def _convert(cv: _Converter) -> dict[str, torch.Tensor]:
     try:
         t = ("TransformNet_0",)
         for j in range(3):
@@ -127,7 +149,4 @@ def dgcnn_state_dict_from_jax(variables: Mapping,
         raise ValueError(
             f"DGCNN variables lack {e.args[0]} (was the model initialised "
             "with all heads?)") from e
-    num_cls = cv.out[f"{d}.mlp3.weight"].shape[0]
-    cv.out[f"{d}.fc2.weight"] = pergroup * torch.arange(
-        num_cls, dtype=torch.float32)[None, :]
     return cv.out

@@ -94,11 +94,6 @@ class TestForward:
             np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                        rtol=1e-4, atol=1e-4, err_msg=key)
 
-    def test_train_mode_raises(self):
-        model = make_model("dgcnn", 10, device="cpu").train()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(torch.randn(2, 32, 3))
-
     def test_unknown_head_raises(self):
         with pytest.raises(ValueError, match="unknown heads"):
             make_model("dgcnn", 10, device="cpu")(torch.zeros(1, 32, 3),
