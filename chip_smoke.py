@@ -9,15 +9,19 @@ one JSON line each; any failure exits non-zero before the last line:
   build        compile every kernel in mlsp_tpu_torch/csrc (ptxas registers
                and spills per kernel)
   knn          the kNN kernel (K1) against its plain version, on the inputs
-               the serving forward gives it, plus a ragged N
+               the serving forward gives it, plus a ragged N, then on
+               integer coordinates (every distance exact), where the
+               indices must be equal, tie order included
   edge         the neighbourhood-statistics kernel (K2-fwd) against its
                plain version, on the serving forward's inputs
-  fps          the FPS kernel (K4) against its plain version at B=32,
-               N = npoint = 1024 (PCM's shape), 1000 and 2048, random
-               starts: the indices must be equal
+  fps          the FPS kernel (K4) against its plain version at 2B=64,
+               N = npoint = 1024 (PCM's one launch), B=32 at N = 1000 and
+               2048, npoint < N, and on duplicated points, random starts:
+               the indices must be equal
   knn_moments  the kNN normal-moments kernel (K3) at B=32, N=1024, k=20:
                its neighbour sets, its sums against sums over its own
-               neighbours, and the normals of both routes
+               neighbours, and the normals of both routes; on integer
+               coordinates its indices must equal the plain version's
   edge_bwd     the EdgeConv backward kernel (K2-bwd) against autograd of
                the plain version at the four train shapes and on values
                tied at the max and min
@@ -30,7 +34,7 @@ one JSON line each; any failure exits non-zero before the last line:
                (PointDAConfig().paper_recipe: B=32, N=1024, k=20, dropout
                0.5, bf16 heads) from seeded random weights and BatchNorm;
                launches counted over exactly those steps (per step K1 10,
-               K2-fwd 8, K2-bwd 8, K3 1, K4 2); the first step rerun through
+               K2-fwd 8, K2-bwd 8, K3 1, K4 1); the first step rerun through
                the plain versions on the card from the same weights and
                generator seed, on the kernel run's kNN graphs and FPS
                orders, losses and gradients compared at fixed bounds
@@ -97,11 +101,23 @@ PEAK_BYTES = 3.35e12
 # package's AOT self-check (mlsp_tpu/train/evaluation.py).
 MAX_LOGIT_DIFF = 2e-2
 MIN_CLASS_AGREEMENT = 0.99
-FPS_SHAPES = ((B, N), (B, RAGGED_N), (B, 2048))  # npoint = N: PCM's call
+# npoint = N; (2B, N) is PCM's one launch for both of its batches
+FPS_SHAPES = ((2 * B, N), (B, RAGGED_N), (B, 2048))
+# (B, N, C, k) of the integer-coordinate exact-order checks; C = 3 with
+# coordinates in [-2, 2] puts many points at equal distances
+EXACT_KNN = ((B, N, 3, K), (4, RAGGED_N, 64, 32), (4, N, 128, 1),
+             (2, 2048, 256, 16))
+# rows_same_indices of K1 against the plain version on the serving inputs,
+# from the call before the K1 redesign (NVIDIA H100 80GB HBM3, 700.00 W):
+# the redesign keeps the distances bit for bit, so these should repeat
+ROWS_SAME_INDICES_BEFORE = {
+    "cloud": 0.99981689453125, "conv1": 0.999786376953125,
+    "conv2": 0.9990234375, "conv3": 0.99859619140625,
+    "conv4": 0.99688720703125, "ragged": 0.9998750686645508}
 TRAIN_STEPS = 3
 STEPS_PER_EPOCH = 100  # the schedule's epoch length; 3 steps stay in epoch 0
 PER_STEP = {"knn": 10, "edge_moments": 8, "edge_moments_bwd": 8,
-            "knn_moments": 1, "fps": 2}
+            "knn_moments": 1, "fps": 1}
 # First train step, kernel route against plain route (both on the card),
 # with train-mode BN and again with eval-mode BN. The plain run replays
 # the kernel run's kNN graphs and FPS orders (`testing.Tape`), so only
@@ -124,7 +140,7 @@ GRAD_RTOL = 1e-4
 GRAD_RTOL_TRAIN, GRAD_MEDIAN_TRAIN = 2e-2, 2e-3
 REPEAT_RTOL = 1e-4
 PERTURB = 1e-6
-GRAPHS_PER_STEP, ORDERS_PER_STEP = 11, 2  # 2 forwards x 5 kNN + K3; PCM
+GRAPHS_PER_STEP, ORDERS_PER_STEP = 11, 1  # 2 forwards x 5 kNN + K3; PCM
 
 
 class SmokeFailure(RuntimeError):
@@ -230,12 +246,49 @@ def check_knn(name: str, x: torch.Tensor) -> dict:
     res = {"input": name, "shape": list(x.shape),
            "rows": gap.numel(),
            "rows_same_indices": float((got == want).all(-1).float().mean()),
+           "rows_same_indices_before": ROWS_SAME_INDICES_BEFORE.get(name),
            "rows_same_set": float((gap == 0).float().mean()),
            "max_dist_gap": float(gap.max()),
            "max_gap_over_tol": float((gap / tol).max())}
     emit("knn", **res)
     check(bool((gap <= tol).all()), f"knn kernel disagrees on {name}: {res}")
     return res
+
+
+def integer_cloud(g: torch.Generator, shape, device) -> torch.Tensor:
+    """Coordinates in {-2, ..., 2}: every distance of the kNN formula is an
+    exact float32 integer whatever the order of its sums, so two correct
+    programs must give the same indices, tie order included."""
+    return torch.randint(-2, 3, shape, generator=g).float().to(device)
+
+
+def check_knn_exact(g: torch.Generator, device) -> None:
+    """Pass: on integer coordinates (EXACT_KNN) and on a cloud of one
+    repeated point (every distance 0), K1's indices equal the plain
+    version's, and so do K3's where C = 3."""
+    cases = [(f"integer B={b} N={n} C={c} k={k}",
+              integer_cloud(g, (b, n, c), device), k)
+             for b, n, c, k in EXACT_KNN]
+    cases.append(("one repeated point", torch.full((2, N, 3), 0.5,
+                                                   device=device), K))
+    for name, x, k in cases:
+        want = knn_indices_torch(x, k)
+        got = knn_cuda(x, k)
+        torch.cuda.synchronize()
+        res = {"input": name, "shape": list(x.shape), "k": k,
+               "exact": True, "rows_unequal": int((got != want).any(-1).sum())}
+        emit("knn", **res)
+        check(res["rows_unequal"] == 0,
+              f"knn kernel indices differ on exact distances: {res}")
+        if x.shape[-1] == 3:
+            idx = knn_moments_cuda(x, k, return_indices=True)[2]
+            torch.cuda.synchronize()
+            res = {"input": name, "shape": list(x.shape), "k": k,
+                   "exact": True,
+                   "rows_unequal": int((idx != want).any(-1).sum())}
+            emit("knn_moments", **res)
+            check(res["rows_unequal"] == 0,
+                  f"K3 indices differ on exact distances: {res}")
 
 
 def check_edge(name: str, xg: torch.Tensor, u: torch.Tensor) -> dict:
@@ -286,12 +339,15 @@ def edge_bwd_cost(u: torch.Tensor, k: int) -> tuple[float, float]:
     return 8.0 * b * n * k * c, 8 * b * n * c * 4 + b * n * k * 8
 
 
-def check_fps(x: torch.Tensor, start: torch.Tensor) -> dict:
-    """Pass: the kernel's indices equal the plain version's."""
-    got = fps_cuda(x, x.shape[1], start)
-    want = fps_torch(x, x.shape[1], start)
+def check_fps(x: torch.Tensor, start: torch.Tensor, npoint: int = 0,
+              what: str = "random") -> dict:
+    """Pass: the kernel's indices equal the plain version's (npoint = N
+    unless given)."""
+    npoint = npoint or x.shape[1]
+    got = fps_cuda(x, npoint, start)
+    want = fps_torch(x, npoint, start)
     torch.cuda.synchronize()
-    res = {"shape": list(x.shape), "npoint": x.shape[1],
+    res = {"input": what, "shape": list(x.shape), "npoint": npoint,
            "unequal_indices": int((got != want).sum()),
            "first_column_is_start": bool(torch.equal(got[:, 0], start))}
     emit("fps", **res)
@@ -666,7 +722,7 @@ def kernel_times(device, card, knn_in, edge_in, g) -> dict:
         xf = torch.from_numpy(make_classification(b, n, NUM_CLASS,
                                                   seed=SEED + n)[0]).to(device)
         start = torch.randint(0, n, (b,), generator=g).to(device)
-        row("fps", f"N={n}", xf.shape, lambda: fps_cuda(xf, n, start),
+        row("fps", f"B={b} N={n}", xf.shape, lambda: fps_cuda(xf, n, start),
             lambda: fps_torch(xf, n, start), fps_cost(b, n), plain_reps=3)
         # The chain: one cloud alone, npoint = n against npoint = 2, gives
         # this design's time per dependent step; n of them is its floor.
@@ -696,7 +752,7 @@ KERNELS = {
                     "mlsp_tpu/ops/pallas/normals_pallas.py:93",
                     "one B=32 train step (1 launch)"),
     "fps": ("mlsp_tpu_torch/csrc/fps.cu", "mlsp_tpu/ops/pallas/fps_pallas.py:59",
-            "one B=32 train step (2 launches at N=1024)"),
+            "one B=32 train step (1 launch at [2B, N, 3] = [64, 1024, 3])"),
 }
 
 
@@ -720,14 +776,25 @@ def run(device: torch.device, card: str) -> None:
     knn_checks = [check_knn(name, t) for name, t in knn_in]
     ragged = torch.randn(B, RAGGED_N, 64, generator=g).to(device)
     knn_checks.append(check_knn("ragged", ragged))
+    check_knn_exact(g, device)
     edge_checks = [check_edge(name, xg, u) for name, xg, u in edge_in]
 
     fps_checks = []
     for b, n in FPS_SHAPES:
         xf = torch.from_numpy(make_classification(b, n, NUM_CLASS,
                                                   seed=SEED + n)[0]).to(device)
-        fps_checks.append(check_fps(xf, torch.randint(0, n, (b,), generator=g
-                                                      ).to(device)))
+        start = torch.randint(0, n, (b,), generator=g).to(device)
+        fps_checks.append(check_fps(xf, start))
+        if b == B:
+            fps_checks.append(check_fps(xf, start, n // 3))
+    # ties: every odd point repeats its predecessor; and integer points
+    xf = torch.from_numpy(make_classification(B, N, NUM_CLASS,
+                                              seed=SEED + 6)[0]).to(device)
+    xf[:, 1::2] = xf[:, 0::2]
+    start = torch.randint(0, N, (B,), generator=g).to(device)
+    fps_checks.append(check_fps(xf, start, what="duplicated points"))
+    fps_checks.append(check_fps(integer_cloud(g, (B, N, 3), device), start,
+                                what="integer points"))
     moments_check = check_knn_moments(x)
     bwd_checks = [check_edge_bwd(name, xg, u, g) for name, xg, u in edge_in]
     # every odd point repeats its predecessor, in the graph features and in
@@ -758,7 +825,7 @@ def run(device: torch.device, card: str) -> None:
                  "edge_moments": [(2, r) for r in rows["edge_moments_train"]],
                  "edge_moments_bwd": [(2, r) for r in rows["edge_moments_bwd"]],
                  "knn_moments": [(1, rows["knn_moments"][0])],
-                 "fps": [(2, rows["fps"][0])]}
+                 "fps": [(1, rows["fps"][0])]}
 
     def total(weighted):
         by_ops = sum(w * r["bound_ms"] for w, r in weighted

@@ -14,83 +14,63 @@
 //
 // Design: the TPU kernel built a {0,1} selection mask and reduced with two
 // mask matmuls because Mosaic has no in-kernel gather. Here the selection
-// is `knn_topk::select` (knn_topk.cuh), included from knn.cu's own body,
-// so the neighbour SET is exactly K1's; afterwards each thread reads the
-// coordinates of its k neighbours (L1/L2-resident: a cloud is 12 KB) and
-// accumulates the twelve sums in ascending-distance order. The indices
-// never reach device memory unless the caller asks for them (`idx_out`,
-// for checking).
+// is `knn_topk::select` (knn_topk.cuh), the body K1 runs, so the neighbour
+// SET and its order are exactly K1's; afterwards the warp that owns a
+// query holds its k neighbours' keys one per lane, each lane loads its
+// neighbour's coordinates (L1/L2-resident: a cloud is 12 KB), and lanes
+// 0..8 each accumulate one of the nine distinct sums (three coordinate
+// sums, six products; s2's lower triangle repeats) over the neighbours in
+// ascending-distance order, each neighbour broadcast by shuffles: the same
+// additions and FMAs, in the same order, as one thread summing them all.
+// The indices never reach device memory unless the caller asks for them
+// (`idx_out`, for checking).
 
 #include "knn_topk.cuh"
 
 namespace {
 
-using knn_topk::QT;
+using knn_topk::THREADS;
 
-template <int KMAX>
-__global__ void __launch_bounds__(QT)
+__global__ void __launch_bounds__(THREADS, 2)
 knn_moments_kernel(const float* __restrict__ x, float* __restrict__ s1,
                    float* __restrict__ s2, int64_t* __restrict__ idx_out,
                    int N, int k) {
-  extern __shared__ float smem[];
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * QT;
-  const int nq = min(QT, N - q0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
   const float* xb = x + (size_t)blockIdx.y * N * 3;
-
-  float best_d[KMAX];
-  int best_i[KMAX];
-  knn_topk::select<KMAX>(xb, N, 3, q0, nq, smem, best_d, best_i);
-  if (t >= nq) return;
-
-  const size_t row = (size_t)blockIdx.y * N + q0 + t;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  float m00 = 0.f, m01 = 0.f, m02 = 0.f, m11 = 0.f, m12 = 0.f, m22 = 0.f;
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    if (i < k) {
-      const float* p = xb + (size_t)best_i[i] * 3;
-      const float p0 = p[0], p1 = p[1], p2 = p[2];
-      a0 += p0;
-      a1 += p1;
-      a2 += p2;
-      m00 = fmaf(p0, p0, m00);
-      m01 = fmaf(p0, p1, m01);
-      m02 = fmaf(p0, p2, m02);
-      m11 = fmaf(p1, p1, m11);
-      m12 = fmaf(p1, p2, m12);
-      m22 = fmaf(p2, p2, m22);
-      if (idx_out != nullptr) idx_out[row * k + i] = best_i[i];
-    }
-  }
-  float* o1 = s1 + row * 3;
-  o1[0] = a0;
-  o1[1] = a1;
-  o1[2] = a2;
-  float* o2 = s2 + row * 9;  // symmetric: the lower triangle repeats
-  o2[0] = m00;
-  o2[1] = m01;
-  o2[2] = m02;
-  o2[3] = m01;
-  o2[4] = m11;
-  o2[5] = m12;
-  o2[6] = m02;
-  o2[7] = m12;
-  o2[8] = m22;
-}
-
-template <int KMAX>
-cudaError_t launch(const float* x, float* s1, float* s2, int64_t* idx_out,
-                   int B, int N, int k, cudaStream_t stream) {
-  const size_t smem = knn_topk::smem_bytes(3);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_moments_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + QT - 1) / QT, B);
-  knn_moments_kernel<KMAX><<<grid, QT, smem, stream>>>(x, s1, s2, idx_out,
-                                                       N, k);
-  return cudaGetLastError();
+  // lane m < 9 sums term m: a0 a1 a2 (sums), then m00 m01 m02 m11 m12 m22
+  // (FMAs of coordinates u and v); the other lanes' sums are dropped
+  const int u = lane < 3 ? lane : lane < 6 ? 0 : lane < 8 ? 1 : 2;
+  const int v = lane < 3 ? lane : lane < 6 ? lane - 3 : lane < 8 ? lane - 5 : 2;
+  knn_topk::select(
+      xb, N, 3, k, blockIdx.x * knn_topk::QB, smem,
+      [&](int q, knn_topk::key_t key) {
+        const size_t row = (size_t)blockIdx.y * N + q;
+        const int j = (int)(uint32_t)key;
+        float p[3] = {0.f, 0.f, 0.f};
+        if (lane < k) {
+          p[0] = xb[3 * j];
+          p[1] = xb[3 * j + 1];
+          p[2] = xb[3 * j + 2];
+          if (idx_out != nullptr) idx_out[row * k + lane] = j;
+        }
+        float acc = 0.f;
+        for (int i = 0; i < k; ++i) {
+          const float c0 = __shfl_sync(knn_topk::FULL, p[0], i);
+          const float c1 = __shfl_sync(knn_topk::FULL, p[1], i);
+          const float c2 = __shfl_sync(knn_topk::FULL, p[2], i);
+          const float pu = u == 0 ? c0 : u == 1 ? c1 : c2;
+          const float pv = v == 0 ? c0 : v == 1 ? c1 : c2;
+          acc = lane < 3 ? acc + pu : fmaf(pu, pv, acc);
+        }
+        if (lane < 3) s1[row * 3 + lane] = acc;
+        // s2 is symmetric, row-major 3x3: the off-diagonal terms twice
+        float* o2 = s2 + row * 9;
+        if (lane >= 3 && lane < 9) {
+          o2[3 * u + v] = acc;
+          if (u != v) o2[3 * v + u] = acc;
+        }
+      });
 }
 
 }  // namespace
@@ -104,8 +84,15 @@ int mlsp_knn_moments(const float* x, float* s1, float* s2, int64_t* idx_out,
                      int B, int N, int k, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || k <= 0 || k > N || k > 32)
     return (int)cudaErrorInvalidValue;
-  return (int)KNN_TOPK_DISPATCH(k, launch, x, s1, s2, idx_out, B, N, k,
-                                stream);
+  const size_t smem = knn_topk::smem_bytes(3);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + knn_topk::QB - 1) / knn_topk::QB, B);
+  knn_moments_kernel<<<grid, THREADS, smem, stream>>>(x, s1, s2, idx_out, N,
+                                                      k);
+  return (int)cudaGetLastError();
 }
 
 const char* mlsp_knn_moments_error_string(int status) {

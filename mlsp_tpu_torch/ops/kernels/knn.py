@@ -14,7 +14,7 @@ import torch
 from mlsp_tpu_torch.ops.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_K = 32  # the kernel's register top-k holds at most this many
+MAX_K = 32  # the sorted top-k lives one key per lane of a warp
 _SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
 
 

@@ -104,15 +104,18 @@ def pcm_mix(x: torch.Tensor, y: torch.Tensor, draws: dict,
     """PCM mixup (`MLSP/PCM.py:6-38`): FPS-sample round(λN) points of each
     cloud and N - round(λN) of a batch-permuted partner, concatenate and
     permute the points. The FPS prefix property gives every prefix length
-    from one full-length order per cloud (2 FPS calls with npoint = N).
+    from one full-length order per cloud. The 2B clouds (x, then x[perm])
+    go through one FPS call: each cloud's order is independent of the
+    others', so this equals two calls of B.
 
     Returns (mixed [B, N, 3], (y, y[perm], λ))."""
     B, N, _ = x.shape
     perm, lam = draws["perm"], draws["lam"]
     num_a = torch.round(lam * N).long()
     xb = x[perm]
-    va = fps_gather(x, fps(x, N, draws["start_a"], backend))
-    vb = fps_gather(xb, fps(xb, N, draws["start_b"], backend))
+    order = fps(torch.cat([x, xb]), N,
+                torch.cat([draws["start_a"], draws["start_b"]]), backend)
+    va, vb = fps_gather(x, order[:B]), fps_gather(xb, order[B:])
     i = torch.arange(N, device=x.device)
     idx_b = torch.clamp(i - num_a, 0, N - 1)
     mixed = torch.where((i < num_a)[None, :, None], va, vb[:, idx_b])

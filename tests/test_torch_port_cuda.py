@@ -62,6 +62,40 @@ def test_knn_kernel_matches_plain(card, B, N, C, k):
     assert torch.equal(got[..., 0].cpu(), torch.arange(N).expand(B, N))
 
 
+def _int_cloud(seed, shape, device):
+    """Coordinates in {-2, ..., 2}: every kNN distance is an exact float32
+    integer in any order of the sums, and many of them are equal."""
+    x = np.random.default_rng(seed).integers(-2, 3, shape).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("N", [33, 1000, 1024, 2048])
+@pytest.mark.parametrize("C", [3, 64, 128, 256])
+@pytest.mark.parametrize("k", [1, 4, 16, 20, 32])
+def test_knn_kernel_exact_order_on_integer_points(card, k, C, N):
+    """With exact distances two correct programs agree to the index: K1's
+    (and at C = 3 K3's) indices equal the plain version's, tie order
+    included."""
+    x = _int_cloud(1000 * k + C + N, (2, N, C), card)
+    want = knn_indices_torch(x, k)
+    assert torch.equal(knn_cuda(x, k), want)
+    if C == 3:
+        assert torch.equal(knn_moments_cuda(x, k, return_indices=True)[2],
+                           want)
+
+
+@pytest.mark.parametrize("C", [3, 64])
+def test_knn_kernel_one_repeated_point(card, C):
+    """Every distance 0: each row is 0 .. k-1 (ties to the lower index)."""
+    x = torch.full((2, 1000, C), 0.25, device=card)
+    want = torch.arange(20, device=card).expand(2, 1000, 20)
+    assert torch.equal(knn_indices_torch(x, 20), want)
+    assert torch.equal(knn_cuda(x, 20), want)
+    if C == 3:
+        assert torch.equal(knn_moments_cuda(x, 20, return_indices=True)[2],
+                           want)
+
+
 def test_knn_kernel_duplicates_lower_index_first(card):
     x = _x(0, (1, 64, 3), card, dup=True)
     got = knn_cuda(x, 4)[0, :, 0].cpu()
@@ -127,7 +161,9 @@ def test_edge_kernel_wrapper_records_no_grad(card):
 
 
 @pytest.mark.parametrize("B,N,npoint", [(4, 1024, 1024), (3, 1000, 1000),
-                                        (2, 2048, 2048), (5, 37, 20)])
+                                        (2, 2048, 2048), (5, 37, 20),
+                                        (64, 1024, 1024), (3, 2048, 700),
+                                        (4, 1024, 300)])
 def test_fps_kernel_equals_plain(card, B, N, npoint):
     x = _x(N, (B, N, 3), card)
     start = torch.randint(0, N, (B,), generator=torch.Generator().manual_seed(N)
@@ -136,6 +172,21 @@ def test_fps_kernel_equals_plain(card, B, N, npoint):
     want = fps_torch(x, npoint, start)
     assert torch.equal(got, want)
     assert torch.equal(got[:, 0], start)
+
+
+@pytest.mark.parametrize("ties", ["duplicated", "integer"])
+def test_fps_kernel_ties_to_lowest_index(card, ties):
+    """Equal min-distances: every odd point repeats its predecessor, or
+    integer coordinates in {-2, ..., 2}; at [2B, N] = [64, 1024] (PCM's
+    one launch) the indices equal the plain version's."""
+    if ties == "duplicated":
+        x = _x(7, (64, 1024, 3), card)
+        x[:, 1::2] = x[:, 0::2]
+    else:
+        x = _int_cloud(7, (64, 1024, 3), card)
+    start = torch.randint(0, 1024, (64,),
+                          generator=torch.Generator().manual_seed(7)).to(card)
+    assert torch.equal(fps_cuda(x, 1024, start), fps_torch(x, 1024, start))
 
 
 def test_fps_kernel_refuses_clouds_over_2048_points(card):
@@ -189,7 +240,7 @@ def test_dgcnn_kernels_match_plain_and_count(card):
 
 def test_train_step_launches_every_kernel(card):
     """One paper-recipe step at a small size: K1 10, K2-fwd 8, K2-bwd 8,
-    K3 1 and K4 2 launches, finite losses."""
+    K3 1 and K4 1 (both PCM batches in one launch), finite losses."""
     cfg = PointDAConfig(batch_size=4, num_points=512).paper_recipe
     g = torch.Generator().manual_seed(0)
     model = make_model("dgcnn", 10, device=card, generator=g,
@@ -203,5 +254,5 @@ def test_train_step_launches_every_kernel(card):
                            torch.Generator(device=card).manual_seed(0), cfg)
     assert kernels.launches() == {"knn": 10, "edge_moments": 8,
                                   "edge_moments_bwd": 8, "knn_moments": 1,
-                                  "fps": 2}
+                                  "fps": 1}
     assert all(torch.isfinite(t) for t in m.values())

@@ -108,6 +108,22 @@ class TestFps:
         with pytest.raises(ValueError, match="npoint"):
             fps(torch.zeros(1, 8, 3), 9, torch.zeros(1, dtype=torch.int64))
 
+    @pytest.mark.parametrize("dup", [False, True])
+    def test_one_call_on_both_pcm_batches(self, dup):
+        """PCM's one FPS call on [x; x[perm]] ([2B, N, 3]) equals its two
+        per-half calls (each cloud's order is independent of the others'),
+        also with tied distances from duplicated points."""
+        B, N = 4, 96
+        x = _unit_clouds(21, B, N)
+        if dup:
+            x[:, 1::2] = x[:, 0::2]
+        perm = np.random.default_rng(22).permutation(B)
+        start = np.random.default_rng(23).integers(0, N, 2 * B)
+        xa, xb = _t(x), _t(x[perm])
+        both = fps(torch.cat([xa, xb]), N, _t(start))
+        assert torch.equal(both[:B], fps(xa, N, _t(start[:B])))
+        assert torch.equal(both[B:], fps(xb, N, _t(start[B:])))
+
 
 class TestNormals:
     def test_knn_moments_match_pallas(self):
