@@ -13,7 +13,10 @@ one JSON line each; any failure exits non-zero before the last line:
                integer coordinates (every distance exact), where the
                indices must be equal, tie order included
   edge         the neighbourhood-statistics kernel (K2-fwd) against its
-               plain version, on the serving forward's inputs
+               plain version, on the serving forward's inputs, a ragged
+               N = 1000 at C = 64 and the repeated-point graph (a cloud of
+               one point: every row's neighbours are the k lowest indices,
+               each of which has in-degree N)
   fps          the FPS kernel (K4) against its plain version at 2B=64,
                N = npoint = 1024 (PCM's one launch), B=32 at N = 1000 and
                2048, npoint < N, and on duplicated points, random starts:
@@ -23,8 +26,9 @@ one JSON line each; any failure exits non-zero before the last line:
                neighbours, and the normals of both routes; on integer
                coordinates its indices must equal the plain version's
   edge_bwd     the EdgeConv backward kernel (K2-bwd) against autograd of
-               the plain version at the four train shapes and on values
-               tied at the max and min
+               the plain version at the four train shapes, on values tied
+               at the max and min, a ragged N = 1000 at C = 64 and the
+               repeated-point graph
   serve        a main path: a full-width DGCNN (k=20, N=1024, 10 classes,
                random seeded weights and BatchNorm) is saved as a serving
                bundle, loaded with ServingModel on the card, and answers 5
@@ -38,9 +42,11 @@ one JSON line each; any failure exits non-zero before the last line:
                the plain versions on the card from the same weights and
                generator seed, on the kernel run's kNN graphs and FPS
                orders, losses and gradients compared at fixed bounds
-  times        median kernel and plain-version times (CUDA events) beside
-               each kernel's bound, serving latency and throughput at B=32,
-               and the train step's p50 on both routes
+  times        median kernel and plain-version times (CUDA events, the
+               launches queued behind a sleep on the card) beside each
+               kernel's bound, K2-bwd on the repeated-point graph too,
+               serving latency and throughput at B=32, and the train
+               step's p50 on both routes
 
 Then the `kernels` line, nvidia-smi's line and `{"ok": true, ...}`.
 """
@@ -115,6 +121,7 @@ ROWS_SAME_INDICES_BEFORE = {
     "conv2": 0.9990234375, "conv3": 0.99859619140625,
     "conv4": 0.99688720703125, "ragged": 0.9998750686645508}
 TRAIN_STEPS = 3
+QUEUE_CYCLES = 100_000_000  # the sleep timed launches queue behind (~60 ms)
 STEPS_PER_EPOCH = 100  # the schedule's epoch length; 3 steps stay in epoch 0
 PER_STEP = {"knn": 10, "edge_moments": 8, "edge_moments_bwd": 8,
             "knn_moments": 1, "fps": 1}
@@ -164,9 +171,15 @@ def nvidia_smi() -> str:
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median over `reps` single calls, each between two CUDA events."""
+    """Median over `reps` single calls, each between two CUDA events. The
+    calls queue up behind a sleep on the card, so that the device does not
+    wait on the host between them and the events measure device time
+    (where the host needs longer than the sleep to queue them all, as for
+    the plain FPS, the later calls include host time)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for e0, e1 in pairs:
@@ -255,6 +268,12 @@ def check_knn(name: str, x: torch.Tensor) -> dict:
     return res
 
 
+def repeated_point(b: int, n: int, device) -> torch.Tensor:
+    """A cloud of one repeated point: every distance is 0, so every row's
+    neighbours are the k lowest indices, each a neighbour of all n rows."""
+    return torch.full((b, n, 3), 0.5, device=device)
+
+
 def integer_cloud(g: torch.Generator, shape, device) -> torch.Tensor:
     """Coordinates in {-2, ..., 2}: every distance of the kNN formula is an
     exact float32 integer whatever the order of its sums, so two correct
@@ -269,8 +288,7 @@ def check_knn_exact(g: torch.Generator, device) -> None:
     cases = [(f"integer B={b} N={n} C={c} k={k}",
               integer_cloud(g, (b, n, c), device), k)
              for b, n, c, k in EXACT_KNN]
-    cases.append(("one repeated point", torch.full((2, N, 3), 0.5,
-                                                   device=device), K))
+    cases.append(("one repeated point", repeated_point(2, N, device), K))
     for name, x, k in cases:
         want = knn_indices_torch(x, k)
         got = knn_cuda(x, k)
@@ -670,7 +688,8 @@ def serving_times(served, plain, device, card: str) -> None:
 
 def kernel_times(device, card, knn_in, edge_in, g) -> dict:
     """Per-launch medians beside bound and plain time, by kernel."""
-    rows = {name: [] for name in (*PER_STEP, "edge_moments_train")}
+    rows = {name: [] for name in (*PER_STEP, "edge_moments_train",
+                                  "edge_moments_bwd_repeated_point")}
 
     def row(kname, what, shape, fn, plain_fn, cost, plain_reps=30):
         b_ms, b_by = bound(*cost)
@@ -710,6 +729,19 @@ def kernel_times(device, card, knn_in, edge_in, g) -> dict:
             lambda: torch.autograd.grad(plain_outs, uu, cots,
                                         retain_graph=True),
             edge_bwd_cost(u, K))
+
+    # K2-bwd's worst case: a cloud of one repeated point, every row's
+    # neighbours the k lowest indices (in-degree N), at conv1's shape
+    u = edge_in[0][2]
+    idx = knn_cuda(repeated_point(u.shape[0], u.shape[1], device), K)
+    outs = edge_moments_cuda(u, idx, True)
+    cots = [torch.randn(u.shape, generator=g).to(device) for _ in range(4)]
+    uu = u.detach().clone().requires_grad_()
+    plain_outs = edge_moments_torch(uu, idx, True)
+    row("edge_moments_bwd_repeated_point", "conv1, one repeated point",
+        u.shape, lambda: edge_moments_bwd_cuda(u, idx, outs[0], outs[1], *cots),
+        lambda: torch.autograd.grad(plain_outs, uu, cots, retain_graph=True),
+        edge_bwd_cost(u, K))
 
     x = torch.from_numpy(make_classification(B, N, NUM_CLASS, seed=SEED + 5)[0]
                          ).to(device)
@@ -777,7 +809,14 @@ def run(device: torch.device, card: str) -> None:
     ragged = torch.randn(B, RAGGED_N, 64, generator=g).to(device)
     knn_checks.append(check_knn("ragged", ragged))
     check_knn_exact(g, device)
-    edge_checks = [check_edge(name, xg, u) for name, xg, u in edge_in]
+    # a ragged N at C = 64, and the repeated-point graph at conv1's shape
+    edge_extra = [
+        ("ragged", torch.randn(B, RAGGED_N, 64, generator=g).to(device),
+         torch.randn(B, RAGGED_N, 64, generator=g).to(device)),
+        ("conv1, one repeated point", repeated_point(B, N, device),
+         edge_in[0][2])]
+    edge_checks = [check_edge(name, xg, u)
+                   for name, xg, u in edge_in + edge_extra]
 
     fps_checks = []
     for b, n in FPS_SHAPES:
@@ -803,6 +842,7 @@ def run(device: torch.device, card: str) -> None:
     for t in tied:
         t[:, 1::2] = t[:, 0::2]
     bwd_checks.append(check_edge_bwd("conv2, tied values", *tied, g))
+    bwd_checks += [check_edge_bwd(name, xg, u, g) for name, xg, u in edge_extra]
 
     with tempfile.TemporaryDirectory() as bundle_dir:
         srv = serve(model, bundle_dir, device)

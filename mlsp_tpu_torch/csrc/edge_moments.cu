@@ -8,66 +8,219 @@
 // neighbours and, on request, their sum and sum of squares.
 //
 // The TPU kernel rebuilt the graph as a {0,1} mask and reduced with mask
-// matmuls because Mosaic has no in-kernel gather. Hopper gathers, so this
-// kernel reads the neighbour rows directly.
+// matmuls because Mosaic has no in-kernel gather, and it kept a whole
+// cloud's u in VMEM. Hopper gathers, but has no VMEM of that size: a block
+// keeps a channel slice of one cloud's u in shared memory instead.
 //
-// Bound: bytes. Each output element needs k loads and 2-4 operations, so
-// the least time is u and idx read once plus the outputs written once over
-// the memory rate; the k-fold re-reads of u rows are served by L2 (u is at
-// most a few MB on the serving path).
+// Bound: bytes. Each output element needs k gathered values and 2-4
+// operations on each, so the least time is u and idx read once plus the
+// outputs written once over the memory rate. What a design adds to that
+// is the gathers' traffic: read from L2 per edge, it is k times u.
 //
-// Design: one thread per (b, n, channel). Neighbouring threads take
-// neighbouring channels of one point, so each neighbour row of u is read
-// as one coalesced segment and the k indices are broadcast within a warp.
-// max/min select values without arithmetic, so they are bit-equal to
-// any other max/min of the same set; the sums run in neighbour order.
-// An index outside [0, N) yields NaN in every output of that point.
+// Design (both kernels): a block owns one cloud b and one slice of cs
+// channels (cs a power of two <= 32; `ops/kernels/edge.py::plan` picks it,
+// narrower for larger N) and copies u[b, :, slice], N x cs floats, into
+// shared memory with cp.async (16 bytes a thread where the rows allow).
+// Every gather of a neighbour's value is then a shared-memory load. The
+// block also stages its queries' k indices, int64 from K1, in shared
+// memory as int32 offsets of tile rows, after a range check, so that no
+// load waits on another load from memory.
+//
+// The forward splits each (cloud, slice) into `split` ranges of queries,
+// one block each, so that enough blocks fill the SMs: u is copied once per
+// range and the indices once per slice. A thread's item is W channels of
+// one query (W = 4 where the rows allow 16-byte loads, else 1): the cs / W
+// lanes of a query read one row of the tile, so at cs = 32 each quarter
+// warp reads one 128-byte row, free of bank conflicts. max/min select
+// values without arithmetic (fmaxf/fminf), so they equal any other max/min
+// of the same set; the sums run in neighbour order with s += v and
+// ss = fmaf(v, v, ss). An index outside [0, N) yields NaN in every output
+// of that point (a per-query flag set while staging).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int MAX_THREADS = 1024;
+constexpr int64_t SMEM_LIMIT = 232448;  // shared memory one block may use
 
-template <bool MOMENTS>
-__global__ void __launch_bounds__(THREADS)
+// Bytes of one [rows][cs] float tile, rounded up to 16.
+__host__ __device__ inline int64_t tile_bytes(int rows, int cs) {
+  return ((int64_t)rows * cs * 4 + 15) / 16 * 16;
+}
+
+// Row stride of the staged indices: odd, so that the rows of up to 32
+// queries read together start on distinct banks.
+__host__ __device__ inline int idx_stride(int kc) { return kc | 1; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying u[b, :, c0:c0+cw] (`ub` points at u[b, 0, c0]) into
+// tile[n * cs + c]: 16 bytes a thread when `vec` (C and cs multiples of 4
+// and u 16-byte aligned), else 4. Consecutive threads take consecutive
+// pieces of a row, so the reads are coalesced along the rows.
+__device__ void stage_tile(float* tile, const float* __restrict__ ub, int N,
+                           int C, int cs, int cw, bool vec) {
+  if (vec) {
+    const int per_row = cw >> 2;
+    for (int e = threadIdx.x; e < N * per_row; e += blockDim.x) {
+      const int n = e / per_row, v = e - n * per_row;
+      cp_async16(tile + n * cs + 4 * v, ub + (int64_t)n * C + 4 * v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < N * cw; e += blockDim.x) {
+      const int n = e / cw, c = e - n * cw;
+      cp_async4(tile + n * cs + c, ub + (int64_t)n * C + c);
+    }
+  }
+}
+
+// idx_s[q * ks + j] = (rows[q * k + j] << cs_log2), the offset of that
+// row in a tile, for q < nq, j < kn. An index outside [0, N) stages as
+// `bad_off` and, when `flags` is given, sets flags[q].
+__device__ void stage_idx(int* idx_s, int* flags,
+                          const int64_t* __restrict__ rows, int nq, int k,
+                          int kn, int ks, int N, int cs_log2, int bad_off) {
+#pragma unroll 16
+  for (int e = threadIdx.x; e < nq * kn; e += blockDim.x) {
+    const int q = e / kn, j = e - q * kn;
+    const int64_t m = rows[(int64_t)q * k + j];
+    const bool ok = m >= 0 && m < N;
+    idx_s[q * ks + j] = ok ? (int)m << cs_log2 : bad_off;
+    if (!ok && flags != nullptr) flags[q] = 1;
+  }
+}
+
+// Shared memory: the u tile, then the index chunk of qc rows of kc at
+// stride idx_stride(kc), then qc per-query flags.
+//
+// Grid: x = B * split (cloud b = x / split, query range x % split of
+// `qr` queries), y = channel slices. The range's indices are staged in
+// chunks of qc queries and kc neighbours; when kc >= k (always for k up
+// to a few thousand) each chunk is staged once, else per item wave.
+template <bool MOMENTS, int W>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 edge_moments_kernel(const float* __restrict__ u,
                     const int64_t* __restrict__ idx,
                     float* __restrict__ mx, float* __restrict__ mn,
                     float* __restrict__ s1, float* __restrict__ s2,
-                    int N, int C, int k, int64_t total) {
-  const int64_t e = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= total) return;
-  const int64_t bn = e / C;             // b * N + n
-  const int c = (int)(e - bn * C);
-  const int64_t* nb = idx + bn * k;
-  const float* ub = u + (bn / N) * N * (int64_t)C + c;
+                    int N, int C, int k, int cs_log2, int split, int qr,
+                    int qc, int kc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cs = 1 << cs_log2;
+  const int ks = idx_stride(kc);
+  float* tile = reinterpret_cast<float*>(smem);
+  int* idx_s = reinterpret_cast<int*>(smem + tile_bytes(N, cs));
+  int* bad = idx_s + qc * ks;
+  const int b = blockIdx.x / split;
+  const int qa = (blockIdx.x - b * split) * qr, qb = min(N, qa + qr);
+  const int c0 = blockIdx.y << cs_log2, cw = min(cs, C - c0);
+  const int64_t cloud = (int64_t)b * N;
+  const bool one_pass = kc >= k;
+  const int lanes_log2 = cs_log2 - (W == 4 ? 2 : 0);  // lanes per query
 
-  float hi = -INFINITY, lo = INFINITY, s = 0.f, ss = 0.f;
-  bool bad = false;
-  for (int j = 0; j < k; ++j) {
-    const int64_t m = nb[j];
-    if (m < 0 || m >= N) {
-      bad = true;
-      break;
+  stage_tile(tile, u + cloud * C + c0, N, C, cs, cw, W == 4);
+  for (int q0 = qa; q0 < qb; q0 += qc) {
+    const int nq = min(qc, qb - q0);
+    const int64_t* rows = idx + (cloud + q0) * k;
+    __syncthreads();  // the previous chunk's readers are done
+    for (int q = threadIdx.x; q < nq; q += blockDim.x) bad[q] = 0;
+    __syncthreads();
+    if (one_pass) {
+      stage_idx(idx_s, bad, rows, nq, k, k, ks, N, cs_log2, 0);
+      cp_async_wait_all();
+      __syncthreads();
     }
-    const float v = ub[m * C];
-    hi = v > hi ? v : hi;
-    lo = v < lo ? v : lo;
-    if (MOMENTS) {
-      s += v;
-      ss = fmaf(v, v, ss);
+    for (int w0 = 0; w0 < nq << lanes_log2; w0 += blockDim.x) {
+      const int e = w0 + threadIdx.x;
+      const int ql = e >> lanes_log2;
+      const int c = (e & ((1 << lanes_log2) - 1)) * W;
+      const bool live = ql < nq && c < cw;
+      const int* nb = idx_s + ql * ks;
+      const float* tc = tile + c;
+      float hi[W], lo[W], s[W], ss[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        hi[w] = -INFINITY;
+        lo[w] = INFINITY;
+        s[w] = ss[w] = 0.f;
+      }
+      for (int j0 = 0; j0 < k; j0 += kc) {
+        const int kn = min(kc, k - j0);
+        if (!one_pass) {
+          __syncthreads();
+          stage_idx(idx_s, bad, rows + j0, nq, k, kn, ks, N, cs_log2, 0);
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        if (!live) continue;
+#pragma unroll 4
+        for (int j = 0; j < kn; ++j) {
+          float v[W];
+          if (W == 4) {
+            const float4 t = *reinterpret_cast<const float4*>(tc + nb[j]);
+            v[0] = t.x;
+            v[1] = t.y;
+            v[2] = t.z;
+            v[3] = t.w;
+          } else {
+            v[0] = tc[nb[j]];
+          }
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            hi[w] = fmaxf(hi[w], v[w]);
+            lo[w] = fminf(lo[w], v[w]);
+            if (MOMENTS) {
+              s[w] += v[w];
+              ss[w] = fmaf(v[w], v[w], ss[w]);
+            }
+          }
+        }
+      }
+      if (!live) continue;
+      if (bad[ql]) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) hi[w] = lo[w] = s[w] = ss[w] = NAN;
+      }
+      const int64_t o = (cloud + q0 + ql) * C + c0 + c;
+      if (W == 4) {
+        *reinterpret_cast<float4*>(mx + o) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<float4*>(mn + o) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+        if (MOMENTS) {
+          *reinterpret_cast<float4*>(s1 + o) = make_float4(s[0], s[1], s[2], s[3]);
+          *reinterpret_cast<float4*>(s2 + o) = make_float4(ss[0], ss[1], ss[2], ss[3]);
+        }
+      } else {
+        mx[o] = hi[0];
+        mn[o] = lo[0];
+        if (MOMENTS) {
+          s1[o] = s[0];
+          s2[o] = ss[0];
+        }
+      }
     }
   }
-  if (bad) hi = lo = s = ss = NAN;
-  mx[e] = hi;
-  mn[e] = lo;
-  if (MOMENTS) {
-    s1[e] = s;
-    s2[e] = ss;
-  }
+  cp_async_wait_all();  // a block without queries leaves no copy in flight
 }
 
 // Backward (K2-bwd). Replaces the TPU kernel `_edge_moments_bwd`
@@ -81,20 +234,42 @@ edge_moments_kernel(const float* __restrict__ u,
 // The graph features get no gradient.
 //
 // Bound: bytes. u, idx, mx, mn and the four cotangents are read once and
-// du written once; each edge costs a few operations. The k-fold re-reads
-// of u rows come from L2, as in the forward.
+// du written once; each edge costs a few operations.
 //
-// Design: the TPU kernel accumulated du in VMEM across a sequential grid.
-// Here one thread per (b, i, channel), coalesced over channels, pushes its
-// point's contribution to each of its k neighbours with a float atomicAdd
-// into du (zeroed by the wrapper). A first pass over the k neighbours
-// counts the ties with the saved mx and mn (float ==, as the plain
-// version's amax backward compares; it differs from a bitwise compare
-// only at ±0), the second scatters. A null cotangent pointer (an unused
-// output) skips its term. The atomics add in an order that changes from
-// run to run, so du is reproducible only to rounding. An index outside
-// [0, N) contributes nothing.
-__global__ void __launch_bounds__(THREADS)
+// Design: the TPU kernel accumulated du in VMEM across its sequential
+// grid. Here a block owns one cloud and one channel slice: it holds
+// u[b, :, slice] and a du tile of the same shape in shared memory and
+// walks the cloud's queries, reading each query's slice of mx, mn and the
+// cotangents once from memory, the next wave's while this one runs. One
+// pass over the k neighbours adds ds1_i + 2 u_j ds2_i into the du tile
+// with a shared-memory atomicAdd and counts the ties with the saved mx
+// and mn (float ==, as the plain version's amax backward compares; it
+// differs from a bitwise compare only at ±0), remembering the last tied
+// row. A single tie (the usual case) takes its whole cotangent with one
+// more atomicAdd; several ties share it equally in a second pass over the
+// neighbours. Hopper has no native float add in shared memory: atomicAdd
+// there is a compare-and-swap loop (ATOMS.CAST.SPIN), the kernel's main
+// cost. du is written once, coalesced: no global atomics and no zero
+// fill. A null cotangent pointer (an unused output) skips its term. The
+// shared atomics add in an order that changes from run to run, so du is
+// reproducible only to rounding. An index outside [0, N) points at a
+// spare row N whose u is NaN: it ties with nothing and adds only into the
+// spare du row, which is never written out.
+//
+// Slower on an H100 at the train step's shapes, and not kept: a cluster
+// of blocks per (cloud, slice) summing du partials through distributed
+// shared memory (the blocks already fill the SMs); 2 or 4 channels a
+// thread added by one 8- or 16-byte compare-and-swap loop (much slower
+// than the 4-byte atomicAdd); and gathering du over in-neighbour lists
+// built per call, which turns the scatter around but pays for the build
+// and for the uneven in-degrees of kNN graphs.
+//
+// Shared memory: the u and du tiles, each of N + 1 rows (row N is the
+// spare), then the index chunk of qc rows of kc at stride idx_stride(kc).
+//
+// Grid: x = clouds, y = channel slices. One thread per (query,
+// channel): a warp's lanes are cs channels of 32 / cs queries.
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 edge_moments_bwd_kernel(const float* __restrict__ u,
                         const int64_t* __restrict__ idx,
                         const float* __restrict__ mx,
@@ -104,77 +279,215 @@ edge_moments_bwd_kernel(const float* __restrict__ u,
                         const float* __restrict__ ds1,
                         const float* __restrict__ ds2,
                         float* __restrict__ du,
-                        int N, int C, int k, int64_t total) {
-  const int64_t e = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= total) return;
-  const int64_t bn = e / C;             // b * N + n
-  const int c = (int)(e - bn * C);
-  const int64_t* nb = idx + bn * k;
-  const int64_t base = (bn / N) * N * (int64_t)C + c;
-  const float* ub = u + base;
-  float* dub = du + base;
+                        int N, int C, int k, int cs_log2, int qc, int kc,
+                        int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cs = 1 << cs_log2;
+  const int64_t tb = tile_bytes(N + 1, cs);
+  float* tile = reinterpret_cast<float*>(smem);
+  float* dtile = reinterpret_cast<float*>(smem + tb);
+  int* idx_s = reinterpret_cast<int*>(smem + 2 * tb);
+  const int ks = idx_stride(kc);
+  const int c0 = blockIdx.y << cs_log2, cw = min(cs, C - c0);
+  const int64_t cloud = (int64_t)blockIdx.x * N;
+  const bool one_pass = kc >= k;
+  const bool has_hi = dmx != nullptr, has_lo = dmn != nullptr;
+  const int spare = N << cs_log2;
 
-  const float hi = mx[e], lo = mn[e];
-  int n_hi = 0, n_lo = 0;
-  for (int j = 0; j < k; ++j) {
-    const int64_t m = nb[j];
-    if (m < 0 || m >= N) continue;
-    const float v = ub[m * C];
-    n_hi += v == hi;
-    n_lo += v == lo;
+  stage_tile(tile, u + cloud * C + c0, N, C, cs, cw, vec);
+  for (int e = threadIdx.x; e < (N + 1) << cs_log2; e += blockDim.x) {
+    dtile[e] = 0.f;
+    if (e >= spare) tile[e] = NAN;
   }
-  const float w_hi = dmx != nullptr ? dmx[e] / (float)max(n_hi, 1) : 0.f;
-  const float w_lo = dmn != nullptr ? dmn[e] / (float)max(n_lo, 1) : 0.f;
-  const float g1 = ds1 != nullptr ? ds1[e] : 0.f;
-  const float g2 = ds2 != nullptr ? 2.f * ds2[e] : 0.f;
-  for (int j = 0; j < k; ++j) {
-    const int64_t m = nb[j];
-    if (m < 0 || m >= N) continue;
-    const float v = ub[m * C];
-    float g = fmaf(g2, v, g1);
-    if (v == hi) g += w_hi;
-    if (v == lo) g += w_lo;
-    atomicAdd(dub + m * C, g);
+  // (hi, lo, dmx, dmn, ds1, 2 ds2) of item e of the chunk at q0
+  auto operands = [&](int q0, int nq, int e, float (&x)[6]) {
+    const int ql = e >> cs_log2, c = e & (cs - 1);
+    const int64_t o = (cloud + q0 + ql) * C + c0 + c;
+    const bool live = ql < nq && c < cw;
+    x[0] = live ? mx[o] : 0.f;
+    x[1] = live ? mn[o] : 0.f;
+    x[2] = live && has_hi ? dmx[o] : 0.f;
+    x[3] = live && has_lo ? dmn[o] : 0.f;
+    x[4] = live && ds1 != nullptr ? ds1[o] : 0.f;
+    x[5] = live && ds2 != nullptr ? 2.f * ds2[o] : 0.f;
+  };
+  for (int q0 = 0; q0 < N; q0 += qc) {
+    const int nq = min(qc, N - q0);
+    const int64_t* rows = idx + (cloud + q0) * k;
+    float next[6];
+    operands(q0, nq, threadIdx.x, next);
+    if (one_pass) {
+      __syncthreads();
+      stage_idx(idx_s, nullptr, rows, nq, k, k, ks, N, cs_log2, spare);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    for (int w0 = 0; w0 < nq << cs_log2; w0 += blockDim.x) {
+      const int e = w0 + threadIdx.x;
+      const int ql = e >> cs_log2, c = e & (cs - 1);
+      const bool live = ql < nq && c < cw;
+      const int* nb = idx_s + ql * ks;
+      const float* tc = tile + c;
+      float* dc = dtile + c;
+      const float hi = next[0], lo = next[1], g1 = next[4], g2 = next[5];
+      float w_hi = next[2], w_lo = next[3];
+      operands(q0, nq, e + blockDim.x, next);
+      // the sum terms, and the ties with the saved max and min
+      int n_hi = 0, n_lo = 0, at_hi = 0, at_lo = 0;
+      for (int j0 = 0; j0 < k; j0 += kc) {
+        const int kn = min(kc, k - j0);
+        if (!one_pass) {
+          __syncthreads();
+          stage_idx(idx_s, nullptr, rows + j0, nq, k, kn, ks, N, cs_log2,
+                    spare);
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        if (!live) continue;
+#pragma unroll 4
+        for (int j = 0; j < kn; ++j) {
+          const int off = nb[j];
+          const float v = tc[off];
+          atomicAdd(dc + off, fmaf(g2, v, g1));
+          if (v == hi) {
+            ++n_hi;
+            at_hi = off;
+          }
+          if (v == lo) {
+            ++n_lo;
+            at_lo = off;
+          }
+        }
+      }
+      // the max and min cotangents: whole to a single tie, else shared
+      const bool many_hi = has_hi && n_hi > 1, many_lo = has_lo && n_lo > 1;
+      if (live) {
+        if (has_hi && n_hi == 1) atomicAdd(dc + at_hi, w_hi);
+        if (has_lo && n_lo == 1) atomicAdd(dc + at_lo, w_lo);
+      }
+      const bool rescan = live && (many_hi || many_lo);
+      if (many_hi) w_hi /= (float)n_hi;
+      if (many_lo) w_lo /= (float)n_lo;
+      for (int j0 = 0; j0 < k && (rescan || !one_pass); j0 += kc) {
+        const int kn = min(kc, k - j0);
+        if (!one_pass) {
+          __syncthreads();
+          stage_idx(idx_s, nullptr, rows + j0, nq, k, kn, ks, N, cs_log2,
+                    spare);
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        if (!rescan) continue;
+        for (int j = 0; j < kn; ++j) {
+          const int off = nb[j];
+          const float v = tc[off];
+          const bool on_hi = many_hi && v == hi, on_lo = many_lo && v == lo;
+          if (on_hi || on_lo)
+            atomicAdd(dc + off, (on_hi ? w_hi : 0.f) + (on_lo ? w_lo : 0.f));
+        }
+      }
+    }
+  }
+
+  __syncthreads();
+  for (int e = threadIdx.x; e < N << cs_log2; e += blockDim.x) {
+    const int n = e >> cs_log2, c = e & (cs - 1);
+    if (c < cw) du[(cloud + n) * C + c0 + c] = dtile[e];
   }
 }
+
+// Common checks of a plan; 0 or cudaErrorInvalidValue. The plan's `smem`
+// (`ops/kernels/edge.py::plan` sizes the layouts described above each
+// kernel) must fit in SMEM_LIMIT.
+int check_plan(int B, int N, int C, int k, int cs_log2, int split, int qc,
+               int kc, int threads, int smem) {
+  const bool ok = B > 0 && N > 0 && C > 0 && k > 0 && cs_log2 >= 0 &&
+                  cs_log2 <= 5 && split >= 1 && split <= N && qc >= 1 &&
+                  kc >= 1 && threads >= 32 && threads <= MAX_THREADS &&
+                  threads % 32 == 0 && smem > 0 && smem <= SMEM_LIMIT &&
+                  (int64_t)B * split <= INT32_MAX &&
+                  ((C - 1) >> cs_log2) < 65535;  // slices: grid y
+  return ok ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Lets `kernel` take up to SMEM_LIMIT of dynamic shared memory on the
+// current device, once per (device, kernel).
+template <typename Kernel>
+int allow_smem(Kernel kernel, int smem) {
+  static std::mutex lock;
+  static std::set<std::pair<int, const void*>> done;
+  if (smem <= 48 * 1024) return 0;
+  int device = 0;
+  int st = (int)cudaGetDevice(&device);
+  if (st != 0) return st;
+  std::lock_guard<std::mutex> hold(lock);
+  if (done.count({device, (const void*)kernel})) return 0;
+  st = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_LIMIT);
+  if (st == 0) done.insert({device, (const void*)kernel});
+  return st;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
 // u: [B, N, C] float32; idx: [B, N, k] int64; mx, mn (and s1, s2 when
-// `moments` is nonzero): [B, N, C] float32, all contiguous. Launches on
-// `stream` and returns the launch status (0 = cudaSuccess).
+// `moments` is nonzero): [B, N, C] float32, all contiguous. The plan
+// (`ops/kernels/edge.py::plan`): slices of 2^cs_log2 channels, `split`
+// query ranges of ceil(N / split) per (cloud, slice), index chunks of qc
+// queries by kc neighbours, `threads` a block, `smem` bytes of shared
+// memory a block. Launches on `stream` and returns the launch status
+// (0 = cudaSuccess).
 int mlsp_edge_moments(const float* u, const int64_t* idx, float* mx,
                       float* mn, float* s1, float* s2, int B, int N, int C,
-                      int k, int moments, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || k <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)B * N * C;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+                      int k, int moments, int cs_log2, int split, int qc,
+                      int kc, int threads, int smem, cudaStream_t stream) {
+  const int cs = 1 << (cs_log2 & 31);
+  int st = check_plan(B, N, C, k, cs_log2, split, qc, kc, threads, smem);
+  if (st != 0) return st;
+  const int qr = (N + split - 1) / split;
+  const bool vec = C % 4 == 0 && cs % 4 == 0 && aligned16(u) &&
+                   aligned16(mx) && aligned16(mn) &&
+                   (!moments || (aligned16(s1) && aligned16(s2)));
+  const dim3 grid(B * split, (C + cs - 1) / cs);
+  auto launch = [&](auto kernel) {
+    const int status = allow_smem(kernel, smem);
+    if (status != 0) return status;
+    kernel<<<grid, threads, smem, stream>>>(u, idx, mx, mn, s1, s2, N, C, k,
+                                            cs_log2, split, qr, qc, kc);
+    return 0;
+  };
   if (moments)
-    edge_moments_kernel<true><<<blocks, THREADS, 0, stream>>>(
-        u, idx, mx, mn, s1, s2, N, C, k, total);
+    st = vec ? launch(edge_moments_kernel<true, 4>)
+             : launch(edge_moments_kernel<true, 1>);
   else
-    edge_moments_kernel<false><<<blocks, THREADS, 0, stream>>>(
-        u, idx, mx, mn, s1, s2, N, C, k, total);
+    st = vec ? launch(edge_moments_kernel<false, 4>)
+             : launch(edge_moments_kernel<false, 1>);
+  if (st != 0) return st;
   return (int)cudaGetLastError();
 }
 
 // u, mx, mn: [B, N, C] float32; idx: [B, N, k] int64; dmx, dmn, ds1, ds2:
-// [B, N, C] float32 or null (no cotangent); du: [B, N, C] float32, zeroed
-// by the caller. All contiguous. Launches on `stream` and returns the
-// launch status (0 = cudaSuccess).
+// [B, N, C] float32 or null (no cotangent); du: [B, N, C] float32, written
+// whole (no zero fill needed). All contiguous. The plan as above, without
+// query ranges (one block per (cloud, slice)). Launches on `stream` and
+// returns the launch status (0 = cudaSuccess).
 int mlsp_edge_moments_bwd(const float* u, const int64_t* idx, const float* mx,
                           const float* mn, const float* dmx, const float* dmn,
                           const float* ds1, const float* ds2, float* du,
-                          int B, int N, int C, int k, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || k <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)B * N * C;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  edge_moments_bwd_kernel<<<blocks, THREADS, 0, stream>>>(
-      u, idx, mx, mn, dmx, dmn, ds1, ds2, du, N, C, k, total);
+                          int B, int N, int C, int k, int cs_log2, int qc,
+                          int kc, int threads, int smem, cudaStream_t stream) {
+  const int cs = 1 << (cs_log2 & 31);
+  int st = check_plan(B, N, C, k, cs_log2, 1, qc, kc, threads, smem);
+  if (st != 0) return st;
+  if ((st = allow_smem(edge_moments_bwd_kernel, smem)) != 0) return st;
+  const int vec = C % 4 == 0 && cs % 4 == 0 && aligned16(u);
+  const dim3 grid(B, (C + cs - 1) / cs);
+  edge_moments_bwd_kernel<<<grid, threads, smem, stream>>>(
+      u, idx, mx, mn, dmx, dmn, ds1, ds2, du, N, C, k, cs_log2, qc, kc, vec);
   return (int)cudaGetLastError();
 }
 

@@ -4,12 +4,14 @@ the forward (K2-fwd) and the backward (K2-bwd) of `edge_pallas.edge_moments`.
 Each launches its kernel on CUDA tensors or raises; neither falls back.
 `ops.edge.edge_moments` ties them together as a `torch.autograd.Function`;
 the plain version is `ops.edge.edge_moments_torch`, differentiated by
-autograd.
+autograd. `plan` picks each launch's shape; it launches nothing, so the
+CPU tests call it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -17,17 +19,106 @@ import torch
 from mlsp_tpu_torch.ops.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+# Largest cloud: a block holds an [N, cs] slice of u (and, backward, of
+# du) in shared memory, at least one channel wide. 4x PointSegDA's 2048.
+N_MAX = 8192
+_TILE_LIMIT = 160 * 1024  # the tiles' share; the index chunks get the rest
+_IDX_TARGET = 64 * 1024  # the index chunk's share, for the occupancy guess
+# Used only to size the grid: the H100's SMs, shared memory per SM and
+# the shared memory the runtime keeps per block.
+_SMS, _SM_SMEM, _BLOCK_RESERVE = 132, 228 * 1024, 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's shape: slices of `cs` channels (a power of two); the
+    forward's `split` query ranges per (cloud, slice) (the backward's is 1);
+    index chunks of `qc` queries by `kc` neighbours; `threads` a block;
+    `smem` bytes of shared memory a block, in the layout the comment above
+    each kernel in `csrc/edge_moments.cu` describes."""
+    cs: int
+    split: int
+    qc: int
+    kc: int
+    threads: int
+    smem: int
+
+
+def _tile_bytes(rows: int, cs: int) -> int:
+    return (rows * cs * 4 + 15) // 16 * 16
+
+
+def _tiles_bytes(N: int, cs: int, backward: bool) -> int:
+    """The u tile, or (backward) the u and du tiles with a spare row."""
+    return 2 * _tile_bytes(N + 1, cs) if backward else _tile_bytes(N, cs)
+
+
+def _idx_row_bytes(kc: int, backward: bool) -> int:
+    """One staged query: kc offsets at an odd stride, plus the forward's
+    flag."""
+    return 4 * ((kc | 1) + (0 if backward else 1))
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, N: int, C: int, k: int, backward: bool) -> Plan:
+    """The launch shape of K2-fwd (`backward` False) or K2-bwd for u
+    [B, N, C] and k neighbours. Raises ValueError for N outside
+    [1, N_MAX]."""
+    if not 1 <= N <= N_MAX:
+        raise ValueError(f"edge_moments: N={N} points outside [1, {N_MAX}]: "
+                         f"a block holds an [N, channels] slice of u in "
+                         f"shared memory")
+    if min(B, C, k) < 1:
+        raise ValueError(f"edge_moments: empty input B={B}, C={C}, k={k}")
+    cs = min(16 if backward else 32, 1 << (C - 1).bit_length())
+    while cs > 1 and _tiles_bytes(N, cs, backward) > _TILE_LIMIT:
+        cs //= 2
+    tile = _tiles_bytes(N, cs, backward)
+    slices = -(-C // cs)
+    # blocks an SM holds at about this size, and threads to fill it
+    per_sm = max(1, _SM_SMEM // (tile + _IDX_TARGET + _BLOCK_RESERVE))
+    threads = {1: 1024, 2: 512}.get(per_sm, 256)
+    # a forward item is 4 channels where the rows allow 16-byte loads
+    per_item = 4 if not backward and C % 4 == 0 and cs % 4 == 0 else 1
+    wave = threads * per_item // cs  # queries of one item per thread
+    split = 1
+    # forward: ranges until the blocks fill half the SMs' slots (on an
+    # H100 more ranges cost more in copies of u than they gain)
+    if not backward:
+        while (2 * B * slices * split < _SMS * per_sm
+               and -(-N // (2 * split)) >= wave):
+            split *= 2
+    qr = -(-N // split)
+    budget = SMEM_LIMIT - tile
+    wave = min(wave, qr)
+    row = _idx_row_bytes(k, backward)
+    kc = k
+    # the whole range at once where it fits
+    qc = qr if qr * row <= budget else max(wave, budget // row // wave * wave)
+    qc = min(qc, qr)
+    if qc * row > budget:  # a huge k: one wave, neighbour chunks
+        qc = wave
+        kc = min(k, budget // (4 * qc))
+        while qc * _idx_row_bytes(kc, backward) > budget:
+            kc -= 1
+    return Plan(cs, split, qc, kc, threads,
+                tile + qc * _idx_row_bytes(kc, backward))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("edge_moments")
-    lib.mlsp_edge_moments.argtypes = [_P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _P]
+    lib.mlsp_edge_moments.argtypes = [_P] * 6 + [_I] * 11 + [_P]
     lib.mlsp_edge_moments.restype = _I
-    lib.mlsp_edge_moments_bwd.argtypes = [_P] * 9 + [_I, _I, _I, _I, _P]
+    lib.mlsp_edge_moments_bwd.argtypes = [_P] * 9 + [_I] * 9 + [_P]
     lib.mlsp_edge_moments_bwd.restype = _I
     return lib
+
+
+def _plan_args(p: Plan, backward: bool) -> tuple[int, ...]:
+    ranges = () if backward else (p.split,)
+    return p.cs.bit_length() - 1, *ranges, p.qc, p.kc, p.threads, p.smem
 
 
 def _check_graph(name: str, u: torch.Tensor, idx: torch.Tensor) -> None:
@@ -57,6 +148,7 @@ def edge_moments_cuda(u: torch.Tensor, idx: torch.Tensor,
             "ops.edge.edge_moments, whose backward is the K2-bwd kernel")
     B, N, C = u.shape
     k = idx.shape[-1]
+    p = plan(B, N, C, k, False)
     u = u.float().contiguous()
     idx = idx.contiguous()
     outs = tuple(torch.empty_like(u) for _ in range(4 if want_moments else 2))
@@ -65,7 +157,8 @@ def edge_moments_cuda(u: torch.Tensor, idx: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(_lib().mlsp_edge_moments(
             u.data_ptr(), idx.data_ptr(), *ptrs, B, N, C, k,
-            int(want_moments), stream), "edge_moments")
+            int(want_moments), *_plan_args(p, False), stream),
+            "edge_moments")
     edge_moments_cuda.launches += 1
     return outs
 
@@ -85,6 +178,7 @@ def edge_moments_bwd_cuda(u: torch.Tensor, idx: torch.Tensor,
     _check_graph("edge_moments_bwd_cuda", u, idx)
     B, N, C = u.shape
     k = idx.shape[-1]
+    p = plan(B, N, C, k, True)
 
     def operand(t):
         if t is None:
@@ -98,13 +192,14 @@ def edge_moments_bwd_cuda(u: torch.Tensor, idx: torch.Tensor,
     u, mx, mn = operand(u), operand(mx), operand(mn)
     cots = [operand(t) for t in (dmx, dmn, ds1, ds2)]
     idx = idx.contiguous()
-    du = torch.zeros_like(u)
+    du = torch.empty_like(u)  # the kernel writes every element
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(_lib().mlsp_edge_moments_bwd(
             u.data_ptr(), idx.data_ptr(), mx.data_ptr(), mn.data_ptr(),
             *[None if t is None else t.data_ptr() for t in cots],
-            du.data_ptr(), B, N, C, k, stream), "edge_moments")
+            du.data_ptr(), B, N, C, k, *_plan_args(p, True), stream),
+            "edge_moments")
     edge_moments_bwd_cuda.launches += 1
     return du
 

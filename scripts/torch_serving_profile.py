@@ -54,12 +54,14 @@ def main() -> int:
             served.predict(x)  # ends in a host copy of the logits
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # Device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched.
+    # Device-side kernels only: a CPU op's self device time repeats the
+    # time of the kernels it launched, and a user range spans its kernels
+    # and the gaps between them.
     by_name = {ev.key: ev.self_device_time_total
                for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0}
+               and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False)}
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     print(json.dumps({

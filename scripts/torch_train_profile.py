@@ -67,12 +67,14 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # Device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched.
+    # Device-side kernels only: a CPU op's self device time repeats the
+    # time of the kernels it launched, and a range such as the optimizer's
+    # `Optimizer.step#Adam.step` spans its kernels and the gaps between them.
     by_name = {ev.key: ev.self_device_time_total
                for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0}
+               and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False)}
     busy_ms = sum(by_name.values()) / 1e3
     port = {k: sum(us for name, us in by_name.items() if k in name) / 1e3 / ITERS
             for k in PORT_KERNELS}

@@ -14,6 +14,7 @@ from mlsp_tpu_torch import make_model
 from mlsp_tpu_torch.data.synthetic import make_classification
 from mlsp_tpu_torch.ops import edge_moments, estimate_normals, knn_indices
 from mlsp_tpu_torch.ops import kernels
+from mlsp_tpu_torch.ops.kernels import edge as edge_kernels
 from mlsp_tpu_torch.ops.edge import edge_moments_torch
 from mlsp_tpu_torch.ops.fps import fps_torch
 from mlsp_tpu_torch.ops.kernels import (
@@ -103,10 +104,22 @@ def test_knn_kernel_duplicates_lower_index_first(card):
     assert torch.equal(got[0::4], torch.arange(0, 64, 4))
 
 
+def _sums_within(got, want, u, idx):
+    """s1 and s2 within 1e-5 of the summed magnitudes of their terms."""
+    scale = (edge_moments_torch(u.abs(), idx, True)[2], want[3])
+    for g, w, m in zip(got[2:], want[2:], scale):
+        assert ((g - w).abs() <= 1e-5 * m).all()
+
+
 @pytest.mark.parametrize("want_moments", [True, False])
 @pytest.mark.parametrize("C", [1, 64, 100, 256])
-def test_edge_kernel_matches_plain(card, C, want_moments):
-    xg, u = _x(1, (2, 300, 16), card), _x(2, (2, 300, C), card)
+@pytest.mark.parametrize("N", [200, 300, 1000, 2048])
+def test_edge_kernel_matches_plain(card, N, C, want_moments):
+    """Ragged N (N = 200 also takes 512 threads a block, N = 1000 several
+    query ranges) and C not a multiple of the channel slice: max and min
+    bit-equal, sums within rtol = atol = 1e-5 and within 1e-5 of their
+    summed magnitudes."""
+    xg, u = _x(1, (2, N, 16), card), _x(2, (2, N, C), card)
     idx = knn_cuda(xg, 20)
     got = edge_moments_cuda(u, idx, want_moments)
     want = edge_moments_torch(u, idx, want_moments)
@@ -114,29 +127,87 @@ def test_edge_kernel_matches_plain(card, C, want_moments):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     for g, w in zip(got[2:], want[2:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    if want_moments:
+        _sums_within(got, want, u, idx)
+
+
+def _repeated_point_graph(B, N, device, k=20):
+    """A cloud of one repeated point: every row's neighbours are the k
+    lowest indices, each a neighbour of all N rows."""
+    idx = knn_cuda(torch.full((B, N, 3), 0.5, device=device), k)
+    assert torch.equal(idx, torch.arange(k, device=device).expand(B, N, k))
+    return idx
+
+
+@pytest.mark.parametrize("C", [3, 64])
+def test_edge_kernel_repeated_point(card, C):
+    u = _x(3, (2, 1024, C), card)
+    idx = _repeated_point_graph(2, 1024, card)
+    got = edge_moments_cuda(u, idx, True)
+    want = edge_moments_torch(u, idx, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _sums_within(got, want, u, idx)
+
+
+def test_edge_kernel_sums_repeat_bit_for_bit(card):
+    """The forward has no atomics: two launches give the same bits."""
+    u = _x(4, (4, 1000, 64), card)
+    idx = knn_cuda(_x(5, (4, 1000, 8), card), 20)
+    first = edge_moments_cuda(u, idx, True)
+    second = edge_moments_cuda(u, idx, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("N,C,k", [(300, 5, 5000), (700, 24, 300)])
+def test_edge_kernels_long_neighbour_rows(card, N, C, k):
+    """k far beyond a kNN graph's (indices drawn at random, repeats
+    allowed): the kernels stage the indices in chunks of neighbours."""
+    u = _x(6, (1, N, C), card)
+    idx = torch.randint(0, N, (1, N, k),
+                        generator=torch.Generator().manual_seed(k)).to(card)
+    got = edge_moments_cuda(u, idx, True)
+    want = edge_moments_torch(u, idx, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _sums_within(got, want, u, idx)
+    cots = [_x(7 + i, u.shape, card) for i in range(4)]
+    du = edge_moments_bwd_cuda(u, idx, want[0], want[1], *cots)
+    uu = u.clone().requires_grad_()
+    ref = torch.autograd.grad(edge_moments_torch(uu, idx, True), uu, cots)[0]
+    assert ((du - ref).abs() <= 1e-5 * edge_grad_magnitude(u, idx, cots)).all()
 
 
 def test_edge_kernel_bad_index_gives_nan(card):
     u = _x(3, (1, 8, 4), card)
     idx = torch.zeros(1, 8, 2, dtype=torch.int64, device=card)
     idx[0, 3, 1] = 8
+    idx[0, 5, 0] = -1
     mx, mn = edge_moments_cuda(u, idx, False)
     assert mx[0, 3].isnan().all() and mn[0, 3].isnan().all()
+    assert mx[0, 5].isnan().all()
     assert not mx[0, :3].isnan().any()
+    # the backward skips the two edges: du as if they were absent
+    cot = _x(4, (1, 8, 4), card)
+    du = edge_moments_bwd_cuda(u, idx, mx.nan_to_num(), mn.nan_to_num(), None,
+                               None, cot, None)
+    want = torch.zeros_like(u[0]).index_add_(
+        0, idx[0][(idx[0] >= 0) & (idx[0] < 8)],
+        cot[0][:, None].expand(8, 2, 4)[(idx[0] >= 0) & (idx[0] < 8)])
+    torch.testing.assert_close(du[0], want)
 
 
 @pytest.mark.parametrize("want_moments", [True, False])
-@pytest.mark.parametrize("C", [1, 64, 256])
-def test_edge_gradient_matches_autograd(card, C, want_moments):
+@pytest.mark.parametrize("C", [1, 64, 100, 256])
+@pytest.mark.parametrize("N", [200, 1000])
+def test_edge_gradient_matches_autograd(card, N, C, want_moments):
     """K2-bwd (through ops.edge.edge_moments) against autograd of the plain
     version on the same graph, with values tied at the max and min.
-    Tolerance: the atomics add in a varying order, so du agrees only to
-    rounding: 1e-5 of the summed magnitudes of its terms."""
-    xg = _x(4, (2, 200, 8), card)
-    u = _x(5, (2, 200, C), card)
+    Tolerance: the shared-memory atomics add in a varying order, so du
+    agrees only to rounding: 1e-5 of the summed magnitudes of its terms."""
+    xg = _x(4, (2, N, 8), card)
+    u = _x(5, (2, N, C), card)
     u[:, 1::3] = u[:, 0::3][:, : u[:, 1::3].shape[1]]  # ties
-    cots = [_x(6 + i, (2, 200, C), card) for i in range(4 if want_moments
-                                                         else 2)]
+    cots = [_x(6 + i, (2, N, C), card) for i in range(4 if want_moments
+                                                       else 2)]
     idx = knn_cuda(xg, 20)
 
     def grad(fn):
@@ -151,6 +222,44 @@ def test_edge_gradient_matches_autograd(card, C, want_moments):
     want = grad(lambda uu: edge_moments_torch(uu, idx, want_moments))
     tol = 1e-5 * edge_grad_magnitude(u, idx, cots)
     assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("C", [3, 64])
+def test_edge_gradient_repeated_point(card, C):
+    """Every row's neighbours are the same k rows: the backward's additions
+    all land on them (in-degree N), with ties in u."""
+    u = _x(5, (2, 1024, C), card)
+    u[:, 1::2] = u[:, 0::2]
+    idx = _repeated_point_graph(2, 1024, card)
+    mx, mn = edge_moments_torch(u, idx, False)
+    cots = [_x(6 + i, u.shape, card) for i in range(4)]
+    got = edge_moments_bwd_cuda(u, idx, mx, mn, *cots)
+    uu = u.clone().requires_grad_()
+    want = torch.autograd.grad(edge_moments_torch(uu, idx, True), uu, cots)[0]
+    assert ((got - want).abs() <= 1e-5 * edge_grad_magnitude(u, idx, cots)
+            ).all()
+
+
+def test_edge_kernels_at_the_point_limit(card):
+    """N = N_MAX runs, staging each block's indices in chunks smaller than
+    its query range; one point more raises."""
+    n = edge_kernels.N_MAX
+    u = _x(8, (2, n, 100), card)
+    idx = knn_cuda(_x(9, (2, n, 3), card), 20)
+    got = edge_moments_cuda(u, idx, True)
+    want = edge_moments_torch(u, idx, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cots = [_x(10 + i, u.shape, card) for i in range(4)]
+    du = edge_moments_bwd_cuda(u, idx, want[0], want[1], *cots)
+    uu = u.clone().requires_grad_()
+    ref = torch.autograd.grad(edge_moments_torch(uu, idx, True), uu, cots)[0]
+    assert ((du - ref).abs() <= 1e-5 * edge_grad_magnitude(u, idx, cots)).all()
+    big = torch.zeros(1, n + 1, 4, device=card)
+    big_idx = torch.zeros(1, n + 1, 4, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match=str(n)):
+        edge_moments_cuda(big, big_idx, True)
+    with pytest.raises(ValueError, match=str(n)):
+        edge_moments_bwd_cuda(big, big_idx, big, big, big, big)
 
 
 def test_edge_kernel_wrapper_records_no_grad(card):
