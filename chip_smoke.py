@@ -19,8 +19,10 @@ one JSON line each; any failure exits non-zero before the last line:
                each of which has in-degree N)
   fps          the FPS kernel (K4) against its plain version at 2B=64,
                N = npoint = 1024 (PCM's one launch), B=32 at N = 1000 and
-               2048, npoint < N, and on duplicated points, random starts:
-               the indices must be equal
+               2048, npoint < N, and on duplicated points, then at the data
+               pipeline's buckets [64, 4096], [64, 8192] and [16, 16384]
+               with npoint = 1024, random starts: the indices must be
+               equal; a cloud of 16385 points (one over the limit) raises
   knn_moments  the kNN normal-moments kernel (K3) at B=32, N=1024, k=20:
                its neighbour sets, its sums against sums over its own
                neighbours, and the normals of both routes; on integer
@@ -42,20 +44,41 @@ one JSON line each; any failure exits non-zero before the last line:
                the plain versions on the card from the same weights and
                generator seed, on the kernel run's kNN graphs and FPS
                orders, losses and gradients compared at fixed bounds
+  data         96 synthetic clouds of ragged sizes in [1025, 16384]
+               through the data pipeline's `standardize_clouds` on the card
+               (K4 per power-of-two bucket) and again with the plain FPS on
+               the card: the [96, 1024, 3] outputs must be bitwise equal;
+               K4's launches and buckets counted
+  trainer      the CLI in-process: `trainer --paper_recipe True --synthetic
+               True --epochs 2 --save_every 1` (full width, B=32, N=1024);
+               launches counted over the run (K1 100E+15, K2-fwd 80E+12,
+               K2-bwd 64E, K3 8E, K4 8E for E epochs), finite losses, the
+               files and log lines it leaves; then `--epochs 3 --resume
+               last.ckpt` with `--profile_dir` must resume at epoch 2 and
+               take one epoch (its trace gives the device's busy share)
+  eval, infer  the CLI's `eval` and `infer` on the target test split from
+               the trainer's model.ckpt, through the kernels and with
+               `--knn_backend torch`: classes agree on >= 99% of clouds,
+               max |dprob| <= 2e-2, eval's accuracy equals infer's, each
+               3 forwards (K1 15, K2-fwd 12 launches)
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
-               kernel's bound, K2-bwd on the repeated-point graph too,
-               serving latency and throughput at B=32, and the train
-               step's p50 on both routes
+               kernel's bound, K2-bwd on the repeated-point graph too, K4
+               at the pipeline's shapes with its chain floor, serving
+               latency and throughput at B=32, the train step's p50 on
+               both routes, and the trainer's epoch time, steps/s in its
+               loop, device busy share and eval/infer clouds/s
 
 Then the `kernels` line, nvidia-smi's line and `{"ok": true, ...}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -66,7 +89,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mlsp_tpu_torch import ServingModel, make_model, save_serving_bundle
+from mlsp_tpu_torch import ServingModel, cli, make_model, save_serving_bundle
+from mlsp_tpu_torch.data.pipeline import standardize_clouds
+from mlsp_tpu_torch.data.pointda import load_pointda
 from mlsp_tpu_torch.data.synthetic import make_classification
 from mlsp_tpu_torch.ops import kernels
 from mlsp_tpu_torch.ops.edge import edge_moments, edge_moments_torch
@@ -93,6 +118,12 @@ from mlsp_tpu_torch.testing import (
     knn_set_gap,
 )
 from mlsp_tpu_torch.train import make_optimizer, pointda_train_step
+from mlsp_tpu_torch.train.pointda_trainer import (
+    eval_batches,
+    eval_logits,
+    evaluate,
+)
+from mlsp_tpu_torch.utils import checkpoint
 from mlsp_tpu_torch.utils.config import PointDAConfig
 
 SEED = 0
@@ -109,6 +140,23 @@ MAX_LOGIT_DIFF = 2e-2
 MIN_CLASS_AGREEMENT = 0.99
 # npoint = N; (2B, N) is PCM's one launch for both of its batches
 FPS_SHAPES = ((2 * B, N), (B, RAGGED_N), (B, 2048))
+# The data pipeline's FPS calls: chunks of up to 64 clouds, tiled to a
+# power-of-two bucket, reduced to N points; K4's limit is 16384 points.
+FPS_PIPELINE_SHAPES = ((64, 4096), (64, 8192), (16, 16384))
+FPS_LIMIT = 16384
+DATA_CLOUDS = 96
+# The trainer phase: epochs, and the launches of a run of E epochs on the
+# synthetic data (8 steps an epoch; 2 + 2 validation batches an epoch, 3
+# final-test batches): per step K1 10, K2-fwd 8, K2-bwd 8, K3 1, K4 1; per
+# eval forward K1 5, K2-fwd 4.
+TRAINER_EPOCHS = 2
+EVAL_FORWARDS = 3  # 80 target test clouds at B=32, the last batch padded
+
+
+def trainer_launches(epochs: int) -> dict:
+    return {"knn": 100 * epochs + 15, "edge_moments": 80 * epochs + 12,
+            "edge_moments_bwd": 64 * epochs, "knn_moments": 8 * epochs,
+            "fps": 8 * epochs}
 # (B, N, C, k) of the integer-coordinate exact-order checks; C = 3 with
 # coordinates in [-2, 2] puts many points at equal distances
 EXACT_KNN = ((B, N, 3, K), (4, RAGGED_N, 64, 32), (4, N, 128, 1),
@@ -335,11 +383,12 @@ def check_edge(name: str, xg: torch.Tensor, u: torch.Tensor) -> dict:
     return {**res, "max_abs_err": err}
 
 
-def fps_cost(b: int, n: int) -> tuple[float, float]:
+def fps_cost(b: int, n: int, npoint: int = 0) -> tuple[float, float]:
     """8 operations per point and step (3 subtractions, 3 products, 2
-    additions; the min and the compare not counted); the cloud read once,
-    the indices written once."""
-    return 8.0 * b * n * n, b * n * 3 * 4 + b * n * 8
+    additions; the min and the compare not counted), npoint (N unless
+    given) steps; the cloud read once, the indices written once."""
+    npoint = npoint or n
+    return 8.0 * b * n * npoint, b * n * 3 * 4 + b * npoint * 8
 
 
 def knn_moments_cost(b: int, n: int) -> tuple[float, float]:
@@ -689,7 +738,8 @@ def serving_times(served, plain, device, card: str) -> None:
 def kernel_times(device, card, knn_in, edge_in, g) -> dict:
     """Per-launch medians beside bound and plain time, by kernel."""
     rows = {name: [] for name in (*PER_STEP, "edge_moments_train",
-                                  "edge_moments_bwd_repeated_point")}
+                                  "edge_moments_bwd_repeated_point",
+                                  "fps_pipeline")}
 
     def row(kname, what, shape, fn, plain_fn, cost, plain_reps=30):
         b_ms, b_by = bound(*cost)
@@ -763,10 +813,273 @@ def kernel_times(device, card, knn_in, edge_in, g) -> dict:
                  - median_ms(lambda: fps_cuda(one, 2, s1))) / (n - 2))
         fps_chain[f"N={n}"] = {"us_per_step_one_block": step * 1e3,
                                "chain_floor_ms": step * n}
+    # the data pipeline's buckets, npoint = N
+    for b, n in FPS_PIPELINE_SHAPES:
+        xf = torch.from_numpy(make_classification(b, n, NUM_CLASS,
+                                                  seed=SEED + n)[0]).to(device)
+        start = torch.randint(0, n, (b,), generator=g).to(device)
+        row("fps_pipeline", f"B={b} N={n} npoint={N}", xf.shape,
+            lambda: fps_cuda(xf, N, start), lambda: fps_torch(xf, N, start),
+            fps_cost(b, n, N), plain_reps=3)
+        one, s1 = xf[:1].contiguous(), start[:1].contiguous()
+        step = ((median_ms(lambda: fps_cuda(one, N, s1))
+                 - median_ms(lambda: fps_cuda(one, 2, s1))) / (N - 2))
+        fps_chain[f"N={n} npoint={N}"] = {"us_per_step_one_block": step * 1e3,
+                                          "chain_floor_ms": step * N}
     for kname, per_shape in rows.items():
         emit("times", what=kname, per_launch=per_shape, card=card,
-             **({"chain": fps_chain} if kname == "fps" else {}))
+             **({"chain": fps_chain} if kname.startswith("fps") else {}))
     return {"rows": rows, "fps_chain": fps_chain}
+
+
+def check_fps_pipeline(g: torch.Generator, device) -> list:
+    """K4 at the data pipeline's shapes (npoint = N), then one point over
+    its limit, which must raise."""
+    res = []
+    for b, n in FPS_PIPELINE_SHAPES:
+        xf = torch.from_numpy(make_classification(b, n, NUM_CLASS,
+                                                  seed=SEED + n)[0]).to(device)
+        start = torch.randint(0, n, (b,), generator=g).to(device)
+        res.append(check_fps(xf, start, N, what="pipeline bucket"))
+    try:
+        fps_cuda(torch.zeros(1, FPS_LIMIT + 1, 3, device=device), N,
+                 torch.zeros(1, dtype=torch.int64, device=device))
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    emit("fps", input=f"N = {FPS_LIMIT + 1}, one over the limit",
+         raised=raised)
+    check(str(FPS_LIMIT) in raised,
+          f"K4 took a cloud over its limit of {FPS_LIMIT} points")
+    return res
+
+
+def data(device) -> dict:
+    """The pipeline's FPS route on the card: K4 against the plain loop."""
+    rng = np.random.default_rng(SEED)
+    sizes = rng.integers(N + 1, FPS_LIMIT + 1, DATA_CLOUDS)
+    clouds = [make_classification(1, int(n), NUM_CLASS, seed=SEED + i)[0][0]
+              * rng.uniform(0.5, 2.0) for i, n in enumerate(sizes)]
+    buckets: dict[int, int] = {}
+    for n in sizes:
+        b = 1 << (int(n) - 1).bit_length()
+        buckets[b] = buckets.get(b, 0) + 1
+    kw = dict(rotate_axis="x", rotate_angle=-np.pi / 2, device=device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = standardize_clouds(clouds, N, **kw)
+    seconds = time.perf_counter() - t0
+    launches = kernels.launches()
+    t0 = time.perf_counter()
+    want = standardize_clouds(clouds, N, backend="torch", **kw)
+    plain_seconds = time.perf_counter() - t0
+    expected = {**dict.fromkeys(PER_STEP, 0),
+                "fps": sum(-(-c // 64) for c in buckets.values())}
+    res = {"clouds": DATA_CLOUDS, "sizes": [int(sizes.min()), int(sizes.max())],
+           "buckets": {str(k): v for k, v in sorted(buckets.items())},
+           "launches": launches, "launches_expected": expected,
+           "shape": list(got.shape), "bitwise_equal": bool(
+               np.array_equal(got, want)),
+           "seconds": seconds, "plain_seconds": plain_seconds}
+    emit("data", **res)
+    check(res["bitwise_equal"] and got.shape == (DATA_CLOUDS, N, 3),
+          "the pipeline's K4 route differs from its plain route")
+    check(launches == expected, f"the pipeline launched {launches}")
+    return res
+
+
+def run_cli(argv: list, log: str) -> dict:
+    """`cli.main(argv)` in this process, its prints into `log`; returns
+    the launches it made. Fails unless it returns 0."""
+    kernels.reset_launches()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli {argv[0]} returned {rc} (see {log})")
+    return kernels.launches()
+
+
+def busy_share(trace: str, span: str) -> dict:
+    """The device's busy share inside the host range `span` of a
+    torch.profiler Chrome trace: the union of the GPU kernel, copy and set
+    intervals over the range's length."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("name") == span
+              and e.get("cat") == "user_annotation"]
+    if not ranges:
+        return {"busy_share": None, "why": f"no range {span!r} in the trace"}
+    t0 = ranges[0]["ts"]
+    t1 = t0 + ranges[0]["dur"]
+    busy, end, kernels_seen = 0.0, t0, 0
+    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy",
+                                           "gpu_memset")):
+        s, e = max(s, end), min(e, t1)
+        if e > s:
+            busy += e - s
+            end = e
+            kernels_seen += 1
+    return {"busy_share": busy / (t1 - t0) if kernels_seen else None,
+            "range_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "device_events": kernels_seen}
+
+
+def trainer(tmp: str) -> dict:
+    """The trainer CLI at full width, then a resume of it."""
+    out = os.path.join(tmp, "runs")
+    exp = os.path.join(out, "smoke")
+    argv = ["trainer", "--paper_recipe", "True", "--synthetic", "True",
+            "--epochs", str(TRAINER_EPOCHS), "--save_every", "1",
+            "--out_path", out, "--exp_name", "smoke"]
+    t0 = time.perf_counter()
+    launches = run_cli(argv, os.path.join(tmp, "trainer.log"))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(exp, "run.log")) as f:
+        log = f.read()
+    losses = [r["train"] for r in records]
+    files = {f: os.path.exists(os.path.join(exp, f))
+             for f in ("model.ckpt", "last.ckpt", "run.log", "metrics.jsonl")}
+    prints = {p: p in log for p in ("Best validation model confusion matrix:",
+                                    "Test confusion matrix:",
+                                    "target test accuracy:")}
+    res = {"argv": argv, "epochs": TRAINER_EPOCHS, "seconds": seconds,
+           "launches": launches,
+           "launches_expected": trainer_launches(TRAINER_EPOCHS),
+           "losses": losses, "finite": all(np.isfinite(v) for r in losses
+                                           for v in r.values()),
+           "files": files, "records": len(records), "log_prints": prints,
+           "epoch_seconds": [r["seconds"] for r in records],
+           "val": [{k: r[k]["acc"] for k in ("src_val", "trgt_val")}
+                   for r in records]}
+    emit("trainer", **res)
+    check(res["finite"], f"non-finite trainer losses: {losses}")
+    check(launches == res["launches_expected"],
+          f"the trainer did not launch every kernel as expected: {launches}")
+    check(all(files.values()) and res["records"] == TRAINER_EPOCHS
+          and all(prints.values()),
+          f"the trainer left {files}, {res['records']} records, {prints}")
+
+    # resume from the last epoch's checkpoint, profiled
+    last = os.path.join(exp, "last.ckpt")
+    trace_dir = os.path.join(tmp, "trace")
+    resume = ["trainer", "--paper_recipe", "True", "--synthetic", "True",
+              "--epochs", str(TRAINER_EPOCHS + 1), "--resume", last,
+              "--save_every", "1", "--out_path", out, "--exp_name",
+              "smoke", "--profile_dir", trace_dir]
+    run_cli(resume, os.path.join(tmp, "resume.log"))
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        after = [json.loads(line) for line in f]
+    with open(os.path.join(exp, "run.log")) as f:
+        said = f"resumed from {last} at epoch {TRAINER_EPOCHS - 1}" in f.read()
+    epoch = TRAINER_EPOCHS
+    busy = busy_share(os.path.join(trace_dir, "trace.json"),
+                      f"mlsp/epoch {epoch}")
+    rres = {"argv": resume, "resumed_message": said,
+            "epochs_run": [r["epoch"] for r in after[TRAINER_EPOCHS:]],
+            "last_epoch": checkpoint.load_train_state(
+                last, make_model("dgcnn", NUM_CLASS, device="cpu"))[0],
+            "profiled_epoch": {"epoch": epoch, **busy,
+                               "seconds": after[-1]["seconds"]}}
+    emit("trainer", what="resume", **rres)
+    check(said and rres["epochs_run"] == [epoch]
+          and rres["last_epoch"] == epoch,
+          f"the resumed run did not take exactly epoch {epoch}: {rres}")
+    return {**res, "resume": rres, "model_file": os.path.join(exp,
+                                                               "model.ckpt")}
+
+
+def eval_infer(tmp: str, model_file: str) -> dict:
+    """`eval` and `infer` on the target test split, kernels and plain."""
+    out = os.path.join(tmp, "runs")
+    res, preds = {}, {}
+    for route in ("kernels", "plain"):
+        extra = [] if route == "kernels" else ["--knn_backend", "torch"]
+        for cmd in ("eval", "infer"):
+            name = f"{cmd}_{route}"
+            argv = [cmd, "--model_file", model_file, "--synthetic", "True",
+                    "--out_path", out, "--exp_name", name, *extra]
+            launches = run_cli(argv, os.path.join(tmp, f"{name}.log"))
+            with open(os.path.join(out, name, "run.log")) as f:
+                summary = json.loads(f.read().splitlines()[-1].split(": ", 1)[1])
+            res[name] = {"launches": launches, **summary}
+            if cmd == "infer":
+                preds[route] = np.load(summary["output"])
+    k, p = preds["kernels"], preds["plain"]
+    expected = {**dict.fromkeys(PER_STEP, 0), "knn": 5 * EVAL_FORWARDS,
+                "edge_moments": 4 * EVAL_FORWARDS}
+    cmp = {"clouds": int(k["pred"].shape[0]),
+           "class_agreement": float((k["pred"] == p["pred"]).mean()),
+           "max_prob_diff": float(np.abs(k["prob"] - p["prob"]).max()),
+           "finite": bool(np.isfinite(k["prob"]).all()),
+           "launches_expected": expected}
+    emit("eval_infer", **res, compare=cmp)
+    for cmd in ("eval", "infer"):
+        check(res[f"{cmd}_kernels"]["launches"] == expected,
+              f"{cmd} did not launch K1 and K2-fwd as expected")
+        check(not any(res[f"{cmd}_plain"]["launches"].values()),
+              f"plain {cmd} launched kernels")
+    check(cmp["finite"] and k["prob"].shape == (80, NUM_CLASS)
+          and np.array_equal(k["index"], p["index"]),
+          "infer's output is not 80 finite rows of probabilities")
+    check(cmp["class_agreement"] >= MIN_CLASS_AGREEMENT
+          and cmp["max_prob_diff"] <= MAX_LOGIT_DIFF,
+          f"infer through the kernels disagrees with the plain route: {cmp}")
+    for route in ("kernels", "plain"):
+        check(res[f"eval_{route}"]["acc"] == res[f"infer_{route}"]["acc"],
+              f"eval's accuracy differs from infer's ({route})")
+    return {**res, "compare": cmp}
+
+
+def trainer_times(tr: dict, model_file: str, step_p50_ms: float, device,
+                  card: str) -> dict:
+    """The trainer's epoch wall time (epochs after the first), train
+    steps/s in its loop, the device's busy share over the profiled epoch,
+    and eval/infer clouds/s at B=32 on the target train split."""
+    secs = tr["epoch_seconds"][1:]
+    model = make_model("dgcnn", NUM_CLASS, device=device)
+    checkpoint.load_model_weights(model, model_file)
+    ds = load_pointda("scannet", ".", "train", N, True, 1, device=device)
+    steps = len(ds.train_ind) // B  # every synthetic domain: 256 // 32
+    x = torch.from_numpy(ds.data).to(device)
+    sels, _ = eval_batches(len(ds), B)
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()  # both return host numpy: the device has finished
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    busy_ms = tr["resume"]["profiled_epoch"].get("busy_ms")
+    t_eval = timed(lambda: evaluate(model, x, ds.label, B, NUM_CLASS))
+    t_infer = timed(lambda: eval_logits(model, x, sels))
+    res = {"epochs_timed": len(secs),
+           "epoch_wall_s_median": statistics.median(s["epoch"] for s in secs),
+           "train_wall_s_median": statistics.median(s["train"] for s in secs),
+           "steps_per_epoch": steps,
+           "train_steps_per_s_in_loop": steps / statistics.median(
+               s["train"] for s in secs),
+           "isolated_step_p50_ms": step_p50_ms,
+           "isolated_steps_per_s": 1e3 / step_p50_ms,
+           "device_busy_share_profiled_epoch":
+               tr["resume"]["profiled_epoch"]["busy_share"],
+           # the profiler slows the host, not the kernels: the profiled
+           # epoch's device time over an unprofiled epoch's wall time
+           "device_busy_share_unprofiled_est": (
+               busy_ms / 1e3 / statistics.median(s["epoch"] for s in secs)
+               if busy_ms else None),
+           "profiled_epoch": tr["resume"]["profiled_epoch"],
+           "eval_clouds": len(ds), "batch": B,
+           "eval_clouds_per_s": len(ds) / t_eval,
+           "infer_clouds_per_s": len(ds) / t_infer, "card": card}
+    emit("times", what="trainer", **res)
+    return res
 
 
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
@@ -834,6 +1147,7 @@ def run(device: torch.device, card: str) -> None:
     fps_checks.append(check_fps(xf, start, what="duplicated points"))
     fps_checks.append(check_fps(integer_cloud(g, (B, N, 3), device), start,
                                 what="integer points"))
+    fps_checks += check_fps_pipeline(g, device)
     moments_check = check_knn_moments(x)
     bwd_checks = [check_edge_bwd(name, xg, u, g) for name, xg, u in edge_in]
     # every odd point repeats its predecessor, in the graph features and in
@@ -847,10 +1161,15 @@ def run(device: torch.device, card: str) -> None:
     with tempfile.TemporaryDirectory() as bundle_dir:
         srv = serve(model, bundle_dir, device)
     tr = train(device)
+    dt = data(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        trn = trainer(tmp)
+        ei = eval_infer(tmp, trn["model_file"])
 
-    kt = kernel_times(device, card, knn_in, edge_in, g)
-    serving_times(srv["served"], srv["plain"], device, card)
-    step_times(tr, device, card)
+        kt = kernel_times(device, card, knn_in, edge_in, g)
+        serving_times(srv["served"], srv["plain"], device, card)
+        st = step_times(tr, device, card)
+        trainer_times(trn, trn["model_file"], st["p50_ms"], device, card)
 
     errs = {
         "knn": max(c["max_dist_gap"] for c in knn_checks),
@@ -882,7 +1201,11 @@ def run(device: torch.device, card: str) -> None:
         main = (total([(1, r) for r in rows[kname]])
                 if kname in ("knn", "edge_moments") else total(step_rows[kname]))
         by_path = {"serve": srv["launches"][kname],
-                   "train": tr["launches"][kname]}
+                   "train": tr["launches"][kname],
+                   "data": dt["launches"][kname],
+                   "trainer": trn["launches"][kname],
+                   "eval": ei["eval_kernels"]["launches"][kname],
+                   "infer": ei["infer_kernels"]["launches"][kname]}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -2,7 +2,9 @@
 port of `fps_pallas`.
 
 `fps_cuda` launches the kernel on CUDA tensors or raises; it never falls
-back. Its plain version is `ops.fps.fps_torch`.
+back. It takes clouds of up to `mlsp_fps_max_points()` = 16384 points (the
+data pipeline's largest bucket) and raises a ValueError naming the limit
+beyond. Its plain version is `ops.fps.fps_torch`.
 """
 
 from __future__ import annotations

@@ -1,0 +1,114 @@
+"""Standalone checkpoint evaluation and batch inference (counterpart of
+`mlsp_tpu/train/evaluation.py`): `run_eval` reports a split's metrics,
+`run_infer` writes per-cloud predictions and class probabilities to an
+.npz. The port serves `task="pointda"` with `model="dgcnn"` from its own
+checkpoints; the other tasks and models, `from_torch`, `export` and the
+AOT bundle raise NotImplementedError (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from mlsp_tpu_torch.data.pointda import idx_to_label, load_pointda
+from mlsp_tpu_torch.models import make_model
+from mlsp_tpu_torch.train.pointda_trainer import (
+    eval_batches,
+    eval_logits,
+    evaluate,
+)
+from mlsp_tpu_torch.utils import checkpoint, metrics
+from mlsp_tpu_torch.utils.config import EvalConfig
+from mlsp_tpu_torch.utils.device import resolve_device
+from mlsp_tpu_torch.utils.logging import IOStream
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what}: not ported to PyTorch yet (see ROADMAP.md)")
+
+
+def _setup(cfg: EvalConfig, io: IOStream):
+    """The split and the model with the checkpoint's weights. Returns
+    (model, data, label, indices): `indices` picks the train or val part
+    of the train partition (`dataloader.py:70-73`), None for test."""
+    if cfg.task != "pointda":
+        raise _not_ported(f"task={cfg.task!r}")
+    if cfg.model != "dgcnn":
+        raise _not_ported(f"model={cfg.model!r}")
+    if cfg.from_torch:
+        raise _not_ported("from_torch (reading a reference model.pt)")
+    device = resolve_device(cfg.device or None)
+    partition = "train" if cfg.split in ("train", "val") else "test"
+    ds = load_pointda(cfg.dataset, cfg.dataroot, partition, cfg.num_points,
+                      cfg.synthetic, cfg.seed, device=device)
+    indices = {"train": ds.train_ind, "val": ds.val_ind}.get(cfg.split)
+    model = make_model(cfg.model, cfg.num_class, device=device,
+                       dropout=cfg.dropout,
+                       density_num_cls=cfg.density_num_class,
+                       pergroup=cfg.pergroup, knn_backend=cfg.knn_backend,
+                       head_dtype=cfg.head_dtype or "f32")
+    checkpoint.load_model_weights(model, cfg.model_file)
+    io.cprint(f"loaded {cfg.model_file}")
+    return model, ds.data, ds.label, indices
+
+
+def run_eval(cfg: EvalConfig, io: IOStream | None = None) -> dict:
+    """Evaluate a checkpoint on one split; returns the metrics (also
+    printed as one JSON line)."""
+    cfg = cfg.resolved()
+    io = io or IOStream(cfg.out_path, cfg.exp_name)
+    model, data, label, indices = _setup(cfg, io)
+    r = evaluate(model, data, label, cfg.test_batch_size, cfg.num_class,
+                 indices)
+    io.cprint("Confusion matrix:\n" + str(r["conf_mat"]))
+    io.save_conf_mat(r["conf_mat"], "eval_conf_mat.csv", "Eval",
+                     class_names=[idx_to_label.get(i, str(i))
+                                  for i in range(cfg.num_class)])
+    result = {"dataset": cfg.dataset, "split": cfg.split,
+              "acc": round(float(r["acc"]), 6),
+              "balanced_acc": round(float(r["balanced_acc"]), 6),
+              "loss": round(float(r["loss"]), 6)}
+    io.cprint(json.dumps(result))
+    return result
+
+
+def run_infer(cfg: EvalConfig, io: IOStream | None = None) -> dict:
+    """Batch inference over one split: writes `pred` [M] int64, `prob`
+    [M, num_class] float32 (softmax), `label` [M] and `index` [M] (the
+    dataset index of each row) to `cfg.output` (default
+    `{exp_dir}/predictions.npz`). Returns a summary (also printed as one
+    JSON line)."""
+    cfg = cfg.resolved()
+    io = io or IOStream(cfg.out_path, cfg.exp_name)
+    model, data, label, indices = _setup(cfg, io)
+    sels, counts = eval_batches(label.shape[0], cfg.test_batch_size, indices)
+    if not sels:
+        raise ValueError("run_infer: empty split")
+    logits = eval_logits(model, data, sels)
+    logits = np.concatenate([lg[:n] for lg, n in zip(logits, counts)])
+    order = np.concatenate([sel[:n] for sel, n in zip(sels, counts)])
+    pred = logits.argmax(-1).astype(np.int64)
+    true = label[order]
+
+    out_path = cfg.output or os.path.join(io.path, "predictions.npz")
+    np.savez_compressed(out_path, pred=pred,
+                        prob=np.exp(metrics.log_softmax_np(logits)),
+                        label=true, index=order)
+    summary = {"output": out_path, "dataset": cfg.dataset, "split": cfg.split,
+               "n": int(pred.shape[0]),
+               "acc": round(float(np.mean(pred == true)), 6)}
+    io.cprint(json.dumps(summary))
+    return summary
+
+
+def run_export(cfg: EvalConfig, io: IOStream | None = None) -> dict:
+    raise _not_ported("export (a reference-loadable model.pt)")
+
+
+def run_aot_export(cfg: EvalConfig, io: IOStream | None = None) -> dict:
+    raise _not_ported("aot (a frozen serving program; `serving` saves "
+                      "weight bundles)")

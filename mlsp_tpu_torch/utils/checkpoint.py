@@ -1,0 +1,112 @@
+"""Train-state checkpoints of the port (counterpart of
+`mlsp_tpu/utils/checkpoint.py`), in its own `torch.save` format:
+
+    {"format": FORMAT, "model": state_dict, "optimizer": ..., "scheduler":
+     ..., "epoch": int, "metrics": dict}
+
+Tensors are saved as CPU copies and loaded with `weights_only=True` and
+`map_location="cpu"`; `load_state_dict` then copies them onto the
+model's device (the optimizer's too, but for Adam's step counts, which
+it keeps on the CPU as a fresh optimizer does). So a checkpoint written
+on the card loads on the CPU and the other way round. The JAX package's
+msgpack `.ckpt` files and reference torch `model.pt` files are not read
+yet (ROADMAP.md, Slice G).
+"""
+
+from __future__ import annotations
+
+import os
+import zipfile
+
+import torch
+
+from mlsp_tpu_torch.utils.device import process_index
+
+FORMAT = "mlsp_tpu_torch/train-state-v1"
+
+
+def _cpu(obj):
+    """`obj` with every tensor inside dicts, lists and tuples copied to the
+    CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def save_train_state(path: str, model: torch.nn.Module, opt=None, sched=None,
+                     epoch: int = 0, metrics: dict | None = None) -> None:
+    """Write the model's weights, the optimizer's and scheduler's state,
+    the epoch and `metrics`. Only process 0 writes; the file appears
+    atomically."""
+    if process_index() != 0:
+        return
+    payload = {
+        "format": FORMAT,
+        "model": _cpu(model.state_dict()),
+        "optimizer": _cpu(opt.state_dict()) if opt is not None else None,
+        "scheduler": sched.state_dict() if sched is not None else None,
+        "epoch": int(epoch),
+        "metrics": dict(metrics or {}),
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _read(path: str) -> dict:
+    if not path or not os.path.exists(path):
+        raise FileNotFoundError(f"model checkpoint not found: {path!r}")
+    # torch.save writes a zip archive; anything else (a JAX msgpack .ckpt)
+    # is refused before the unpickler sees it
+    raw = (torch.load(path, map_location="cpu", weights_only=True)
+           if zipfile.is_zipfile(path) else None)
+    if not isinstance(raw, dict) or raw.get("format") != FORMAT:
+        raise ValueError(f"checkpoint {path!r} is not a {FORMAT} file (the "
+                         "JAX package's .ckpt files are not read yet)")
+    return raw
+
+
+def _check_model_state(model: torch.nn.Module, state: dict, path: str) -> None:
+    """Name every key whose shape differs, or that is missing or extra,
+    before `load_state_dict` (whose message stops at the first kind)."""
+    want = model.state_dict()
+    bad = [f"{k}: ckpt {tuple(state[k].shape)} != model {tuple(v.shape)}"
+           for k, v in want.items() if k in state
+           and tuple(state[k].shape) != tuple(v.shape)]
+    bad += [f"{k}: missing from ckpt" for k in want if k not in state]
+    bad += [f"{k}: not in model" for k in state if k not in want]
+    if bad:
+        raise ValueError(
+            f"checkpoint {path!r} does not match the model being restored "
+            f"(wrong num_class/width/model config?): " + "; ".join(bad))
+
+
+def load_model_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load the weights (and BatchNorm statistics) of a checkpoint into
+    `model`, on the model's device; the optimizer state is ignored."""
+    raw = _read(path)
+    _check_model_state(model, raw["model"], path)
+    model.load_state_dict(raw["model"], strict=True)
+    return model
+
+
+def load_train_state(path: str, model: torch.nn.Module, opt=None,
+                     sched=None) -> tuple[int, dict]:
+    """Restore a checkpoint written by `save_train_state` into `model` and,
+    where given, `opt` and `sched` (all on the model's device). Returns
+    (epoch, metrics)."""
+    raw = _read(path)
+    _check_model_state(model, raw["model"], path)
+    model.load_state_dict(raw["model"], strict=True)
+    for what, obj in (("optimizer", opt), ("scheduler", sched)):
+        if obj is None:
+            continue
+        if raw[what] is None:
+            raise ValueError(f"checkpoint {path!r} holds no {what} state")
+        obj.load_state_dict(raw[what])
+    return raw["epoch"], raw["metrics"]

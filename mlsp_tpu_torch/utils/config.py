@@ -1,18 +1,22 @@
-"""PointDA experiment configuration (a copy of `PointDAConfig` from
-`mlsp_tpu/utils/config.py`, whose module the port may not import).
+"""Experiment configuration: copies of `PointDAConfig` and `EvalConfig`
+from `mlsp_tpu/utils/config.py` (whose module the port may not import),
+the head tables and the YAML/CLI funnel.
 
 Field names and defaults mirror the reference's argparse surface
-(`PointDA/trainer.py:44-99`) plus its per-target radius table. YAML
-loading and the CLI come with the trainer, and with it `resume` and
-`save_every`. Left out as having no meaning here: `edge_impl` (the port
-has one EdgeConv core), `compute_dtype`/`gather_dtype` (the port runs in
-float32 but for the heads), `scan_steps` (a TPU dispatch amortisation)
-and `debug_aux` (`train.steps.pointda_losses` takes the draws as inputs).
+(`PointDA/trainer.py:44-99`) plus its per-target radius table. Left out
+as having no meaning here: `edge_impl` (the port has one EdgeConv core),
+`compute_dtype`/`gather_dtype` (the port runs in float32 but for the
+heads), `scan_steps` (a TPU dispatch amortisation) and `debug_aux`
+(`train.steps.pointda_losses` takes the draws as inputs); a YAML or CLI
+naming one of them is refused as an unknown key. Added: `device`, where
+the entry points run ("" is the CUDA card, which they require unless
+given "cpu").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 # Per-target density radius (trainer.py:103-111).
@@ -81,7 +85,10 @@ class PointDAConfig:
     # Test-only: forwards use the running BN statistics (eval-mode BN, no
     # statistics update), as the JAX package's `debug_bn_eval`.
     debug_bn_eval: bool = False
+    resume: str = ""  # checkpoint to resume from (weights, optimizer, epoch)
+    save_every: int = 0  # also write last.ckpt every N epochs (0 = off)
     synthetic: bool = False
+    device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
 
     def resolved(self) -> "PointDAConfig":
         """Apply the per-target radius table (trainer.py:103-111)."""
@@ -99,3 +106,137 @@ class PointDAConfig:
             DefRec_weight=0.5,
             Density_weight=0.05,
         )
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Standalone checkpoint evaluation and batch inference (`eval`,
+    `infer`). The port serves `task="pointda"` with `model="dgcnn"`; the
+    other tasks, models and `from_torch` raise NotImplementedError."""
+
+    exp_name: str = "EVAL"
+    out_path: str = "./experiments"
+    dataroot: str = "./data"
+    task: str = "pointda"  # "pointda" | "pointsegda"
+    dataset: str = "scannet"
+    split: str = "test"  # "train" | "val" | "test"
+    model: str = "dgcnn"
+    model_file: str = ""  # a checkpoint written by `utils.checkpoint`
+    from_torch: bool = False  # a reference torch model.pt (not ported yet)
+    seed: int = 1
+    num_class: int = 10
+    num_points: int = 1024
+    test_batch_size: int = 32
+    dropout: float = 0.5
+    density_num_class: int = 16
+    pergroup: float = 2.0
+    knn_backend: str = "auto"
+    head_dtype: str = ""  # "" = float32 heads
+    synthetic: bool = False
+    output: str = ""  # `infer` predictions .npz (default {exp_dir}/predictions.npz)
+    device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
+
+    # Fields whose PointDA defaults are wrong for the seg task, with the
+    # seg trainer's values (`PointSegDA/trainer.py:124-125,196-199`).
+    _SEG_DEFAULTS = {"model": "dgcnn_seg", "num_class": 8,
+                     "num_points": 2048, "pergroup": 5.0, "dataset": "faust"}
+
+    def resolved(self) -> "EvalConfig":
+        """Task-conditional defaults: with `task=pointsegda`, any field
+        still at its PointDA default flips to the seg trainer's value."""
+        if self.task != "pointsegda":
+            return self
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        repl = {k: v for k, v in self._SEG_DEFAULTS.items()
+                if getattr(self, k) == defaults[k]}
+        return dataclasses.replace(self, **repl)
+
+
+def model_heads(model: str) -> tuple[str, ...]:
+    """SSL heads a backbone provides: only DGCNN carries the normal, scan
+    and density heads."""
+    return (("defrec", "normal", "scan", "density") if model == "dgcnn"
+            else ("defrec",))
+
+
+def trained_heads(cfg) -> tuple[str, ...]:
+    """Heads some loss term of the recipe reads. The others keep their
+    initial weights (`train.state`: their gradients stay None)."""
+    combined = (cfg.Density_normal_viainput or cfg.Density_normal_viachamfer
+                or cfg.Density_normal_viainput_onsrc)
+    t = set()
+    if cfg.DefRec_on_src or cfg.DefRec_on_trgt or combined:
+        t.add("defrec")
+    if cfg.Norm_on_trgt or (combined and cfg.Normal_ondef):
+        t.add("normal")
+    if cfg.Scan_on_trgt:
+        t.add("scan")
+    if cfg.Density_on_trgt or (combined and cfg.Density_ondef):
+        t.add("density")
+    return tuple(h for h in model_heads(cfg.model) if h in t)
+
+
+def validate_heads(cfg) -> tuple[str, ...]:
+    """Check the SSL branches the config enables against the heads the
+    backbone provides; returns the backbone's heads. Raises ValueError
+    before the first step rather than a KeyError inside it."""
+    available = model_heads(cfg.model)
+    needed = {"defrec"}
+    if cfg.Norm_on_trgt or cfg.Normal_ondef:
+        needed.add("normal")
+    if cfg.Scan_on_trgt:
+        needed.add("scan")
+    if cfg.Density_on_trgt or cfg.Density_ondef:
+        needed.add("density")
+    # the combined branches forward through all three heads
+    if (cfg.Density_normal_viainput or cfg.Density_normal_viachamfer
+            or cfg.Density_normal_viainput_onsrc):
+        needed.update({"normal", "density"})
+    missing = needed - set(available)
+    if missing:
+        raise ValueError(
+            f"model {cfg.model!r} has no {sorted(missing)} head(s) but the "
+            f"config enables SSL branches that need them: use --model dgcnn "
+            f"or disable those flags")
+    return available
+
+
+def from_dict(cls, d: dict):
+    """The user-facing funnel (YAML and CLI land here). Unknown keys and
+    the test-only `debug_*` fields are refused."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(
+            f"unknown config keys for {cls.__name__}: {sorted(unknown)}")
+    debug = sorted(k for k in d if k.startswith("debug_"))
+    if debug:
+        raise ValueError(
+            f"{debug} are test-only instrumentation fields and cannot be "
+            f"set from YAML/CLI (construct {cls.__name__} directly in a "
+            f"test if you need them)")
+    return cls(**d)
+
+
+def load_yaml_dict(path: str) -> dict:
+    """A YAML file as a dict, with `_base_` inheritance: the child's keys
+    override the recursively loaded base's (one level of dict merge)."""
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f) or {}
+    base_rel = cfg.pop("_base_", None)
+    if not base_rel:
+        return cfg
+    merged = dict(load_yaml_dict(os.path.join(os.path.dirname(path),
+                                              base_rel)))
+    for k, v in cfg.items():
+        if isinstance(v, dict) and isinstance(merged.get(k), dict):
+            merged[k] = {**merged[k], **v}
+        else:
+            merged[k] = v
+    return merged
+
+
+def load_yaml(cls, path: str):
+    return from_dict(cls, load_yaml_dict(path))

@@ -17,3 +17,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def process_index() -> int:
+    """This process's rank in an initialised `torch.distributed` group,
+    else 0. Only rank 0 writes experiment files and checkpoints."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0

@@ -2,7 +2,8 @@
 # Check the PyTorch/CUDA port (mlsp_tpu_torch) on one CUDA card, from the
 # root of a checkout. Four steps:
 #   smoke       python3 chip_smoke.py: every kernel against its plain
-#               version, the serving and train main paths, the times
+#               version, the serving, train step, data pipeline, trainer
+#               CLI and eval/infer paths, the times
 #   cuda_tests  the card-only tests (pytest -m cuda; --noconftest, since
 #               tests/conftest.py imports JAX)
 #   profile     scripts/torch_train_profile.py: where a train step's

@@ -15,6 +15,7 @@ from mlsp_tpu_torch.data.synthetic import make_classification
 from mlsp_tpu_torch.ops import edge_moments, estimate_normals, knn_indices
 from mlsp_tpu_torch.ops import kernels
 from mlsp_tpu_torch.ops.kernels import edge as edge_kernels
+from mlsp_tpu_torch.ops.kernels import fps as fps_kernels
 from mlsp_tpu_torch.ops.edge import edge_moments_torch
 from mlsp_tpu_torch.ops.fps import fps_torch
 from mlsp_tpu_torch.ops.kernels import (
@@ -272,7 +273,10 @@ def test_edge_kernel_wrapper_records_no_grad(card):
 @pytest.mark.parametrize("B,N,npoint", [(4, 1024, 1024), (3, 1000, 1000),
                                         (2, 2048, 2048), (5, 37, 20),
                                         (64, 1024, 1024), (3, 2048, 700),
-                                        (4, 1024, 300)])
+                                        (4, 1024, 300), (3, 2049, 1024),
+                                        (4, 4096, 1024), (2, 5000, 700),
+                                        (4, 8192, 1024), (2, 9000, 1024),
+                                        (3, 16384, 1024), (1, 16384, 16384)])
 def test_fps_kernel_equals_plain(card, B, N, npoint):
     x = _x(N, (B, N, 3), card)
     start = torch.randint(0, N, (B,), generator=torch.Generator().manual_seed(N)
@@ -298,10 +302,22 @@ def test_fps_kernel_ties_to_lowest_index(card, ties):
     assert torch.equal(fps_cuda(x, 1024, start), fps_torch(x, 1024, start))
 
 
-def test_fps_kernel_refuses_clouds_over_2048_points(card):
-    x = _x(0, (1, 2049, 3), card)
-    with pytest.raises(ValueError, match="2048"):
+def test_fps_kernel_refuses_clouds_over_the_limit(card):
+    """16384 points (the data pipeline's largest bucket) is the limit."""
+    assert fps_kernels._lib().mlsp_fps_max_points() == 16384
+    x = _x(0, (1, 16385, 3), card)
+    with pytest.raises(ValueError, match="16384"):
         fps_cuda(x, 8, torch.zeros(1, dtype=torch.int64, device=card))
+
+
+@pytest.mark.parametrize("N", [4096, 16384])
+def test_fps_wide_kernel_ties_to_lowest_index(card, N):
+    """The wide kernels on tiled clouds (the pipeline's padding repeats
+    each cloud) and integer coordinates: indices equal the plain version's."""
+    x = _x(N, (4, N // 4, 3), card).repeat(1, 4, 1).contiguous()
+    x[2:] = _int_cloud(N, (2, N, 3), card)
+    start = torch.tensor([0, 5, N - 1, 17], device=card)
+    assert torch.equal(fps_cuda(x, 1024, start), fps_torch(x, 1024, start))
 
 
 def test_fps_kernel_bad_start_gives_minus_one(card):
@@ -365,3 +381,47 @@ def test_train_step_launches_every_kernel(card):
                                   "edge_moments_bwd": 8, "knn_moments": 1,
                                   "fps": 1}
     assert all(torch.isfinite(t) for t in m.values())
+
+
+def test_standardize_clouds_on_the_card_equals_the_plain_route(card):
+    """Ragged clouds over every FPS bucket up to the pipeline's largest
+    (16384 points): K4 and the plain loop give bitwise equal outputs."""
+    from mlsp_tpu_torch.data.pipeline import standardize_clouds
+
+    rng = np.random.default_rng(0)
+    sizes = (700, 1024, 1025, 2048, 2049, 3000, 4096, 5000, 8192, 9000,
+             16384, 12000)
+    clouds = [rng.standard_normal((n, 3)).astype(np.float32) for n in sizes]
+    kw = dict(rotate_axis="x", rotate_angle=-np.pi / 2, device=card)
+    fps_cuda.launches = 0
+    got = standardize_clouds(clouds, 1024, **kw)
+    assert fps_cuda.launches == 4  # buckets 2048, 4096, 8192, 16384
+    want = standardize_clouds(clouds, 1024, backend="torch", **kw)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="16384"):
+        standardize_clouds([np.ones((16385, 3), np.float32)], 1024,
+                           device=card)
+
+
+def test_trainer_one_epoch_checkpoint_loads_on_the_cpu(card, tmp_path):
+    from mlsp_tpu_torch.train.pointda_trainer import train_pointda
+    from mlsp_tpu_torch.utils import checkpoint
+
+    cfg = PointDAConfig(synthetic=True, epochs=1, num_points=256,
+                        save_every=1, out_path=str(tmp_path), exp_name="c"
+                        ).paper_recipe
+    kernels.reset_launches()
+    model, results = train_pointda(cfg)
+    assert next(model.parameters()).is_cuda
+    # 8 steps, 2 + 2 validation batches, 3 final-test batches
+    assert kernels.launches() == {"knn": 115, "edge_moments": 92,
+                                  "edge_moments_bwd": 64, "knn_moments": 8,
+                                  "fps": 8}
+    cpu = make_model("dgcnn", 10, device="cpu")
+    epoch, metrics = checkpoint.load_train_state(
+        str(tmp_path / "c" / "last.ckpt"), cpu)
+    assert epoch == 0 and "src_val_acc" in metrics
+    if (tmp_path / "c" / "model.ckpt").exists():  # epoch 0 was the best
+        for k, v in model.state_dict().items():
+            assert torch.equal(cpu.state_dict()[k], v.cpu()), k
+    assert np.isfinite(results["test"]["loss"])

@@ -83,7 +83,19 @@ class TestPackageBoundary:
                 "mlsp_tpu_torch.ops.kernels.normals",
                 "mlsp_tpu_torch.transforms.deform",
                 "mlsp_tpu_torch.losses.losses",
-                "mlsp_tpu_torch.utils.config"} <= set(names)
+                "mlsp_tpu_torch.utils.config", "mlsp_tpu_torch.cli",
+                "mlsp_tpu_torch.train.pointda_trainer",
+                "mlsp_tpu_torch.train.evaluation",
+                "mlsp_tpu_torch.train.guard",
+                "mlsp_tpu_torch.data.pipeline",
+                "mlsp_tpu_torch.data.pointda",
+                "mlsp_tpu_torch.utils.checkpoint",
+                "mlsp_tpu_torch.utils.logging",
+                "mlsp_tpu_torch.utils.metrics",
+                "mlsp_tpu_torch.utils.average_meter",
+                "mlsp_tpu_torch.utils.profiling"} <= set(names)
+        # yaml and h5py load only inside their readers
+        assert not {"yaml", "h5py"} & set(loaded)
         assert "mlsp_tpu_torch" in loaded
         assert not set(loaded) & FORBIDDEN, set(loaded) & FORBIDDEN
 
