@@ -61,13 +61,37 @@ one JSON line each; any failure exits non-zero before the last line:
                `--knn_backend torch`: classes agree on >= 99% of clouds,
                max |dprob| <= 2e-2, eval's accuracy equals infer's, each
                3 forwards (K1 15, K2-fwd 12 launches)
+  seg_kernels  K1, K3 and K4 against their plain versions at the PointSegDA
+               shapes: K1 on a B=16, N=2048 seg forward's four inputs (C=3,
+               3, 64, 64) and at the eval batch's [32, 2048, 64]; K3 at
+               [16, 2048, 3] with k = near = 10 (sums and normals); K4 at
+               PCM's [32, 2048, 3] with npoint 2048, index-equal
+  seg_train    a main path: 3 seg train steps, configs/pointsegda_mlsp.yaml
+               plus apply_PCM (DGCNNSeg k=20, N=2048, 8 classes, B=16) from
+               seeded random weights and BatchNorm; per step K1 8, K3 1, K4
+               1, no K2; the first step rerun through the plain versions on
+               the kernel run's kNN graphs and FPS orders, at the train
+               step's bounds (train-mode BN)
+  seg_trainer  the CLI in-process: `seg --config
+               configs/pointsegda/adobe2faust.yaml --synthetic True
+               --apply_PCM True --epochs 2` (K1 32E+4, K3 3E, K4 3E for E
+               epochs), finite losses, model.ckpt and the log lines
+  seg_eval_infer  `eval` and `infer --task pointsegda` from that
+               model.ckpt, through the kernels and with `--knn_backend
+               torch`: per-point classes agree on >= 99% of points, max
+               |dprob| <= 2e-2, eval's accuracy equals infer's, 1 forward
+               each (K1 4)
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
                kernel's bound, K2-bwd on the repeated-point graph too, K4
                at the pipeline's shapes with its chain floor, serving
                latency and throughput at B=32, the train step's p50 on
                both routes, and the trainer's epoch time, steps/s in its
-               loop, device busy share and eval/infer clouds/s
+               loop, device busy share and eval/infer clouds/s; at the seg
+               shapes K1, K3 and K4 per launch, the LinearEdgeBlock max
+               through K2 (an option, on no path), the seg step's p50 on
+               both routes, the seg trainer's epoch time and seg eval/infer
+               clouds/s
 
 Then the `kernels` line, nvidia-smi's line and `{"ok": true, ...}`.
 """
@@ -92,7 +116,10 @@ import torch.nn.functional as F
 from mlsp_tpu_torch import ServingModel, cli, make_model, save_serving_bundle
 from mlsp_tpu_torch.data.pipeline import standardize_clouds
 from mlsp_tpu_torch.data.pointda import load_pointda
-from mlsp_tpu_torch.data.synthetic import make_classification
+from mlsp_tpu_torch.data.synthetic import (
+    make_classification,
+    make_segmentation,
+)
 from mlsp_tpu_torch.ops import kernels
 from mlsp_tpu_torch.ops.edge import edge_moments, edge_moments_torch
 from mlsp_tpu_torch.ops.fps import fps_torch
@@ -117,14 +144,23 @@ from mlsp_tpu_torch.testing import (
     grad_gaps,
     knn_set_gap,
 )
-from mlsp_tpu_torch.train import make_optimizer, pointda_train_step
+from mlsp_tpu_torch.train import (
+    make_optimizer,
+    pointda_train_step,
+    pointsegda_train_step,
+)
 from mlsp_tpu_torch.train.pointda_trainer import (
     eval_batches,
     eval_logits,
     evaluate,
 )
+from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
 from mlsp_tpu_torch.utils import checkpoint
-from mlsp_tpu_torch.utils.config import PointDAConfig
+from mlsp_tpu_torch.utils.config import (
+    PointDAConfig,
+    PointSegDAConfig,
+    load_yaml,
+)
 
 SEED = 0
 B, N, K, NUM_CLASS = 32, 1024, 20, 10  # utils/config.py PointDAConfig
@@ -244,11 +280,11 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def knn_cost(x: torch.Tensor) -> tuple[float, float]:
+def knn_cost(x: torch.Tensor, k: int = K) -> tuple[float, float]:
     """Per pair of points: 2C for the dot product, 4 to form, clamp and
     compare the distance; x read once, the indices written once."""
     b, n, c = x.shape
-    return b * n * n * (2 * c + 4), b * n * c * 4 + b * n * K * 8
+    return b * n * n * (2 * c + 4), b * n * c * 4 + b * n * k * 8
 
 
 def edge_cost(u: torch.Tensor, idx: torch.Tensor,
@@ -296,7 +332,7 @@ def kernel_inputs(model, x: torch.Tensor):
     return knn_in, edge_in
 
 
-def check_knn(name: str, x: torch.Tensor) -> dict:
+def check_knn(name: str, x: torch.Tensor, phase: str = "knn") -> dict:
     """Pass: in every row the two neighbour sets' sorted float64 distances
     agree within the float32 rounding bound of the distance formula
     (`testing.knn_set_gap`); both pick among near ties only."""
@@ -311,7 +347,7 @@ def check_knn(name: str, x: torch.Tensor) -> dict:
            "rows_same_set": float((gap == 0).float().mean()),
            "max_dist_gap": float(gap.max()),
            "max_gap_over_tol": float((gap / tol).max())}
-    emit("knn", **res)
+    emit(phase, kernel="knn", **res)
     check(bool((gap <= tol).all()), f"knn kernel disagrees on {name}: {res}")
     return res
 
@@ -391,10 +427,10 @@ def fps_cost(b: int, n: int, npoint: int = 0) -> tuple[float, float]:
     return 8.0 * b * n * npoint, b * n * 3 * 4 + b * npoint * 8
 
 
-def knn_moments_cost(b: int, n: int) -> tuple[float, float]:
+def knn_moments_cost(b: int, n: int, k: int = K) -> tuple[float, float]:
     """K1's selection at C=3 plus 12 FMAs per neighbour; x read once, the
     twelve sums written once."""
-    return (b * n * n * (2 * 3 + 4) + 2.0 * 12 * b * n * K,
+    return (b * n * n * (2 * 3 + 4) + 2.0 * 12 * b * n * k,
             b * n * 3 * 4 + b * n * 12 * 4)
 
 
@@ -407,7 +443,7 @@ def edge_bwd_cost(u: torch.Tensor, k: int) -> tuple[float, float]:
 
 
 def check_fps(x: torch.Tensor, start: torch.Tensor, npoint: int = 0,
-              what: str = "random") -> dict:
+              what: str = "random", phase: str = "fps") -> dict:
     """Pass: the kernel's indices equal the plain version's (npoint = N
     unless given)."""
     npoint = npoint or x.shape[1]
@@ -417,35 +453,36 @@ def check_fps(x: torch.Tensor, start: torch.Tensor, npoint: int = 0,
     res = {"input": what, "shape": list(x.shape), "npoint": npoint,
            "unequal_indices": int((got != want).sum()),
            "first_column_is_start": bool(torch.equal(got[:, 0], start))}
-    emit("fps", **res)
+    emit(phase, kernel="fps", **res)
     check(res["unequal_indices"] == 0 and res["first_column_is_start"],
           f"fps kernel disagrees with its plain version: {res}")
     return res
 
 
-def check_knn_moments(x: torch.Tensor) -> dict:
+def check_knn_moments(x: torch.Tensor, k: int = K,
+                      phase: str = "knn_moments") -> dict:
     """Pass: (1) the kernel's neighbour sets pass K1's distance-set check
     against the plain graph; (2) s1 and s2 are within 1e-5 of the summed
     magnitudes of their terms against sums over the kernel's own
     neighbours; (3) the normals of the two routes agree at |cos| > 0.999
     on at least 99% of the points."""
-    s1, s2, idx = knn_moments_cuda(x, K, return_indices=True)
-    gap, tol = knn_set_gap(x, idx, knn_indices_torch(x, K))
+    s1, s2, idx = knn_moments_cuda(x, k, return_indices=True)
+    gap, tol = knn_set_gap(x, idx, knn_indices_torch(x, k))
     g = knn_gather(x, idx)
     outer = g[..., :, None] * g[..., None, :]
     w1, w2 = g.sum(-2), outer.sum(-3).flatten(-2)
     e1, e2 = (s1 - w1).abs(), (s2 - w2).abs()
     m1, m2 = g.abs().sum(-2), outer.abs().sum(-3).flatten(-2)
-    cos = (estimate_normals(x, K) * estimate_normals(x, K, backend="torch")
+    cos = (estimate_normals(x, k) * estimate_normals(x, k, backend="torch")
            ).sum(-1).abs()
-    res = {"shape": list(x.shape), "k": K,
+    res = {"shape": list(x.shape), "k": k,
            "rows_same_set": float((gap == 0).float().mean()),
            "max_gap_over_tol": float((gap / tol).max()),
            "s1_max_abs_err": float(e1.max()), "s2_max_abs_err": float(e2.max()),
            "s_max_err_over_tol": max(float((e1 / (1e-5 * m1 + 1e-30)).max()),
                                      float((e2 / (1e-5 * m2 + 1e-30)).max())),
            "normals_share_cos_above_0.999": float((cos > 0.999).float().mean())}
-    emit("knn_moments", **res)
+    emit(phase, kernel="knn_moments", **res)
     check(bool((gap <= tol).all()), f"K3 neighbour sets disagree: {res}")
     check(res["s_max_err_over_tol"] <= 1.0, f"K3 sums outside tolerance: {res}")
     check(res["normals_share_cos_above_0.999"] >= 0.99,
@@ -577,6 +614,13 @@ def compare_first_step(cfg, batch, init, device) -> dict:
         return first_step(m, dataclasses.replace(cfg, knn_backend=backend),
                           batch, device, delta)
 
+    return compare_routes(rerun, not cfg.debug_bn_eval)
+
+
+def compare_routes(rerun, train_bn: bool) -> dict:
+    """`rerun(backend, delta)` -> (losses, gradients) of one step from fixed
+    weights and seed: through the kernels, then through the plain versions
+    on the kernel run's kNN graphs and FPS orders (see LOSS_RTOL)."""
     tape = Tape()
     with tape.record():
         k_loss, k_grad = rerun("auto")
@@ -607,7 +651,6 @@ def compare_first_step(cfg, batch, init, device) -> dict:
     grad = {"plain": grad_gap([p_grad]),
             "repeat": grad_gap([g for _, g in repeats]),
             "shifted": grad_gap([g for _, g in shifted])}
-    train_bn = not cfg.debug_bn_eval
     bad = [f"{n} ({what})" for what in ("plain", "repeat")
            for n, v in loss[what].items() if v > LOSS_RTOL]
     bad += [f"{n} (plain)" for n, v in grad["plain"].items()
@@ -617,7 +660,7 @@ def compare_first_step(cfg, batch, init, device) -> dict:
         bad.append("median over the gradient tensors (plain)")
     bad += [f"{n} (repeat)" for n, v in grad["repeat"].items()
             if v > REPEAT_RTOL]
-    return {"bn": "eval" if cfg.debug_bn_eval else "train",
+    return {"bn": "train" if train_bn else "eval",
             "losses": {n: {"kernel": w, "plain": p_loss[n],
                            **{f"rel_gap_{what}": loss[what][n]
                               for what in loss}}
@@ -1082,6 +1125,388 @@ def trainer_times(tr: dict, model_file: str, step_p50_ms: float, device,
     return res
 
 
+# PointSegDA (the seg main paths): DGCNNSeg, k=20, N=2048, 8 classes, train
+# batch 16, test batch 32 (utils/config.py PointSegDAConfig), the MLSP recipe
+# of configs/pointsegda_mlsp.yaml plus PCM. Per seg step K1 8 (two forwards
+# of 4 graphs), K3 1 (the normals, k = near = 10), K4 1 (PCM's [2B, N]); the
+# seg model has no K2. The seg trainer on the synthetic data: 3 steps an
+# epoch (48 train clouds a domain), 2 validation forwards (16 clouds a
+# split at B=32) and 1 final-test forward.
+SEG_B, SEG_N, SEG_TEST_B, SEG_NUM_CLASS, SEG_NEAR = 16, 2048, 32, 8, 10
+SEG_RECIPE = "configs/pointsegda_mlsp.yaml"
+SEG_CONFIG = "configs/pointsegda/adobe2faust.yaml"
+SEG_TRAIN_STEPS = 3
+SEG_PER_STEP = {**dict.fromkeys(PER_STEP, 0), "knn": 8, "knn_moments": 1,
+                "fps": 1}
+SEG_FORWARD = {**dict.fromkeys(PER_STEP, 0), "knn": 4}
+SEG_GRAPHS_PER_STEP, SEG_ORDERS_PER_STEP = 9, 1  # 2 x 4 kNN + K3; PCM
+SEG_TRAINER_EPOCHS = 2
+SEG_EVAL_CLOUDS = 160  # 5 batches of 32 for the eval/infer throughput
+
+
+def seg_trainer_launches(epochs: int) -> dict:
+    return {**dict.fromkeys(PER_STEP, 0), "knn": 32 * epochs + 4,
+            "knn_moments": 3 * epochs, "fps": 3 * epochs}
+
+
+def repo_file(rel: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def seg_cfg() -> PointSegDAConfig:
+    cfg = load_yaml(PointSegDAConfig, repo_file(SEG_RECIPE))
+    return dataclasses.replace(cfg, apply_PCM=True).resolved()
+
+
+def seg_model(cfg: PointSegDAConfig, device, knn_backend: str = "auto"):
+    """Full-width DGCNNSeg from seeded random weights and BatchNorm."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    model = make_model("dgcnn_seg", cfg.num_class, device=device, generator=g,
+                       k=K, dropout=cfg.dropout,
+                       density_num_cls=cfg.density_num_class,
+                       pergroup=cfg.pergroup, knn_backend=knn_backend)
+    randomise_batch_norm(model, g)
+    return model.train()
+
+
+def seg_kernel_inputs(model, x: torch.Tensor) -> list:
+    """The four clouds a seg forward builds kNN graphs of, as
+    DGCNNSeg.forward computes them: the raw cloud (C=3), the transformed
+    cloud (edge1's graph, C=3), and edge1's and edge2's outputs (C=64)."""
+    with torch.no_grad():
+        T = model.input_transform_net(edge_features(x, knn_indices(x, K)))
+        xt = torch.einsum("bnc,bdc->bnd", x, T)
+        sl = model.shared_layers
+        x1 = sl.edge1(xt, knn_indices(xt, K))
+        x2 = sl.edge2(x1, knn_indices(x1, K))
+    return [("cloud", x), ("edge1", xt), ("edge2", x1), ("edge3", x2)]
+
+
+def seg_kernels(device, g: torch.Generator) -> dict:
+    """K1, K3 and K4 against their plain versions at the seg shapes: K1 on
+    a B=16 seg forward's own inputs and at the eval batch's [32, 2048, 64];
+    K3 at [16, 2048, 3] with k = near = 10; K4 at PCM's [2B, N, 3] = [32,
+    2048, 3] with npoint = N, index-equal."""
+    cfg = seg_cfg()
+    model = seg_model(cfg, device).eval()
+    clouds = make_segmentation(SEG_TEST_B, SEG_N, SEG_NUM_CLASS,
+                               seed=SEED + 9)[0]
+    x32 = torch.from_numpy(clouds).to(device)
+    x = x32[:SEG_B]
+    knn_in = seg_kernel_inputs(model, x)
+    knn_checks = [check_knn(f"seg {name}", t, "seg_kernels")
+                  for name, t in knn_in]
+    eval_in = seg_kernel_inputs(model, x32)[-1]
+    knn_checks.append(check_knn(f"seg eval {eval_in[0]}", eval_in[1],
+                                "seg_kernels"))
+    moments = check_knn_moments(x, SEG_NEAR, "seg_kernels")
+    start = torch.randint(0, SEG_N, (2 * SEG_B,), generator=g).to(device)
+    fps_check = check_fps(x32, start, what="seg PCM [2B, N]",
+                          phase="seg_kernels")
+    return {"knn_in": knn_in + [(f"eval {eval_in[0]}", eval_in[1])],
+            "knn": knn_checks, "knn_moments": moments, "fps": fps_check,
+            "x": x, "x32": x32, "fps_start": start}
+
+
+def seg_batches(cfg: PointSegDAConfig, device) -> list:
+    """Synthetic (src_x, src_y, trgt_x) seg batches, one per step."""
+    clouds, labels = make_segmentation(2 * cfg.batch_size * SEG_TRAIN_STEPS,
+                                       cfg.num_points, cfg.num_class,
+                                       seed=SEED + 8)
+    x = torch.from_numpy(clouds).to(device).split(cfg.batch_size)
+    y = torch.from_numpy(labels).to(device).split(cfg.batch_size)
+    return [(x[2 * i], y[2 * i], x[2 * i + 1]) for i in range(SEG_TRAIN_STEPS)]
+
+
+def seg_train(device) -> dict:
+    """The seg train main path, then its first step through the plain
+    route on the kernel run's kNN graphs and FPS orders."""
+    cfg = seg_cfg()
+    batches = seg_batches(cfg, device)
+    model = seg_model(cfg, device)
+    init = copy.deepcopy(model.state_dict())
+    opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                STEPS_PER_EPOCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    steps = [pointsegda_train_step(model, opt, sched, *b, gen, cfg)
+             for b in batches]
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    losses = [{k: float(v) for k, v in m.items()} for m, _ in steps]
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    preds, labels = steps[0][1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def rerun(backend, delta=0.0):
+        m = seg_model(cfg, device, backend)
+        m.load_state_dict(init)
+        o, sc = make_optimizer(m, cfg.lr, cfg.wd, cfg.epochs, STEPS_PER_EPOCH)
+        src_x, src_y, trgt_x = batches[0]
+        out, _ = pointsegda_train_step(
+            m, o, sc, src_x + delta, src_y, trgt_x + delta,
+            torch.Generator(device=device).manual_seed(SEED),
+            dataclasses.replace(cfg, knn_backend=backend))
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        return {k: float(v) for k, v in out.items()}, grads
+
+    cmp = compare_routes(rerun, True)
+    res = {"config": f"{SEG_RECIPE} + apply_PCM", "batch": cfg.batch_size,
+           "points": cfg.num_points, "k": K, "near": cfg.near,
+           "steps": SEG_TRAIN_STEPS, "launches": launches,
+           "launches_expected": {k: SEG_TRAIN_STEPS * v
+                                 for k, v in SEG_PER_STEP.items()},
+           "losses": losses, "finite": finite, "peak_memory_gb": peak_gb,
+           "preds_shape": list(preds.shape),
+           "first_step_plain_vs_kernel": cmp}
+    emit("seg_train", **res)
+    check(finite, f"non-finite seg train losses: {losses}")
+    check(list(preds.shape) == list(labels.shape) == [cfg.batch_size,
+                                                      cfg.num_points],
+          "the seg step's predictions are not [B, N]")
+    check(launches == res["launches_expected"],
+          f"the seg train path did not launch every kernel as expected: "
+          f"{launches}")
+    check(not any(cmp["plain_route_launches"].values()),
+          f"the plain route launched kernels: {cmp['plain_route_launches']}")
+    r = cmp["replayed"]
+    check((r["graphs"], r["fps_orders"])
+          == (SEG_GRAPHS_PER_STEP, SEG_ORDERS_PER_STEP)
+          and r["plain_own_fps_entries_differ"] == 0,
+          f"first seg step: unexpected kNN graphs or FPS orders {r}")
+    check(cmp["same_grad_set"] and not cmp["outside"],
+          f"first seg step: plain route or kernel rerun disagrees with the "
+          f"kernel route on {cmp['outside']}")
+    return {**res, "cfg": cfg, "batches": batches, "model": model, "opt": opt,
+            "sched": sched, "gen": gen, "init": init}
+
+
+def seg_trainer(tmp: str) -> dict:
+    """The `seg` CLI at full width on the adobe -> faust MLSP config."""
+    out = os.path.join(tmp, "runs")
+    exp = os.path.join(out, "seg_smoke_adobe_faust")
+    argv = ["seg", "--config", repo_file(SEG_CONFIG), "--synthetic", "True",
+            "--apply_PCM", "True", "--epochs", str(SEG_TRAINER_EPOCHS),
+            "--out_path", out, "--exp_name", "seg_smoke"]
+    t0 = time.perf_counter()
+    launches = run_cli(argv, os.path.join(tmp, "seg_trainer.log"))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(exp, "run.log")) as f:
+        log = f.read()
+    losses = [r["train"] for r in records]
+    files = {f: os.path.exists(os.path.join(exp, f))
+             for f in ("model.ckpt", "run.log", "metrics.jsonl")}
+    prints = {p: p in log for p in ("Total params", "Best model was found "
+                                    "at epoch", "target test seg loss:")}
+    res = {"argv": argv, "epochs": SEG_TRAINER_EPOCHS, "seconds": seconds,
+           "launches": launches,
+           "launches_expected": seg_trainer_launches(SEG_TRAINER_EPOCHS),
+           "losses": losses, "finite": all(np.isfinite(v) for r in losses
+                                           for v in r.values()),
+           "files": files, "records": len(records), "log_prints": prints,
+           "epoch_seconds": [r["seconds"] for r in records],
+           "val": [{k: r[k]["mIoU"] for k in ("src_val", "trgt_val")}
+                   for r in records]}
+    emit("seg_trainer", **res)
+    check(res["finite"], f"non-finite seg trainer losses: {losses}")
+    check(launches == res["launches_expected"],
+          f"the seg trainer did not launch every kernel as expected: "
+          f"{launches}")
+    check(all(files.values()) and res["records"] == SEG_TRAINER_EPOCHS
+          and all(prints.values()),
+          f"the seg trainer left {files}, {res['records']} records, {prints}")
+    return {**res, "model_file": os.path.join(exp, "model.ckpt")}
+
+
+def seg_eval_infer(tmp: str, model_file: str) -> dict:
+    """`eval` and `infer --task pointsegda` on the target test split from
+    the seg trainer's model.ckpt, through the kernels and the plain route:
+    per-point classes agree on >= 99% of points, max |dprob| <= 2e-2,
+    eval's accuracy equals infer's; one forward each (K1 4)."""
+    out = os.path.join(tmp, "runs")
+    res, preds = {}, {}
+    for route in ("kernels", "plain"):
+        extra = [] if route == "kernels" else ["--knn_backend", "torch"]
+        for cmd in ("eval", "infer"):
+            name = f"seg_{cmd}_{route}"
+            argv = [cmd, "--task", "pointsegda", "--model_file", model_file,
+                    "--synthetic", "True", "--out_path", out, "--exp_name",
+                    name, *extra]
+            launches = run_cli(argv, os.path.join(tmp, f"{name}.log"))
+            with open(os.path.join(out, name, "run.log")) as f:
+                summary = json.loads(f.read().splitlines()[-1].split(": ", 1)[1])
+            res[name] = {"launches": launches, **summary}
+            if cmd == "infer":
+                preds[route] = np.load(summary["output"])
+    k, p = preds["kernels"], preds["plain"]
+    cmp = {"clouds": int(k["pred"].shape[0]),
+           "point_class_agreement": float((k["pred"] == p["pred"]).mean()),
+           "max_prob_diff": float(np.abs(k["prob"] - p["prob"]).max()),
+           "finite": bool(np.isfinite(k["prob"]).all()),
+           "launches_expected": SEG_FORWARD}
+    emit("seg_eval_infer", **res, compare=cmp)
+    for cmd in ("eval", "infer"):
+        check(res[f"seg_{cmd}_kernels"]["launches"] == SEG_FORWARD,
+              f"seg {cmd} did not launch K1 as expected")
+        check(not any(res[f"seg_{cmd}_plain"]["launches"].values()),
+              f"plain seg {cmd} launched kernels")
+    check(cmp["finite"] and k["prob"].shape == (16, SEG_N, SEG_NUM_CLASS)
+          and np.array_equal(k["index"], p["index"]),
+          "seg infer's output is not 16 finite clouds of per-point "
+          "probabilities")
+    check(cmp["point_class_agreement"] >= MIN_CLASS_AGREEMENT
+          and cmp["max_prob_diff"] <= MAX_LOGIT_DIFF,
+          f"seg infer through the kernels disagrees with the plain route: "
+          f"{cmp}")
+    for route in ("kernels", "plain"):
+        check(res[f"seg_eval_{route}"]["acc"]
+              == res[f"seg_infer_{route}"]["acc"],
+              f"seg eval's accuracy differs from infer's ({route})")
+    return {**res, "compare": cmp}
+
+
+def seg_kernel_times(device, card: str, seg: dict, g: torch.Generator
+                     ) -> dict:
+    """Per-launch medians at the seg shapes beside bound and plain time, and
+    the LinearEdgeBlock max over gathered u (forward and backward) against
+    K2-fwd's max and K2-bwd, the option of routing it through K2."""
+    rows = {"knn": [], "knn_moments": [], "fps": []}
+
+    def row(kname, what, shape, fn, plain_fn, cost, plain_reps=30):
+        b_ms, b_by = bound(*cost)
+        r = {"input": what, "shape": list(shape), "ms": median_ms(fn),
+             "plain_ms": median_ms(plain_fn, reps=plain_reps,
+                                   warmup=min(plain_reps, 5)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        rows[kname].append(r)
+        return r
+
+    for name, t in seg["knn_in"]:
+        row("knn", name, t.shape, lambda: knn_cuda(t, K),
+            lambda: knn_indices_torch(t, K), knn_cost(t, K))
+    x = seg["x"]
+    row("knn_moments", "seg target clouds", x.shape,
+        lambda: knn_moments_cuda(x, SEG_NEAR),
+        lambda: knn_moments_torch(x, SEG_NEAR),
+        knn_moments_cost(SEG_B, SEG_N, SEG_NEAR))
+    x32, start = seg["x32"], seg["fps_start"]
+    row("fps", "seg PCM [2B, N]", x32.shape, lambda: fps_cuda(x32, SEG_N, start),
+        lambda: fps_torch(x32, SEG_N, start), fps_cost(2 * SEG_B, SEG_N),
+        plain_reps=3)
+    for kname, per_shape in rows.items():
+        emit("times", what=f"seg_{kname}", per_launch=per_shape,
+             launches_per_seg_step=SEG_PER_STEP[kname], card=card)
+
+    # The option: LinearEdgeBlock's max over gathered u through K2-fwd (eval
+    # form: max and min) and K2-bwd (max cotangent only), at edge2's and
+    # edge3's shape on their own graphs. Not on any path of the port.
+    option = []
+    for name, t in seg["knn_in"][2:4]:
+        idx = knn_cuda(t, K)
+        u = torch.randn(t.shape, generator=g).to(device)
+        cot = torch.randn(t.shape, generator=g).to(device)
+
+        def plain():
+            uu = u.detach().requires_grad_()
+            y = knn_gather(uu, idx).amax(-2)
+            return y, torch.autograd.grad(y, uu, cot)[0]
+
+        def via_k2():
+            mx, mn = edge_moments_cuda(u, idx, False)
+            return mx, edge_moments_bwd_cuda(u, idx, mx, mn, cot, None)
+
+        (py, pdu), (ky, kdu) = plain(), via_k2()
+        torch.cuda.synchronize()
+        option.append({"input": name, "shape": list(t.shape),
+                       "max_equal": bool(torch.equal(py, ky)),
+                       "du_max_abs_err": float((pdu - kdu).abs().max()),
+                       "gather_amax_fwd_bwd_ms": median_ms(plain),
+                       "k2_fwd_bwd_ms": median_ms(via_k2)})
+    emit("times", what="seg_linear_edge_option", per_input=option, card=card)
+    return {"rows": rows, "linear_edge_option": option}
+
+
+def seg_step_times(tr: dict, device, card: str) -> dict:
+    """Seg train step p50 (host clock around a step that ends in a
+    synchronize), kernel route after the main path's steps and plain route
+    from the initial weights."""
+    cfg, batches = tr["cfg"], tr["batches"]
+
+    def p50(model, opt, sched, gen, c, n, warm):
+        out = []
+        for i in range(warm + n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pointsegda_train_step(model, opt, sched,
+                                  *batches[i % len(batches)], gen, c)
+            torch.cuda.synchronize()
+            if i >= warm:
+                out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out), len(out)
+
+    ms, n = p50(tr["model"], tr["opt"], tr["sched"], tr["gen"], cfg, 12, 2)
+    plain = seg_model(cfg, device, "torch")
+    plain.load_state_dict(tr["init"])
+    popt, psched = make_optimizer(plain, cfg.lr, cfg.wd, cfg.epochs,
+                                  STEPS_PER_EPOCH)
+    pms, pn = p50(plain, popt, psched,
+                  torch.Generator(device=device).manual_seed(SEED),
+                  dataclasses.replace(cfg, knn_backend="torch"), 4, 1)
+    res = {"batch": cfg.batch_size, "points": cfg.num_points,
+           "steps_timed": n, "p50_ms": ms,
+           "clouds_per_s": cfg.batch_size / (ms / 1e3),
+           "plain_steps_timed": pn, "plain_p50_ms": pms,
+           "plain_clouds_per_s": cfg.batch_size / (pms / 1e3),
+           "launches_per_step": SEG_PER_STEP, "card": card}
+    emit("times", what="seg_train_step", **res)
+    return res
+
+
+def seg_trainer_times(tr: dict, step_p50_ms: float, device,
+                      card: str) -> dict:
+    """The seg trainer's epoch wall time (epochs after the first), train
+    steps/s in its loop, and seg eval and infer clouds/s at B=32 over
+    SEG_EVAL_CLOUDS synthetic clouds staged on the card."""
+    secs = tr["epoch_seconds"][1:]
+    model = make_model("dgcnn_seg", SEG_NUM_CLASS, device=device)
+    checkpoint.load_model_weights(model, tr["model_file"])
+    clouds, labels = make_segmentation(SEG_EVAL_CLOUDS, SEG_N, SEG_NUM_CLASS,
+                                       seed=SEED + 10)
+    x = torch.from_numpy(clouds).to(device)
+    sels, _ = eval_batches(SEG_EVAL_CLOUDS, SEG_TEST_B)
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()  # both return host numpy: the device has finished
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    t_eval = timed(lambda: evaluate_seg(model, x, labels, SEG_TEST_B))
+    t_infer = timed(lambda: eval_logits(model, x, sels, "seg"))
+    steps = 3  # 48 synthetic train clouds a domain at B=16
+    res = {"epochs_timed": len(secs),
+           "epoch_wall_s_median": statistics.median(s["epoch"] for s in secs),
+           "train_wall_s_median": statistics.median(s["train"] for s in secs),
+           "steps_per_epoch": steps,
+           "train_steps_per_s_in_loop": steps / statistics.median(
+               s["train"] for s in secs),
+           "isolated_step_p50_ms": step_p50_ms,
+           "eval_clouds": SEG_EVAL_CLOUDS, "batch": SEG_TEST_B,
+           "eval_clouds_per_s": SEG_EVAL_CLOUDS / t_eval,
+           "infer_clouds_per_s": SEG_EVAL_CLOUDS / t_infer, "card": card}
+    emit("times", what="seg_trainer", **res)
+    return res
+
+
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
 # one B=32 serving forward, the train-only kernels over one B=32 train step.
 KERNELS = {
@@ -1162,21 +1587,30 @@ def run(device: torch.device, card: str) -> None:
         srv = serve(model, bundle_dir, device)
     tr = train(device)
     dt = data(device)
+    seg = seg_kernels(device, g)
+    seg_tr = seg_train(device)
     with tempfile.TemporaryDirectory() as tmp:
         trn = trainer(tmp)
         ei = eval_infer(tmp, trn["model_file"])
+        seg_trn = seg_trainer(tmp)
+        seg_ei = seg_eval_infer(tmp, seg_trn["model_file"])
 
         kt = kernel_times(device, card, knn_in, edge_in, g)
         serving_times(srv["served"], srv["plain"], device, card)
         st = step_times(tr, device, card)
         trainer_times(trn, trn["model_file"], st["p50_ms"], device, card)
+        seg_kt = seg_kernel_times(device, card, seg, g)
+        seg_st = seg_step_times(seg_tr, device, card)
+        seg_trainer_times(seg_trn, seg_st["p50_ms"], device, card)
 
     errs = {
-        "knn": max(c["max_dist_gap"] for c in knn_checks),
+        "knn": max(c["max_dist_gap"] for c in knn_checks + seg["knn"]),
         "edge_moments": max(c["max_abs_err"] for c in edge_checks),
         "edge_moments_bwd": max(c["max_abs_err"] for c in bwd_checks),
-        "knn_moments": moments_check["max_abs_err"],
-        "fps": float(max(c["unequal_indices"] for c in fps_checks)),
+        "knn_moments": max(moments_check["max_abs_err"],
+                           seg["knn_moments"]["max_abs_err"]),
+        "fps": float(max(c["unequal_indices"]
+                         for c in fps_checks + [seg["fps"]])),
     }
     rows = kt["rows"]
     # (launches, per-launch row) over one train step's shapes, by kernel
@@ -1185,6 +1619,12 @@ def run(device: torch.device, card: str) -> None:
                  "edge_moments_bwd": [(2, r) for r in rows["edge_moments_bwd"]],
                  "knn_moments": [(1, rows["knn_moments"][0])],
                  "fps": [(1, rows["fps"][0])]}
+    # (launches, per-launch row) over one B=16 seg train step: K1 twice at
+    # each of a forward's four shapes, K3 once, K4 once
+    seg_rows = seg_kt["rows"]
+    seg_step_rows = {"knn": [(2, r) for r in seg_rows["knn"][:4]],
+                     "knn_moments": [(1, seg_rows["knn_moments"][0])],
+                     "fps": [(1, seg_rows["fps"][0])]}
 
     def total(weighted):
         by_ops = sum(w * r["bound_ms"] for w, r in weighted
@@ -1205,13 +1645,19 @@ def run(device: torch.device, card: str) -> None:
                    "data": dt["launches"][kname],
                    "trainer": trn["launches"][kname],
                    "eval": ei["eval_kernels"]["launches"][kname],
-                   "infer": ei["infer_kernels"]["launches"][kname]}
+                   "infer": ei["infer_kernels"]["launches"][kname],
+                   "seg_train": seg_tr["launches"][kname],
+                   "seg_trainer": seg_trn["launches"][kname],
+                   "seg_eval": seg_ei["seg_eval_kernels"]["launches"][kname],
+                   "seg_infer": seg_ei["seg_infer_kernels"]["launches"][kname]}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": errs[kname],
             **main, "library_ms": None, "ms_over": over,
             "per_train_step": total(step_rows[kname]),
+            "per_seg_train_step": (total(seg_step_rows[kname])
+                                   if kname in seg_step_rows else None),
             "check": "passed",  # a failed check exits before this line
         })
     print(json.dumps({"kernels": entries}), flush=True)

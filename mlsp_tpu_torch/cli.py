@@ -3,14 +3,17 @@
     python -m mlsp_tpu_torch.cli trainer --paper_recipe True --synthetic True
     python -m mlsp_tpu_torch.cli eval --model_file experiments/MLSP/model.ckpt
     python -m mlsp_tpu_torch.cli infer --model_file experiments/MLSP/model.ckpt
+    python -m mlsp_tpu_torch.cli seg --config configs/pointsegda/adobe2faust.yaml
+    python -m mlsp_tpu_torch.cli eval --task pointsegda --model_file \
+        experiments/MLSP_adobe2faust_adobe_faust/model.ckpt
 
 Every config field but the test-only `debug_*` ones is a flag; booleans
 take true/false/1/0/yes/no like the reference's str2bool. `--config FILE`
 (YAML with `_base_` inheritance) composes with the flags: dataclass
 defaults < YAML < flags given on the command line. The entry points run
 on the CUDA card; `--device cpu` runs them on the CPU. Not registered yet
-(ROADMAP.md): `seg`, `spst`, `export`, `aot`, `download`, `calibrate` and
-the mesh flags.
+(ROADMAP.md): `spst`, `export`, `aot`, `download`, `calibrate` and the
+mesh flags.
 """
 
 from __future__ import annotations
@@ -60,8 +63,19 @@ def _to_config(cls, args: argparse.Namespace):
     return from_dict(cls, merged)
 
 
+def _add_profile_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="write a torch.profiler Chrome trace of the "
+                             "run into this directory (use a short "
+                             "--epochs run)")
+
+
 def build_parser() -> argparse.ArgumentParser:
-    from mlsp_tpu_torch.utils.config import EvalConfig, PointDAConfig
+    from mlsp_tpu_torch.utils.config import (
+        EvalConfig,
+        PointDAConfig,
+        PointSegDAConfig,
+    )
 
     parser = argparse.ArgumentParser(
         prog="mlsp_tpu_torch",
@@ -71,10 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_config_args(p_train, PointDAConfig)
     p_train.add_argument("--paper_recipe", type=_str2bool, default=False,
                          help="apply the train.sh headline flag set")
-    p_train.add_argument("--profile_dir", type=str, default="",
-                         help="write a torch.profiler Chrome trace of the "
-                              "run into this directory (use a short "
-                              "--epochs run)")
+    _add_profile_arg(p_train)
+    p_seg = sub.add_parser("seg", help="PointSegDA segmentation DA")
+    _add_config_args(p_seg, PointSegDAConfig)
+    _add_profile_arg(p_seg)
     p_eval = sub.add_parser("eval", help="evaluate a checkpoint on a dataset "
                                          "split")
     _add_config_args(p_eval, EvalConfig)
@@ -86,11 +100,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    from mlsp_tpu_torch.utils.config import EvalConfig, PointDAConfig
+    from mlsp_tpu_torch.utils.config import (
+        EvalConfig,
+        PointDAConfig,
+        PointSegDAConfig,
+    )
     from mlsp_tpu_torch.utils.device import resolve_device
 
     args = build_parser().parse_args(argv)
-    cls = PointDAConfig if args.command == "trainer" else EvalConfig
+    cls = {"trainer": PointDAConfig, "seg": PointSegDAConfig}.get(
+        args.command, EvalConfig)
     cfg = _to_config(cls, args)
     try:
         resolve_device(cfg.device or None)
@@ -98,18 +117,23 @@ def main(argv=None) -> int:
         print(f"mlsp_tpu_torch: {e} (--device cpu)", file=sys.stderr)
         return 1
 
+    trace = contextlib.nullcontext()
+    if getattr(args, "profile_dir", ""):
+        from mlsp_tpu_torch.utils.profiling import device_trace
+
+        trace = device_trace(args.profile_dir)
     if args.command == "trainer":
         from mlsp_tpu_torch.train.pointda_trainer import train_pointda
 
         if args.paper_recipe:
             cfg = cfg.paper_recipe
-        trace = contextlib.nullcontext()
-        if args.profile_dir:
-            from mlsp_tpu_torch.utils.profiling import device_trace
-
-            trace = device_trace(args.profile_dir)
         with trace:
             train_pointda(cfg)
+    elif args.command == "seg":
+        from mlsp_tpu_torch.train.pointsegda_trainer import train_pointsegda
+
+        with trace:
+            train_pointsegda(cfg)
     else:
         from mlsp_tpu_torch.train.evaluation import run_eval, run_infer
 

@@ -1,6 +1,7 @@
-"""Procedural point clouds (a numpy copy of the classification part of
-`mlsp_tpu/data/synthetic.py`), so the port can make realistic request
-clouds without the JAX package. Ten separable parametric shape classes.
+"""Procedural point clouds (a numpy copy of `mlsp_tpu/data/synthetic.py`),
+so the port can make realistic clouds without the JAX package: ten
+separable parametric shape classes, and body-like blobs with per-point
+part labels for segmentation.
 """
 
 from __future__ import annotations
@@ -102,3 +103,26 @@ def make_classification(
         p = p / np.linalg.norm(p, axis=1).max()
         clouds[i] = p.astype(np.float32)
     return clouds, labels.astype(np.int64)
+
+
+def make_segmentation(
+    num_examples: int = 64,
+    num_points: int = 2048,
+    num_classes: int = 8,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (clouds [M, N, 3] float32, labels [M, N] int64): the labels
+    are height bands of a randomly stretched body-like blob (given by the
+    geometry, so a segmentation net can learn them)."""
+    rng = np.random.default_rng(seed)
+    clouds = np.empty((num_examples, num_points, 3), np.float32)
+    labels = np.empty((num_examples, num_points), np.int64)
+    for i in range(num_examples):
+        p = rng.standard_normal((num_points, 3)) * np.array([0.3, 0.2, 1.0])
+        p = p - p.mean(0)
+        p = p / np.linalg.norm(p, axis=1).max()
+        z = p[:, 2]
+        band = np.floor((z - z.min()) / (np.ptp(z) + 1e-9) * num_classes)
+        labels[i] = np.clip(band, 0, num_classes - 1)
+        clouds[i] = p.astype(np.float32)
+    return clouds, labels

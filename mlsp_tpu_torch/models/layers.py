@@ -86,14 +86,16 @@ def dropout(x: torch.Tensor, p: float, training: bool,
 class DenseBN(nn.Module):
     """Dense -> BatchNorm -> activation: the reference's `conv_2d`
     (`conv=True`: parameters `conv.0`, `conv.1`, a rank-2 1x1 conv) or
-    `fc_layer` (`conv=False`: `fc.0`, `fc.1`, an nn.Linear)."""
+    `fc_layer` (`conv=False`: `fc.0`, `fc.1`, an nn.Linear). With
+    `use_bn=False` (the PointSegDA transform net) there is no `.1`."""
 
     def __init__(self, cin: int, cout: int, activation: str, bias: bool,
-                 conv: bool):
+                 conv: bool, use_bn: bool = True):
         super().__init__()
         lin = PointwiseConv(cin, cout, 2, bias) if conv else nn.Linear(
             cin, cout, bias=bias)
-        layers = nn.ModuleList([lin, nn.BatchNorm1d(cout)])
+        layers = nn.ModuleList([lin, nn.BatchNorm1d(cout)] if use_bn
+                               else [lin])
         if conv:
             self.conv = layers
         else:
@@ -101,8 +103,11 @@ class DenseBN(nn.Module):
         self.act = act_fn(activation)
 
     def forward(self, x):
-        lin, bn = self.conv if hasattr(self, "conv") else self.fc
-        return self.act(batch_norm(bn, linear_in(lin, x)))
+        layers = self.conv if hasattr(self, "conv") else self.fc
+        y = linear_in(layers[0], x)
+        if len(layers) > 1:
+            y = batch_norm(layers[1], y)
+        return self.act(y)
 
 
 class TransformNet(nn.Module):
@@ -145,19 +150,21 @@ class Classifier(nn.Module):
 
 
 class PointMLPHead(nn.Module):
-    """Per-point regression head (reference `RegionReconstruction` /
+    """Per-point head (reference `RegionReconstruction` /
     `Normal_prediction`): 256 -> 256 -> 128 -> out, BN + ReLU + dropout,
-    bias-free 1x1 convs."""
+    1x1 convs, bias-free unless `bias` (the PointSegDA `segmentation` and
+    `DeformationReconstruction` heads)."""
 
-    def __init__(self, cin: int, out: int = 3, dropout: float = 0.5):
+    def __init__(self, cin: int, out: int = 3, dropout: float = 0.5,
+                 bias: bool = False):
         super().__init__()
-        self.conv1 = PointwiseConv(cin, 256, 1, False)
+        self.conv1 = PointwiseConv(cin, 256, 1, bias)
         self.bn1 = nn.BatchNorm1d(256)
-        self.conv2 = PointwiseConv(256, 256, 1, False)
+        self.conv2 = PointwiseConv(256, 256, 1, bias)
         self.bn2 = nn.BatchNorm1d(256)
-        self.conv3 = PointwiseConv(256, 128, 1, False)
+        self.conv3 = PointwiseConv(256, 128, 1, bias)
         self.bn3 = nn.BatchNorm1d(128)
-        self.conv4 = PointwiseConv(128, out, 1, False)
+        self.conv4 = PointwiseConv(128, out, 1, bias)
         self.p = dropout
 
     def forward(self, x, generator: torch.Generator | None = None

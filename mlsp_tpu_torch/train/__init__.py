@@ -1,8 +1,14 @@
-"""The PointDA train step and its optimizer (counterpart of
-`mlsp_tpu.train`); the trainer loop comes with the next slice."""
+"""The PointDA and PointSegDA train steps and their optimizer
+(counterpart of `mlsp_tpu.train`); the trainers are
+`train.pointda_trainer` and `train.pointsegda_trainer`."""
 
 from mlsp_tpu_torch.train.state import cosine_per_epoch, make_optimizer
+from mlsp_tpu_torch.train.seg_steps import (
+    pointsegda_losses,
+    pointsegda_train_step,
+)
 from mlsp_tpu_torch.train.steps import pointda_losses, pointda_train_step
 
 __all__ = ["cosine_per_epoch", "make_optimizer", "pointda_losses",
-           "pointda_train_step"]
+           "pointda_train_step", "pointsegda_losses",
+           "pointsegda_train_step"]

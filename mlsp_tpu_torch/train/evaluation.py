@@ -1,9 +1,11 @@
 """Standalone checkpoint evaluation and batch inference (counterpart of
 `mlsp_tpu/train/evaluation.py`): `run_eval` reports a split's metrics,
-`run_infer` writes per-cloud predictions and class probabilities to an
-.npz. The port serves `task="pointda"` with `model="dgcnn"` from its own
-checkpoints; the other tasks and models, `from_torch`, `export` and the
-AOT bundle raise NotImplementedError (ROADMAP.md).
+`run_infer` writes per-cloud (PointDA) or per-point (PointSegDA)
+predictions and class probabilities to an .npz. The port serves
+`task="pointda"` with `model="dgcnn"` and `task="pointsegda"` with
+`model="dgcnn_seg"` from its own checkpoints; the other models,
+`from_torch`, `export` and the AOT bundle raise NotImplementedError
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,12 +16,14 @@ import os
 import numpy as np
 
 from mlsp_tpu_torch.data.pointda import idx_to_label, load_pointda
+from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.models import make_model
 from mlsp_tpu_torch.train.pointda_trainer import (
     eval_batches,
     eval_logits,
     evaluate,
 )
+from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
 from mlsp_tpu_torch.utils import checkpoint, metrics
 from mlsp_tpu_torch.utils.config import EvalConfig
 from mlsp_tpu_torch.utils.device import resolve_device
@@ -34,23 +38,31 @@ def _not_ported(what: str):
 def _setup(cfg: EvalConfig, io: IOStream):
     """The split and the model with the checkpoint's weights. Returns
     (model, data, label, indices): `indices` picks the train or val part
-    of the train partition (`dataloader.py:70-73`), None for test."""
-    if cfg.task != "pointda":
-        raise _not_ported(f"task={cfg.task!r}")
-    if cfg.model != "dgcnn":
-        raise _not_ported(f"model={cfg.model!r}")
+    of the PointDA train partition (`dataloader.py:70-73`), None for its
+    test partition and for every PointSegDA split (a partition of its
+    own)."""
+    if cfg.task not in ("pointda", "pointsegda"):
+        raise ValueError(f"unknown task {cfg.task!r}")
+    seg = cfg.task == "pointsegda"
+    if cfg.model != ("dgcnn_seg" if seg else "dgcnn"):
+        raise _not_ported(f"model={cfg.model!r} for task={cfg.task!r}")
     if cfg.from_torch:
         raise _not_ported("from_torch (reading a reference model.pt)")
     device = resolve_device(cfg.device or None)
-    partition = "train" if cfg.split in ("train", "val") else "test"
-    ds = load_pointda(cfg.dataset, cfg.dataroot, partition, cfg.num_points,
-                      cfg.synthetic, cfg.seed, device=device)
-    indices = {"train": ds.train_ind, "val": ds.val_ind}.get(cfg.split)
-    model = make_model(cfg.model, cfg.num_class, device=device,
-                       dropout=cfg.dropout,
-                       density_num_cls=cfg.density_num_class,
-                       pergroup=cfg.pergroup, knn_backend=cfg.knn_backend,
-                       head_dtype=cfg.head_dtype or "f32")
+    kw = dict(dropout=cfg.dropout, density_num_cls=cfg.density_num_class,
+              pergroup=cfg.pergroup, knn_backend=cfg.knn_backend)
+    if seg:
+        ds = load_pointsegda(cfg.dataset, cfg.dataroot, cfg.split,
+                             cfg.synthetic, cfg.num_points)
+        indices = None
+    else:
+        partition = "train" if cfg.split in ("train", "val") else "test"
+        ds = load_pointda(cfg.dataset, cfg.dataroot, partition,
+                          cfg.num_points, cfg.synthetic, cfg.seed,
+                          device=device)
+        indices = {"train": ds.train_ind, "val": ds.val_ind}.get(cfg.split)
+        kw["head_dtype"] = cfg.head_dtype or "f32"
+    model = make_model(cfg.model, cfg.num_class, device=device, **kw)
     checkpoint.load_model_weights(model, cfg.model_file)
     io.cprint(f"loaded {cfg.model_file}")
     return model, ds.data, ds.label, indices
@@ -62,6 +74,14 @@ def run_eval(cfg: EvalConfig, io: IOStream | None = None) -> dict:
     cfg = cfg.resolved()
     io = io or IOStream(cfg.out_path, cfg.exp_name)
     model, data, label, indices = _setup(cfg, io)
+    if cfg.task == "pointsegda":
+        loss, miou, acc = evaluate_seg(model, data, label,
+                                       cfg.test_batch_size)
+        result = {"dataset": cfg.dataset, "split": cfg.split,
+                  "loss": round(float(loss), 6), "miou": round(float(miou), 6),
+                  "acc": round(float(acc), 6)}
+        io.cprint(json.dumps(result))
+        return result
     r = evaluate(model, data, label, cfg.test_batch_size, cfg.num_class,
                  indices)
     io.cprint("Confusion matrix:\n" + str(r["conf_mat"]))
@@ -80,15 +100,17 @@ def run_infer(cfg: EvalConfig, io: IOStream | None = None) -> dict:
     """Batch inference over one split: writes `pred` [M] int64, `prob`
     [M, num_class] float32 (softmax), `label` [M] and `index` [M] (the
     dataset index of each row) to `cfg.output` (default
-    `{exp_dir}/predictions.npz`). Returns a summary (also printed as one
-    JSON line)."""
+    `{exp_dir}/predictions.npz`); for PointSegDA `pred` [M, N], `prob`
+    [M, N, num_class] and `label` [M, N]. Returns a summary (also printed
+    as one JSON line), whose accuracy is per cloud or per point."""
     cfg = cfg.resolved()
     io = io or IOStream(cfg.out_path, cfg.exp_name)
     model, data, label, indices = _setup(cfg, io)
     sels, counts = eval_batches(label.shape[0], cfg.test_batch_size, indices)
     if not sels:
         raise ValueError("run_infer: empty split")
-    logits = eval_logits(model, data, sels)
+    logits = eval_logits(model, data, sels,
+                         "seg" if cfg.task == "pointsegda" else "cls")
     logits = np.concatenate([lg[:n] for lg, n in zip(logits, counts)])
     order = np.concatenate([sel[:n] for sel, n in zip(sels, counts)])
     pred = logits.argmax(-1).astype(np.int64)

@@ -68,12 +68,13 @@ def eval_batches(n_examples: int, batch_size: int,
     return sels, counts
 
 
-def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray]
-                ) -> np.ndarray:
-    """Class logits [S, B, C] of the batches `data[sels[i]]`, forwarded in
-    eval mode (running BN statistics, no dropout) on the model's device;
-    one copy of the indices in, one of the logits out. The model's mode is
-    restored afterwards."""
+def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
+                output: str = "cls") -> np.ndarray:
+    """Logits [S, B, ...] of the batches `data[sels[i]]` (the model's
+    `output`: "cls" [B, C] of DGCNN, "seg" [B, N, C] of DGCNNSeg),
+    forwarded in eval mode (running BN statistics, no dropout) on the
+    model's device; one copy of the indices in, one of the logits out. The
+    model's mode is restored afterwards."""
     device = next(model.parameters()).device
     x = torch.as_tensor(data, device=device)
     idx = torch.from_numpy(np.stack(sels)).to(device)
@@ -81,7 +82,7 @@ def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray]
     model.eval()
     try:
         with torch.inference_mode():
-            out = torch.stack([model(x[i])["cls"] for i in idx])
+            out = torch.stack([model(x[i])[output] for i in idx])
     finally:
         model.train(was_training)
     return out.float().cpu().numpy()
@@ -135,7 +136,7 @@ def epoch_generator(seed: int, epoch: int,
     return torch.Generator(device=device).manual_seed(s)
 
 
-def _fetch_metrics(steps: list[dict]) -> list[dict]:
+def fetch_metrics(steps: list[dict]) -> list[dict]:
     """The steps' 0-d device tensors as host floats, in one copy."""
     if not steps:
         return []
@@ -214,7 +215,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
                         model, opt, sched, src_x[s], src_y[s], trgt_x[t], gen,
                         cfg))
             meters = MeterDict()
-            for m in _fetch_metrics(steps):
+            for m in fetch_metrics(steps):
                 meters.update(m, n=B)
             t_train = time.perf_counter() - t0
 

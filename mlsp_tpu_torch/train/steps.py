@@ -122,12 +122,39 @@ def pcm_mix(x: torch.Tensor, y: torch.Tensor, draws: dict,
     return mixed[:, draws["points"]], (y, y[perm], lam)
 
 
+def pcm_mix_segmentation(x: torch.Tensor, y: torch.Tensor, draws: dict,
+                         backend: str = "auto"):
+    """Segmentation PCM (`MLSP/PCM.py:40-73`): `pcm_mix` on clouds x
+    [B, N, 3] whose point labels y [B, N] move with their points; one FPS
+    call on the 2B clouds, the draws of `draw_pcm`.
+
+    Returns (mixed [B, N, 3], mixed labels [B, N])."""
+    B, N, _ = x.shape
+    perm, lam = draws["perm"], draws["lam"]
+    num_a = torch.round(lam * N).long()
+    xb, yb = x[perm], y[perm]
+    order = fps(torch.cat([x, xb]), N,
+                torch.cat([draws["start_a"], draws["start_b"]]), backend)
+    oa, ob = order[:B], order[B:]
+    va, la = fps_gather(x, oa), torch.gather(y, 1, oa)
+    vb, lb = fps_gather(xb, ob), torch.gather(yb, 1, ob)
+    i = torch.arange(N, device=x.device)
+    idx_b = torch.clamp(i - num_a, 0, N - 1)
+    take_a = i < num_a
+    mixed = torch.where(take_a[None, :, None], va, vb[:, idx_b])
+    mixed_y = torch.where(take_a[None, :], la, lb[:, idx_b])
+    pp = draws["points"]
+    return mixed[:, pp], mixed_y[:, pp]
+
+
 def _ssl_recipe_losses(cfg, logits, x_orig, mask, normal_gt, dvec, dval,
                        prefix, m):
     """DefRec + normal + density on the deformed cloud
-    (`PointDA/trainer.py:544-565`)."""
+    (`PointDA/trainer.py:544-565`). The DefRec term adds to one already in
+    `m`: DefRec_on_trgt and the combined branch both emit `trgt_DefRec`,
+    which the reference sums (trainer.py:471,545)."""
     total = L.defrec_loss(logits["defrec"], x_orig, mask, cfg.DefRec_weight)
-    m[f"{prefix}_DefRec"] = total
+    m[f"{prefix}_DefRec"] = m.get(f"{prefix}_DefRec", 0.0) + total
     w = L.region_weights(mask, cfg.Density_normal_defpart)
     if cfg.Normal_ondef:
         nl = L.masked_normal_loss(logits["normal"], normal_gt, w,

@@ -1,16 +1,17 @@
-"""Experiment configuration: copies of `PointDAConfig` and `EvalConfig`
-from `mlsp_tpu/utils/config.py` (whose module the port may not import),
-the head tables and the YAML/CLI funnel.
+"""Experiment configuration: copies of `PointDAConfig`, `PointSegDAConfig`
+and `EvalConfig` from `mlsp_tpu/utils/config.py` (whose module the port
+may not import), the head tables and the YAML/CLI funnel.
 
-Field names and defaults mirror the reference's argparse surface
-(`PointDA/trainer.py:44-99`) plus its per-target radius table. Left out
-as having no meaning here: `edge_impl` (the port has one EdgeConv core),
-`compute_dtype`/`gather_dtype` (the port runs in float32 but for the
-heads), `scan_steps` (a TPU dispatch amortisation) and `debug_aux`
-(`train.steps.pointda_losses` takes the draws as inputs); a YAML or CLI
-naming one of them is refused as an unknown key. Added: `device`, where
-the entry points run ("" is the CUDA card, which they require unless
-given "cpu").
+Field names and defaults mirror the reference's argparse surfaces
+(`PointDA/trainer.py:44-99`, `PointSegDA/trainer.py:93-135`) plus their
+per-target radius tables. Left out as having no meaning here:
+`edge_impl` (the port has one EdgeConv core), `compute_dtype`/
+`gather_dtype` (the port runs in float32 but for the PointDA heads),
+`scan_steps` (a TPU dispatch amortisation) and `debug_aux`
+(`pointda_losses` and `pointsegda_losses` take the draws as inputs); a
+YAML or CLI naming one of them is refused as an unknown key. Added:
+`device`, where the entry points run ("" is the CUDA card, which they
+require unless given "cpu").
 """
 
 from __future__ import annotations
@@ -19,8 +20,10 @@ import dataclasses
 import os
 from dataclasses import dataclass
 
-# Per-target density radius (trainer.py:103-111).
+# Per-target density radius (trainer.py:103-111, seg trainer:139-150).
 POINTDA_RADIUS = {"shapenet": 0.12, "modelnet": 0.13, "scannet": 0.135}
+POINTSEGDA_RADIUS = {"adobe": 0.0872, "faust": 0.091, "mit": 0.124,
+                     "scape": 0.115}
 
 
 @dataclass(frozen=True)
@@ -109,10 +112,67 @@ class PointDAConfig:
 
 
 @dataclass(frozen=True)
+class PointSegDAConfig:
+    """PointSegDA segmentation DA (`PointSegDA/trainer.py:93-135`)."""
+
+    exp_name: str = "DefRec_PCM"
+    out_path: str = "./experiments"
+    dataroot: str = "./data/PointSegDAdataset"
+    src_dataset: str = "adobe"
+    trgt_dataset: str = "faust"
+    model: str = "dgcnn_seg"  # "dgcnn_seg" | "hengshuang_seg" (not ported)
+    epochs: int = 200
+    seed: int = 1
+    num_class: int = 8
+    num_points: int = 2048
+    batch_size: int = 16
+    test_batch_size: int = 32
+    optimizer: str = "ADAM"
+    lr: float = 1e-3
+    momentum: float = 0.9
+    wd: float = 5e-5
+    dropout: float = 0.5
+
+    DefRec_dist: str = "volume_based_voxels"
+    num_regions: int = 3
+    # Read by nothing, as in the reference (`mlsp.deform_input` fixes
+    # min_pts at 40, `transforms.deform`): kept for the flag surface.
+    min_pts: int = 20
+    apply_PCM: bool = False
+    mixup_params: float = 1.0
+    DefRec_weight: float = 0.02
+    DefRec_on_trgt: bool = True
+    Norm_on_trgt: bool = False
+    normal_pred_weight: float = 0.02
+    Density_on_trgt: bool = False
+    Density_weight: float = 0.02
+    density_num_class: int = 16
+    pergroup: float = 5.0
+    Density_normal_viainput: bool = False
+    Density_normal_viachamfer: bool = False  # read by no seg branch
+    Density_normal_defpart: bool = False
+    Density_ondef: bool = False
+    Normal_ondef: bool = False
+    near: int = 10
+    shift: int = 10
+    density_radius: float = 0.081
+    knn_backend: str = "auto"
+    synthetic: bool = False
+    device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
+
+    def resolved(self) -> "PointSegDAConfig":
+        """Apply the per-target radius table (trainer.py:139-150)."""
+        r = POINTSEGDA_RADIUS.get(self.trgt_dataset, self.density_radius)
+        return dataclasses.replace(self, density_radius=r,
+                                   density_num_class=16)
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     """Standalone checkpoint evaluation and batch inference (`eval`,
-    `infer`). The port serves `task="pointda"` with `model="dgcnn"`; the
-    other tasks, models and `from_torch` raise NotImplementedError."""
+    `infer`). The port serves `task="pointda"` with `model="dgcnn"` and
+    `task="pointsegda"` with `model="dgcnn_seg"`; the other models and
+    `from_torch` raise NotImplementedError."""
 
     exp_name: str = "EVAL"
     out_path: str = "./experiments"
@@ -159,6 +219,14 @@ def model_heads(model: str) -> tuple[str, ...]:
             else ("defrec",))
 
 
+def seg_model_heads(model: str) -> tuple[str, ...]:
+    """Heads a PointSegDA backbone provides: DGCNN_DefRec all four
+    (`PointSegDA/Models.py:213-242`), the hengshuang seg variant seg and
+    DefRec only."""
+    return (("seg", "defrec", "normal", "density") if model == "dgcnn_seg"
+            else ("seg", "defrec"))
+
+
 def trained_heads(cfg) -> tuple[str, ...]:
     """Heads some loss term of the recipe reads. The others keep their
     initial weights (`train.state`: their gradients stay None)."""
@@ -174,6 +242,44 @@ def trained_heads(cfg) -> tuple[str, ...]:
     if cfg.Density_on_trgt or (combined and cfg.Density_ondef):
         t.add("density")
     return tuple(h for h in model_heads(cfg.model) if h in t)
+
+
+def trained_seg_heads(cfg) -> tuple[str, ...]:
+    """PointSegDA heads some loss term of the recipe reads (cf.
+    `trained_heads`); the seg CE always trains the seg head."""
+    t = {"seg"}
+    if cfg.DefRec_on_trgt or cfg.Density_normal_viainput:
+        t.add("defrec")
+    if cfg.Norm_on_trgt or (cfg.Density_normal_viainput and cfg.Normal_ondef):
+        t.add("normal")
+    if cfg.Density_on_trgt or (cfg.Density_normal_viainput
+                               and cfg.Density_ondef):
+        t.add("density")
+    return tuple(h for h in seg_model_heads(cfg.model) if h in t)
+
+
+def validate_seg_heads(cfg) -> tuple[str, ...]:
+    """`validate_heads` for the seg task: the backbone's heads, or a
+    ValueError naming those the enabled branches need and it lacks."""
+    available = seg_model_heads(cfg.model)
+    needed = {"seg"}
+    if cfg.DefRec_on_trgt:
+        needed.add("defrec")
+    if cfg.Norm_on_trgt:
+        needed.add("normal")
+    if cfg.Density_on_trgt:
+        needed.add("density")
+    # the combined branch forwards through all three heads, whatever the
+    # *_ondef flags say
+    if cfg.Density_normal_viainput:
+        needed.update({"defrec", "normal", "density"})
+    missing = needed - set(available)
+    if missing:
+        raise ValueError(
+            f"seg model {cfg.model!r} has no {sorted(missing)} head(s) but "
+            f"the config enables SSL branches that need them: use --model "
+            f"dgcnn_seg or disable those flags")
+    return available
 
 
 def validate_heads(cfg) -> tuple[str, ...]:

@@ -1,9 +1,11 @@
-"""Carry JAX-package DGCNN checkpoints over to the port.
+"""Carry JAX-package DGCNN and DGCNNSeg checkpoints over to the port.
 
-Counterpart of `mlsp_tpu/utils/torch_export.py::export_dgcnn`: flax
-variables, as nested dicts of arrays (`params` and `batch_stats`), become
-the reference `DGCNN` state_dict, which is also the port's. Plain dict
-walking and numpy only: nothing of JAX is imported.
+Counterpart of `mlsp_tpu/utils/torch_export.py::export_dgcnn` and
+`export_dgcnn_seg`: flax variables, as nested dicts of arrays (`params`
+and `batch_stats`), become the port's state_dict, which is the reference's
+(but for DGCNNSeg's linear edge blocks, which keep the JAX names:
+`models/dgcnn_seg.py`). Plain dict walking and numpy only: nothing of JAX
+is imported.
 
 Layout translations:
   * Dense kernel [in, out] -> 1x1 conv weight [out, in, 1(, 1)] or Linear
@@ -13,8 +15,9 @@ Layout translations:
     running_mean/running_var, plus `num_batches_tracked` = 0.
   * Density head: the frozen bins `fc2.weight` = pergroup * arange(num_cls).
 
-`dgcnn_grads_from_jax` maps a gradient tree the same way (parameters
-only), so tests can compare gradients; no optimizer state is carried.
+`dgcnn_grads_from_jax` and `dgcnn_seg_grads_from_jax` map a gradient
+tree the same way (parameters only), so tests can compare gradients; no
+optimizer state is carried.
 """
 
 from __future__ import annotations
@@ -148,5 +151,63 @@ def _convert(cv: _Converter) -> dict[str, torch.Tensor]:
     except KeyError as e:
         raise ValueError(
             f"DGCNN variables lack {e.args[0]} (was the model initialised "
+            "with all heads?)") from e
+    return cv.out
+
+
+def dgcnn_seg_state_dict_from_jax(variables: Mapping, pergroup: float = 5.0
+                                  ) -> dict[str, torch.Tensor]:
+    """flax DGCNNSeg variables (a model initialised with every head) -> the
+    port's `DGCNNSeg` state_dict, loadable with `strict=True`. Raises
+    ValueError if a part is missing."""
+    out = _convert_seg(_Converter(variables))
+    num_cls = out["Density_cls.mlp3.weight"].shape[0]
+    out["Density_cls.fc2.weight"] = pergroup * torch.arange(
+        num_cls, dtype=torch.float32)[None, :]
+    return out
+
+
+def dgcnn_seg_grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX DGCNNSeg gradient tree (the `params` structure) -> {port
+    parameter name: gradient} for every trainable parameter of the port's
+    `DGCNNSeg`."""
+    return _convert_seg(_Converter({"params": grads}))
+
+
+def _convert_seg(cv: _Converter) -> dict[str, torch.Tensor]:
+    try:
+        t = ("SegTransformNet_0",)
+        for j in range(3):
+            cv.dense(f"input_transform_net.conv2d{j + 1}.conv.0",
+                     t + (f"Dense_{j}",), 2)
+        cv.dense("input_transform_net.fc1.fc.0", t + ("Dense_3",), None)
+        cv.dense("input_transform_net.fc2.fc.0", t + ("Dense_4",), None)
+        cv.dense("input_transform_net.fc3", t + ("Dense_5",), None)
+
+        for i, depth in enumerate((2, 2, 1)):
+            blk = f"LinearEdgeBlock_{i}"
+            for j in range(depth):
+                for name in (f"w_diff{j}", f"w_center{j}"):
+                    cv.dense(f"shared_layers.edge{i + 1}.{name}", (blk, name),
+                             None)
+        cv.dense("shared_layers.conv6", ("Dense_0",), 1)
+
+        for dst, src in (("seg", "seg"), ("DefRec", "DefRec"),
+                         ("Norm_pred", "NormPred")):
+            for j in range(3):
+                cv.densebn(f"{dst}.conv{j + 1}", (src, f"DenseBN_{j}"), 1,
+                           dst_bn=f"{dst}.bn{j + 1}")
+            cv.dense(f"{dst}.conv4", (src, "Dense_0"), 1)
+
+        d = "Density_cls"
+        cv.densebn(f"{d}.conv1", ("DensityCls", "DenseBN_0"), 1,
+                   dst_bn=f"{d}.bn1")
+        for j in range(2):
+            cv.densebn(f"{d}.mlp{j + 1}", ("DensityCls", f"DenseBN_{j + 1}"),
+                       None)
+        cv.dense(f"{d}.mlp3", ("DensityCls", "Dense_0"), None)
+    except KeyError as e:
+        raise ValueError(
+            f"DGCNNSeg variables lack {e.args[0]} (was the model initialised "
             "with all heads?)") from e
     return cv.out

@@ -1,8 +1,9 @@
-"""Classification metrics in numpy (a copy of the classification part of
-`mlsp_tpu/utils/metrics.py`; the segmentation metrics come with the
-PointSegDA slice). Semantics of the reference's sklearn calls
-(`utils/log.py:48-59`): balanced accuracy is the mean per-class recall over
-the classes present in y_true.
+"""Classification and segmentation metrics in numpy (a copy of
+`mlsp_tpu/utils/metrics.py`). Semantics of the reference's sklearn calls
+(`utils/log.py:48-59`, `PointSegDA/trainer.py:224-233`): balanced accuracy
+is the mean per-class recall over the classes present in y_true; the seg
+mIoU of a shape is the macro IoU over the labels in its truth or
+prediction.
 """
 
 from __future__ import annotations
@@ -39,3 +40,27 @@ def confusion_matrix(y_true, y_pred, num_classes: int) -> np.ndarray:
     cm = np.zeros((num_classes, num_classes), dtype=np.int64)
     np.add.at(cm, (y_true, y_pred), 1)
     return cm
+
+
+def jaccard_macro(y_true, y_pred) -> float:
+    """Macro-averaged IoU over the labels present in y_true or y_pred
+    (sklearn `jaccard_score(average="macro")` with its default labels)."""
+    y_true, y_pred = np.asarray(y_true), np.asarray(y_pred)
+    labels = np.union1d(np.unique(y_true), np.unique(y_pred))
+    ious = []
+    for c in labels:
+        inter = ((y_true == c) & (y_pred == c)).sum()
+        union = ((y_true == c) | (y_pred == c)).sum()
+        ious.append(inter / union if union else 0.0)
+    return float(np.mean(ious)) if ious else 0.0
+
+
+def seg_metrics(labels, preds) -> tuple[float, float]:
+    """Sums over the batch's shapes of the per-shape mIoU and accuracy of
+    labels and preds [B, N]; the caller divides by the sample count."""
+    labels, preds = np.asarray(labels), np.asarray(preds)
+    miou = acc = 0.0
+    for b in range(labels.shape[0]):
+        miou += jaccard_macro(labels[b], preds[b])
+        acc += (labels[b] == preds[b]).mean()
+    return miou, acc

@@ -1,13 +1,14 @@
 #!/bin/bash
 # Check the PyTorch/CUDA port (mlsp_tpu_torch) on one CUDA card, from the
-# root of a checkout. Four steps:
+# root of a checkout. Five steps:
 #   smoke       python3 chip_smoke.py: every kernel against its plain
 #               version, the serving, train step, data pipeline, trainer
 #               CLI and eval/infer paths, the times
 #   cuda_tests  the card-only tests (pytest -m cuda; --noconftest, since
 #               tests/conftest.py imports JAX)
-#   profile     scripts/torch_train_profile.py: where a train step's
-#               device time goes
+#   profile     scripts/torch_train_profile.py: where a PointDA train
+#               step's device time goes
+#   seg_profile the same for a PointSegDA train step (--seg)
 #   alone       chip_smoke.py copied alone into an empty directory: it
 #               must exit non-zero, since it cannot run without the package
 #
@@ -15,8 +16,8 @@
 #
 # Each step's output goes to LOG_DIR/<step>.log; stdout gets one
 # "<step> rc=<exit code> seconds=<s>" line per step and the last lines of
-# the smoke and test logs. Exits 0 only when smoke, cuda_tests and profile
-# exit 0 and alone does not.
+# the smoke and test logs. Exits 0 only when smoke, cuda_tests and both
+# profiles exit 0 and alone does not.
 set -u
 out=$(mkdir -p "${1:?usage: bash scripts/torch_chip_check.sh LOG_DIR}" \
       && cd "$1" && pwd) || exit 2
@@ -38,6 +39,8 @@ step cuda_tests python3 -m pytest --noconftest -m cuda -q -p no:cacheprovider \
   tests/test_torch_port_cuda.py || status=1
 tail -n 1 "$out/cuda_tests.log"
 step profile env PYTHONPATH=. python3 scripts/torch_train_profile.py || status=1
+step seg_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py --seg \
+  || status=1
 
 alone=$(mktemp -d)
 cp chip_smoke.py "$alone/"

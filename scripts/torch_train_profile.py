@@ -1,11 +1,14 @@
-"""Where the port's train time goes: a torch.profiler trace of the PointDA
-paper-recipe train step (`mlsp_tpu_torch`) on one NVIDIA card.
+"""Where the port's train time goes: a torch.profiler trace of a train step
+(`mlsp_tpu_torch`) on one NVIDIA card.
 
-Usage: PYTHONPATH=. python scripts/torch_train_profile.py
+Usage: PYTHONPATH=. python scripts/torch_train_profile.py [--seg]
 
-Builds the full-width model `chip_smoke.py` trains (DGCNN k=20, N=1024,
-B=32, 10 classes, `PointDAConfig().paper_recipe`, seeded random weights),
-takes 3 warm-up steps, then 5 steps of `pointda_train_step` under the
+Builds the full-width model `chip_smoke.py` trains, with seeded random
+weights: without `--seg` the PointDA paper-recipe step (DGCNN k=20, N=1024,
+B=32, 10 classes, `PointDAConfig().paper_recipe`, `pointda_train_step`);
+with `--seg` the PointSegDA step (DGCNNSeg k=20, N=2048, B=16, 8 classes,
+the MLSP recipe of configs/pointsegda_mlsp.yaml plus PCM,
+`pointsegda_train_step`). Takes 3 warm-up steps, then 5 steps under the
 profiler, and prints one JSON line: wall time per step, the device's busy
 share of that window, device time per step grouped by kernel name (largest
 first), the hand-written kernels' share, and the card's name and power
@@ -14,7 +17,9 @@ limit.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -23,9 +28,20 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mlsp_tpu_torch import make_model
-from mlsp_tpu_torch.data.synthetic import make_classification
-from mlsp_tpu_torch.train import make_optimizer, pointda_train_step
-from mlsp_tpu_torch.utils.config import PointDAConfig
+from mlsp_tpu_torch.data.synthetic import (
+    make_classification,
+    make_segmentation,
+)
+from mlsp_tpu_torch.train import (
+    make_optimizer,
+    pointda_train_step,
+    pointsegda_train_step,
+)
+from mlsp_tpu_torch.utils.config import (
+    PointDAConfig,
+    PointSegDAConfig,
+    load_yaml,
+)
 
 WARMUP, ITERS = 3, 5
 # device kernels of csrc/*.cu, by the name the profiler reports
@@ -44,26 +60,38 @@ def main() -> int:
          "--id=0"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip()
 
-    cfg = PointDAConfig().paper_recipe
+    seg = "--seg" in sys.argv[1:]
     device = torch.device("cuda", 0)
-    model = make_model("dgcnn", cfg.num_class, device=device,
+    if seg:
+        cfg = dataclasses.replace(
+            load_yaml(PointSegDAConfig, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "..", "configs",
+                "pointsegda_mlsp.yaml")), apply_PCM=True).resolved()
+        name, make, step = "dgcnn_seg", make_segmentation, pointsegda_train_step
+        kw = {"density_num_cls": cfg.density_num_class,
+              "pergroup": cfg.pergroup}
+    else:
+        cfg = PointDAConfig().paper_recipe
+        name, make, step = "dgcnn", make_classification, pointda_train_step
+        kw = {"head_dtype": cfg.head_dtype}
+    model = make_model(name, cfg.num_class, device=device,
                        generator=torch.Generator().manual_seed(0),
-                       dropout=cfg.dropout, head_dtype=cfg.head_dtype).train()
+                       dropout=cfg.dropout, **kw).train()
     opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs, 100)
-    clouds, labels = make_classification(2 * cfg.batch_size, cfg.num_points,
-                                         cfg.num_class, seed=1)
+    clouds, labels = make(2 * cfg.batch_size, cfg.num_points, cfg.num_class,
+                          seed=1)
     x = torch.from_numpy(clouds).to(device)
     y = torch.from_numpy(labels).to(device)
     batch = (x[:cfg.batch_size], y[:cfg.batch_size], x[cfg.batch_size:])
     gen = torch.Generator(device=device).manual_seed(0)
     for _ in range(WARMUP):
-        pointda_train_step(model, opt, sched, *batch, gen, cfg)
+        step(model, opt, sched, *batch, gen, cfg)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            pointda_train_step(model, opt, sched, *batch, gen, cfg)
+            step(model, opt, sched, *batch, gen, cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -80,7 +108,8 @@ def main() -> int:
             for k in PORT_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     print(json.dumps({
-        "batch": cfg.batch_size, "points": cfg.num_points, "iters": ITERS,
+        "model": name, "batch": cfg.batch_size, "points": cfg.num_points,
+        "iters": ITERS,
         "card": card, "wall_ms_per_step": wall_ms / ITERS,
         "device_ms_per_step": busy_ms / ITERS,
         "device_busy_share": busy_ms / wall_ms,

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from mlsp_tpu_torch import make_model
-from mlsp_tpu_torch.data.synthetic import make_classification
+from mlsp_tpu_torch.data.synthetic import (
+    make_classification,
+    make_segmentation,
+)
 from mlsp_tpu_torch.ops import edge_moments, estimate_normals, knn_indices
 from mlsp_tpu_torch.ops import kernels
 from mlsp_tpu_torch.ops.kernels import edge as edge_kernels
@@ -27,8 +30,12 @@ from mlsp_tpu_torch.ops.kernels import (
 )
 from mlsp_tpu_torch.ops.knn import knn_gather, knn_indices_torch
 from mlsp_tpu_torch.testing import edge_grad_magnitude, knn_set_gap
-from mlsp_tpu_torch.train import make_optimizer, pointda_train_step
-from mlsp_tpu_torch.utils.config import PointDAConfig
+from mlsp_tpu_torch.train import (
+    make_optimizer,
+    pointda_train_step,
+    pointsegda_train_step,
+)
+from mlsp_tpu_torch.utils.config import PointDAConfig, PointSegDAConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -51,6 +58,8 @@ def _x(seed, shape, device, dup=False):
 @pytest.mark.parametrize("B,N,C,k", [
     (2, 1024, 3, 20), (2, 1000, 64, 20), (1, 1024, 128, 20),
     (3, 37, 5, 4), (1, 64, 256, 32), (2, 50, 3, 1), (1, 33, 7, 9),
+    # PointSegDA: a B=16 train forward's C=3 and C=64 graphs, B=32 in eval
+    (16, 2048, 3, 20), (16, 2048, 64, 20), (32, 2048, 64, 20),
 ])
 def test_knn_kernel_matches_plain(card, B, N, C, k):
     x = _x(N + C, (B, N, C), card)
@@ -272,6 +281,7 @@ def test_edge_kernel_wrapper_records_no_grad(card):
 
 @pytest.mark.parametrize("B,N,npoint", [(4, 1024, 1024), (3, 1000, 1000),
                                         (2, 2048, 2048), (5, 37, 20),
+                                        (32, 2048, 2048),  # PointSegDA PCM
                                         (64, 1024, 1024), (3, 2048, 700),
                                         (4, 1024, 300), (3, 2049, 1024),
                                         (4, 4096, 1024), (2, 5000, 700),
@@ -326,7 +336,8 @@ def test_fps_kernel_bad_start_gives_minus_one(card):
     assert (got[1] == -1).all() and (got[0] >= 0).all()
 
 
-@pytest.mark.parametrize("B,N,k", [(4, 1024, 20), (2, 1000, 20), (3, 37, 9)])
+@pytest.mark.parametrize("B,N,k", [(4, 1024, 20), (2, 1000, 20), (3, 37, 9),
+                                   (16, 2048, 10)])  # PointSegDA: k = near
 def test_knn_moments_kernel_matches_plain(card, B, N, k):
     x = _x(N + k, (B, N, 3), card)
     s1, s2, idx = knn_moments_cuda(x, k, return_indices=True)
@@ -425,3 +436,43 @@ def test_trainer_one_epoch_checkpoint_loads_on_the_cpu(card, tmp_path):
         for k, v in model.state_dict().items():
             assert torch.equal(cpu.state_dict()[k], v.cpu()), k
     assert np.isfinite(results["test"]["loss"])
+
+
+def test_seg_model_kernels_match_plain_and_count(card):
+    """A DGCNNSeg eval forward launches K1 4 times and no K2."""
+    g = torch.Generator().manual_seed(0)
+    model = make_model("dgcnn_seg", 8, device=card, generator=g)
+    ref = make_model("dgcnn_seg", 8, device=card, knn_backend="torch")
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(make_segmentation(4, 2048, 8, seed=1)[0]).to(card)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = model(x)["seg"]
+        assert kernels.launches() == {**dict.fromkeys(kernels.WRAPPERS, 0),
+                                      "knn": 4}
+        want = ref(x)["seg"]
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    assert agree >= 0.99 and (got - want).abs().max() <= 2e-2 * (
+        want.abs().max())
+
+
+def test_seg_train_step_launches(card):
+    """One MLSP-recipe seg step with PCM at a small size: K1 8, K3 1, K4 1
+    (both PCM batches in one launch), no K2; finite losses."""
+    cfg = PointSegDAConfig(batch_size=4, num_points=512, apply_PCM=True,
+                           DefRec_on_trgt=False, Density_normal_viainput=True,
+                           Normal_ondef=True, Density_ondef=True).resolved()
+    g = torch.Generator().manual_seed(0)
+    model = make_model("dgcnn_seg", 8, device=card, generator=g).train()
+    opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs, 10)
+    x, y = make_segmentation(8, 512, 8, seed=1)
+    x, y = torch.from_numpy(x).to(card), torch.from_numpy(y).to(card)
+    kernels.reset_launches()
+    m, (preds, labels) = pointsegda_train_step(
+        model, opt, sched, x[:4], y[:4], x[4:],
+        torch.Generator(device=card).manual_seed(0), cfg)
+    assert kernels.launches() == {"knn": 8, "edge_moments": 0,
+                                  "edge_moments_bwd": 0, "knn_moments": 1,
+                                  "fps": 1}
+    assert all(torch.isfinite(t) for t in m.values())
+    assert preds.is_cuda and preds.shape == labels.shape == (4, 512)

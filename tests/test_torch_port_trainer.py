@@ -322,8 +322,8 @@ class TestTrainer:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pointda_trainer.train_pointda(PointDAConfig(model="pointnet",
                                                         **base))
-        for kw in ({"task": "pointsegda"}, {"from_torch": True},
-                   {"model": "pointnet"}):
+        for kw in ({"task": "pointsegda", "model": "hengshuang_seg"},
+                   {"from_torch": True}, {"model": "pointnet"}):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 evaluation.run_eval(EvalConfig(**kw, **base))
         with pytest.raises(ValueError, match="head"):
