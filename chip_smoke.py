@@ -61,6 +61,24 @@ one JSON line each; any failure exits non-zero before the last line:
                `--knn_backend torch`: classes agree on >= 99% of clouds,
                max |dprob| <= 2e-2, eval's accuracy equals infer's, each
                3 forwards (K1 15, K2-fwd 12 launches)
+  branches     every PointDA recipe flag at full width (B=32, N=1024, k=20):
+               2 steps each of the all-branch recipe (DefRec on source and
+               target, PCM, source DefRec + normal + density, normals,
+               scan, density, DefRec + normal + density, SPL_v2: per step
+               K1 45, K2-fwd 36, K2-bwd 36, K3 3, K4 1), the paper recipe
+               with the Chamfer-transported labels, and the paper recipe
+               under SGD and AdamW (K1 10, K2-fwd 8, K2-bwd 8, K3 1, K4 1);
+               finite losses, step p50 and peak memory; the all-branch
+               first step rerun through the plain versions on the kernel
+               run's graphs and FPS order with eval-mode BN
+  spst         the `spst` CLI in-process from the trainer's model.ckpt: 3
+               rounds of 1 epoch with PCM at a threshold that selects every
+               target cloud (K1 30+155R, K2-fwd 24+124R, K2-bwd 64R, K4 8R
+               for R rounds); the LR of each epoch (torch's cosine, rising
+               again in round 3), the spl/cls weights, the SSL heads
+               unchanged, model.ckpt, best_model.ckpt and
+               finetune_convergence.json; the selection at the paper's
+               threshold printed
   seg_kernels  K1, K3 and K4 against their plain versions at the PointSegDA
                shapes: K1 on a B=16, N=2048 seg forward's four inputs (C=3,
                3, 64, 64) and at the eval batch's [32, 2048, 64]; K3 at
@@ -91,7 +109,10 @@ one JSON line each; any failure exits non-zero before the last line:
                shapes K1, K3 and K4 per launch, the LinearEdgeBlock max
                through K2 (an option, on no path), the seg step's p50 on
                both routes, the seg trainer's epoch time and seg eval/infer
-               clouds/s
+               clouds/s; K1 and K2-bwd on a simulated scan batch (about a
+               quarter exact zeros: K1's tie path, K2-bwd's in-degree in the
+               hundreds), checked against their plain versions and timed
+               per launch beside the paper batch's
 
 Then the `kernels` line, nvidia-smi's line and `{"ok": true, ...}`.
 """
@@ -155,12 +176,16 @@ from mlsp_tpu_torch.train.pointda_trainer import (
     evaluate,
 )
 from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
+from mlsp_tpu_torch.train.spst import select_pseudo_labels
+from mlsp_tpu_torch.train.state import torch_cosine_lr
+from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
 from mlsp_tpu_torch.utils import checkpoint
 from mlsp_tpu_torch.utils.config import (
     PointDAConfig,
     PointSegDAConfig,
     load_yaml,
 )
+from mlsp_tpu_torch.utils.logging import IOStream
 
 SEED = 0
 B, N, K, NUM_CLASS = 32, 1024, 20, 10  # utils/config.py PointDAConfig
@@ -1507,6 +1532,284 @@ def seg_trainer_times(tr: dict, step_p50_ms: float, device,
     return res
 
 
+# The recipe branches (the `branches` phase): every PointDA recipe flag at
+# the flagship width, B=32, N=1024, k=20, from the paper recipe's weights
+# and batches. A train forward launches K1 5, K2-fwd 4 and K2-bwd 4; each
+# normal estimate K3 once; PCM K4 once. The all-branch recipe takes 9
+# forwards (source DefRec, PCM, source DefRec + normal + density, target
+# DefRec, normals, scan, density, DefRec + normal + density, SPL) and 3
+# normal estimates. Its SPL_v2 gate is raised from the paper's 1.6366 to
+# 2.31, above the largest entropy of softmax(softmax(10 logits)), log 10:
+# every target cloud is kept, so the SPL term has a gradient (at 1.6366
+# none would be). The viachamfer recipe is the paper recipe with the
+# labels carried by the Chamfer nearest indices in place of the input ones.
+def train_launches(forwards: int, normals: int, pcm: int) -> dict:
+    return {"knn": 5 * forwards, "edge_moments": 4 * forwards,
+            "edge_moments_bwd": 4 * forwards, "knn_moments": normals,
+            "fps": pcm}
+
+
+ALL_BRANCHES = dict(
+    DefRec_on_src=True, apply_PCM=True, Density_normal_viainput_onsrc=True,
+    DefRec_on_trgt=True, Norm_on_trgt=True, Scan_on_trgt=True,
+    Density_on_trgt=True, Density_normal_viainput=True, Normal_ondef=True,
+    Density_ondef=True, apply_SPL_v2=True, gamma_v2=2.31)
+RECIPES = {
+    "all_branches": (ALL_BRANCHES, train_launches(9, 3, 1)),
+    "viachamfer": (dict(Density_normal_viainput=False,
+                        Density_normal_viachamfer=True),
+                   train_launches(2, 1, 1)),
+    "sgd": (dict(optimizer="SGD"), PER_STEP),
+    "adamw": (dict(optimizer="ADAMW"), PER_STEP),
+}
+BRANCH_STEPS = 2  # counted steps per recipe; then BRANCH_TIMED more, timed
+BRANCH_TIMED = 6
+
+
+def branch_step_time(model, opt, sched, batches, gen, cfg, n: int) -> float:
+    """p50 of n steps (host clock around a step that ends in a
+    synchronize), after one warm step."""
+    out = []
+    for i in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pointda_train_step(model, opt, sched, *batches[i % len(batches)], gen,
+                           cfg)
+        torch.cuda.synchronize()
+        if i:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def branches(device, card: str) -> dict:
+    """BRANCH_STEPS steps of each recipe of RECIPES with exact launch
+    counts, finite losses, p50 and peak memory; the all-branch recipe's
+    first step again through the plain route on the kernel run's kNN
+    graphs and FPS order, with eval-mode BN (losses within LOSS_RTOL,
+    gradients within GRAD_RTOL)."""
+    batches = train_batches(train_cfg(), device)
+    total = dict.fromkeys(PER_STEP, 0)
+    res = {}
+    for name, (flags, per_step) in RECIPES.items():
+        cfg = dataclasses.replace(train_cfg(), **flags)
+        model = train_model(cfg, device)
+        init = copy.deepcopy(model.state_dict())
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                    STEPS_PER_EPOCH, cfg.optimizer,
+                                    cfg.momentum)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        steps = [pointda_train_step(model, opt, sched,
+                                    *batches[i % len(batches)], gen, cfg)
+                 for i in range(BRANCH_STEPS)]
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [{k: float(v) for k, v in m.items()} for m in steps]
+        p50 = branch_step_time(model, opt, sched, batches, gen, cfg,
+                               BRANCH_TIMED)
+        r = {"recipe": name, "flags": flags, "optimizer": cfg.optimizer,
+             "batch": cfg.batch_size, "points": cfg.num_points,
+             "steps": BRANCH_STEPS, "launches": launches,
+             "launches_expected": {k: BRANCH_STEPS * v
+                                   for k, v in per_step.items()},
+             "losses": losses,
+             "finite": all(np.isfinite(v) for m in losses
+                           for v in m.values()),
+             "p50_ms": p50, "steps_timed": BRANCH_TIMED,
+             "peak_memory_gb": peak_gb, "card": card}
+        if name == "all_branches":
+            r["first_step_plain_vs_kernel_eval_bn"] = compare_first_step(
+                dataclasses.replace(cfg, debug_bn_eval=True), batches[0],
+                init, device)
+        emit("branches", **r)
+        check(r["finite"], f"non-finite {name} losses: {losses}")
+        check(launches == r["launches_expected"],
+              f"the {name} steps did not launch every kernel as expected: "
+              f"{launches}")
+        if name == "all_branches":
+            c = r["first_step_plain_vs_kernel_eval_bn"]
+            rep = c["replayed"]
+            check(not any(c["plain_route_launches"].values()),
+                  f"the plain route launched kernels: "
+                  f"{c['plain_route_launches']}")
+            check((rep["graphs"], rep["fps_orders"]) ==
+                  (per_step["knn"] + per_step["knn_moments"], per_step["fps"])
+                  and rep["plain_own_fps_entries_differ"] == 0,
+                  f"all-branch first step: unexpected kNN graphs or FPS "
+                  f"orders {rep}")
+            check(c["same_grad_set"] and not c["outside"],
+                  f"all-branch first step: the plain route or a kernel rerun "
+                  f"disagrees with the kernel route on {c['outside']}")
+            check(all(m["trgt_SPL_selected"] == 1.0 for m in losses),
+                  "the SPL_v2 gate did not keep every target cloud")
+        for k, v in launches.items():
+            total[k] += v
+        res[name] = r
+    return {"recipes": res, "launches": total}
+
+
+def scan_graph(device, card: str, g: torch.Generator) -> dict:
+    """K1 and K2-bwd on a real `Scan_on_trgt` batch (the train batch's
+    target clouds occluded by `scan_batch`, about a quarter exact zeros):
+    K1 at the five kNN inputs of a forward on it by equal sorted distance
+    sets, K2-bwd at its four EdgeConv shapes by du within its tolerance;
+    then both timed per launch beside the paper batch's, with the graphs'
+    largest in-degree."""
+    trgt = train_batches(train_cfg(), device)[0][2]
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    sx, smask = scan_batch(trgt, *draw_scan(gen, trgt.shape[0]))
+    model = train_model(train_cfg(), device).eval()
+    runs = {"scan": kernel_inputs(model, sx), "paper": kernel_inputs(model,
+                                                                     trgt)}
+    knn_checks = [check_knn(f"scan {name}", t, phase="scan_graph")
+                  for name, t in runs["scan"][0]]
+    bwd_checks = [check_edge_bwd(f"scan {name}", xg, u, g)
+                  for name, xg, u in runs["scan"][1]]
+    times = {}
+    for what, (knn_in, edge_in) in runs.items():
+        rows = {"knn": [], "edge_moments_bwd": []}
+        for name, t in knn_in:
+            idx = knn_cuda(t, K)
+            indeg = torch.stack([torch.bincount(i.flatten(), minlength=N)
+                                 for i in idx])
+            rows["knn"].append({
+                "input": name, "shape": list(t.shape),
+                "ms": median_ms(lambda: knn_cuda(t, K)),
+                "plain_ms": median_ms(lambda: knn_indices_torch(t, K)),
+                "max_in_degree": int(indeg.max()),
+                **dict(zip(("bound_ms", "bound_by"), bound(*knn_cost(t))))})
+        for name, xg, u in edge_in:
+            idx = knn_cuda(xg, K)
+            outs = edge_moments_cuda(u, idx, True)
+            cots = [torch.randn(u.shape, generator=g).to(device)
+                    for _ in range(4)]
+            uu = u.detach().clone().requires_grad_()
+            plain_outs = edge_moments_torch(uu, idx, True)
+            indeg = torch.stack([torch.bincount(i.flatten(), minlength=N)
+                                 for i in idx])
+            rows["edge_moments_bwd"].append({
+                "input": name, "shape": list(u.shape),
+                "ms": median_ms(lambda: edge_moments_bwd_cuda(
+                    u, idx, outs[0], outs[1], *cots)),
+                "plain_ms": median_ms(lambda: torch.autograd.grad(
+                    plain_outs, uu, cots, retain_graph=True)),
+                "max_in_degree": int(indeg.max()),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(*edge_bwd_cost(u, K))))})
+        times[what] = rows
+    res = {"zero_points": float((sx == 0).all(-1).float().mean()),
+           "removed_share": float(smask.mean()),
+           "knn_max_dist_gap": max(c["max_dist_gap"] for c in knn_checks),
+           "bwd_max_abs_err": max(c["max_abs_err"] for c in bwd_checks),
+           "per_launch": times,
+           "per_forward_ms": {what: {k: sum(r["ms"] for r in rows)
+                                     for k, rows in t.items()}
+                              for what, t in times.items()},
+           "card": card}
+    emit("times", what="scan_graph", **res)
+    return {**res, "knn_checks": knn_checks, "bwd_checks": bwd_checks}
+
+
+# The `spst` phase: the CLI from the trainer phase's model.ckpt, full width
+# (B = test batch = 32, N=1024), SPST_ROUNDS rounds of 1 epoch with PCM, at
+# a threshold above log 10 (every target train cloud is selected; at the
+# paper's 1.5492 a 2-epoch pretrain selects next to none, so no step would
+# run). Three rounds, so that the LR's rise in round 3 shows: torch's cosine
+# with T_max = epochs = 1 gives lr, 0, lr. Each round: the selection (256
+# target train clouds, 8 eval forwards), 8 steps (2 train forwards and one
+# PCM each), the validation and test evaluations (2 + 2 + 3 eval forwards);
+# and the initial and final test evaluations (3 + 3).
+SPST_ROUNDS, SPST_THRESHOLD, SPST_PAPER_THRESHOLD = 3, 2.31, 1.5492
+SPST_STEPS, SELECT_FORWARDS, VAL_FORWARDS = 8, 8, 4
+SPST_LR = 1e-4  # utils/config.py SPSTConfig
+SSL_HEADS = ("DefRec.", "Norm_pred.", "Rec_scan.", "Density_cls.")
+
+
+def spst_launches(rounds: int) -> dict:
+    evals = 2 * EVAL_FORWARDS + rounds * (SELECT_FORWARDS + VAL_FORWARDS
+                                          + EVAL_FORWARDS)
+    trains = rounds * SPST_STEPS * 2
+    return {"knn": 5 * (evals + trains), "edge_moments": 4 * (evals + trains),
+            "edge_moments_bwd": 4 * trains, "knn_moments": 0,
+            "fps": rounds * SPST_STEPS}
+
+
+def spst(tmp: str, model_file: str, device) -> dict:
+    """The `spst` CLI in-process, from the trainer phase's model.ckpt."""
+    out = os.path.join(tmp, "runs")
+    exp = os.path.join(out, "spst")
+    # for information: what the paper's threshold selects from this model
+    model = make_model("dgcnn", NUM_CLASS, device=device)
+    checkpoint.load_model_weights(model, model_file)
+    ds = load_pointda("scannet", ".", "train", N, True, 1, device=device)
+    with open(os.devnull, "w") as f, contextlib.redirect_stdout(f):
+        sel, _ = select_pseudo_labels(
+            model, torch.from_numpy(ds.data).to(device), ds.label,
+            ds.train_ind, B, SPST_PAPER_THRESHOLD, True,
+            IOStream(tmp, "select"), 0)
+    argv = ["spst", "--synthetic", "True", "--model_file", model_file,
+            "--rounds", str(SPST_ROUNDS), "--epochs", "1", "--threshold",
+            str(SPST_THRESHOLD), "--apply_PCM", "True", "--out_path", out,
+            "--exp_name", "spst"]
+    t0 = time.perf_counter()
+    launches = run_cli(argv, os.path.join(tmp, "spst.log"))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(exp, "run.log")) as f:
+        log = f.read()
+    files = {f: os.path.exists(os.path.join(exp, f))
+             for f in ("model.ckpt", "best_model.ckpt",
+                       "finetune_convergence.json")}
+    loaded = torch.load(model_file, map_location="cpu",
+                        weights_only=True)["model"]
+    heads_same = {}
+    for f in ("model.ckpt", "best_model.ckpt"):
+        if files[f]:
+            sd = torch.load(os.path.join(exp, f), map_location="cpu",
+                            weights_only=True)["model"]
+            heads_same[f] = all(torch.equal(sd[k], t)
+                                for k, t in loaded.items()
+                                if k.startswith(SSL_HEADS))
+    lrs = [r["lr"] for r in records]
+    want_lrs = [torch_cosine_lr(SPST_LR, 1, e) for e in range(SPST_ROUNDS)]
+    weights = [(r["spl_weight"], r["cls_weight"]) for r in records]
+    want_weights = [1.0 - 5e-3 * (e + 1) for e in range(SPST_ROUNDS)]
+    losses = [r["train"] for r in records]
+    res = {"argv": argv, "seconds": seconds, "launches": launches,
+           "launches_expected": spst_launches(SPST_ROUNDS),
+           "selected_at_paper_threshold": f"{len(sel)}/{len(ds.train_ind)}",
+           "selections": [ln.split("pseudo label selection: ")[1]
+                          for ln in log.splitlines()
+                          if "pseudo label selection: " in ln],
+           "lrs": lrs, "lrs_expected": want_lrs, "weights": weights,
+           "losses": losses, "files": files, "ssl_heads_unchanged": heads_same,
+           "epoch_seconds": [r["seconds"] for r in records],
+           "steps_per_epoch": SPST_STEPS,
+           "train_steps_per_s": [SPST_STEPS / r["seconds"]["train"]
+                                 for r in records],
+           "trgt_test_acc": [r["trgt_test"]["acc"] for r in records]}
+    emit("spst", **res)
+    check(all(np.isfinite(v) for m in losses for v in m.values()),
+          f"non-finite SPST losses: {losses}")
+    check(launches == res["launches_expected"],
+          f"spst did not launch every kernel as expected: {launches}")
+    check(res["selections"] == ["256/256"] * SPST_ROUNDS,
+          f"unexpected selections {res['selections']}")
+    check(lrs == want_lrs and lrs[2] > lrs[1],
+          f"the SPST learning rates {lrs} are not {want_lrs}")
+    check(all(abs(s - w) < 1e-9 and abs(c - w) < 1e-9
+              for (s, c), w in zip(weights, want_weights)),
+          f"the spl/cls weights {weights} are not {want_weights}")
+    check(all(files.values()) and heads_same
+          and all(heads_same.values()),
+          f"spst left {files}; SSL heads unchanged: {heads_same}")
+    return res
+
+
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
 # one B=32 serving forward, the train-only kernels over one B=32 train step.
 KERNELS = {
@@ -1586,12 +1889,14 @@ def run(device: torch.device, card: str) -> None:
     with tempfile.TemporaryDirectory() as bundle_dir:
         srv = serve(model, bundle_dir, device)
     tr = train(device)
+    br = branches(device, card)
     dt = data(device)
     seg = seg_kernels(device, g)
     seg_tr = seg_train(device)
     with tempfile.TemporaryDirectory() as tmp:
         trn = trainer(tmp)
         ei = eval_infer(tmp, trn["model_file"])
+        sp = spst(tmp, trn["model_file"], device)
         seg_trn = seg_trainer(tmp)
         seg_ei = seg_eval_infer(tmp, seg_trn["model_file"])
 
@@ -1602,11 +1907,14 @@ def run(device: torch.device, card: str) -> None:
         seg_kt = seg_kernel_times(device, card, seg, g)
         seg_st = seg_step_times(seg_tr, device, card)
         seg_trainer_times(seg_trn, seg_st["p50_ms"], device, card)
+        sg = scan_graph(device, card, g)
 
     errs = {
-        "knn": max(c["max_dist_gap"] for c in knn_checks + seg["knn"]),
+        "knn": max(c["max_dist_gap"]
+                   for c in knn_checks + seg["knn"] + sg["knn_checks"]),
         "edge_moments": max(c["max_abs_err"] for c in edge_checks),
-        "edge_moments_bwd": max(c["max_abs_err"] for c in bwd_checks),
+        "edge_moments_bwd": max(c["max_abs_err"]
+                                for c in bwd_checks + sg["bwd_checks"]),
         "knn_moments": max(moments_check["max_abs_err"],
                            seg["knn_moments"]["max_abs_err"]),
         "fps": float(max(c["unequal_indices"]
@@ -1642,10 +1950,12 @@ def run(device: torch.device, card: str) -> None:
                 if kname in ("knn", "edge_moments") else total(step_rows[kname]))
         by_path = {"serve": srv["launches"][kname],
                    "train": tr["launches"][kname],
+                   "branches": br["launches"][kname],
                    "data": dt["launches"][kname],
                    "trainer": trn["launches"][kname],
                    "eval": ei["eval_kernels"]["launches"][kname],
                    "infer": ei["infer_kernels"]["launches"][kname],
+                   "spst": sp["launches"][kname],
                    "seg_train": seg_tr["launches"][kname],
                    "seg_trainer": seg_trn["launches"][kname],
                    "seg_eval": seg_ei["seg_eval_kernels"]["launches"][kname],

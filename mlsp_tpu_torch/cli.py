@@ -3,6 +3,7 @@
     python -m mlsp_tpu_torch.cli trainer --paper_recipe True --synthetic True
     python -m mlsp_tpu_torch.cli eval --model_file experiments/MLSP/model.ckpt
     python -m mlsp_tpu_torch.cli infer --model_file experiments/MLSP/model.ckpt
+    python -m mlsp_tpu_torch.cli spst --model_file experiments/MLSP/model.ckpt
     python -m mlsp_tpu_torch.cli seg --config configs/pointsegda/adobe2faust.yaml
     python -m mlsp_tpu_torch.cli eval --task pointsegda --model_file \
         experiments/MLSP_adobe2faust_adobe_faust/model.ckpt
@@ -12,8 +13,8 @@ take true/false/1/0/yes/no like the reference's str2bool. `--config FILE`
 (YAML with `_base_` inheritance) composes with the flags: dataclass
 defaults < YAML < flags given on the command line. The entry points run
 on the CUDA card; `--device cpu` runs them on the CPU. Not registered yet
-(ROADMAP.md): `spst`, `export`, `aot`, `download`, `calibrate` and the
-mesh flags.
+(ROADMAP.md): `export`, `aot`, `download`, `calibrate` and the mesh
+flags.
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
         EvalConfig,
         PointDAConfig,
         PointSegDAConfig,
+        SPSTConfig,
     )
 
     parser = argparse.ArgumentParser(
@@ -86,6 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
     p_train.add_argument("--paper_recipe", type=_str2bool, default=False,
                          help="apply the train.sh headline flag set")
     _add_profile_arg(p_train)
+    p_spst = sub.add_parser(
+        "spst", help="self-paced self-training of a pretrained PointDA model "
+                     "on pseudo-labelled target clouds")
+    _add_config_args(p_spst, SPSTConfig)
+    _add_profile_arg(p_spst)
     p_seg = sub.add_parser("seg", help="PointSegDA segmentation DA")
     _add_config_args(p_seg, PointSegDAConfig)
     _add_profile_arg(p_seg)
@@ -104,12 +111,13 @@ def main(argv=None) -> int:
         EvalConfig,
         PointDAConfig,
         PointSegDAConfig,
+        SPSTConfig,
     )
     from mlsp_tpu_torch.utils.device import resolve_device
 
     args = build_parser().parse_args(argv)
-    cls = {"trainer": PointDAConfig, "seg": PointSegDAConfig}.get(
-        args.command, EvalConfig)
+    cls = {"trainer": PointDAConfig, "spst": SPSTConfig,
+           "seg": PointSegDAConfig}.get(args.command, EvalConfig)
     cfg = _to_config(cls, args)
     try:
         resolve_device(cfg.device or None)
@@ -129,6 +137,11 @@ def main(argv=None) -> int:
             cfg = cfg.paper_recipe
         with trace:
             train_pointda(cfg)
+    elif args.command == "spst":
+        from mlsp_tpu_torch.train.spst import train_spst
+
+        with trace:
+            train_spst(cfg)
     elif args.command == "seg":
         from mlsp_tpu_torch.train.pointsegda_trainer import train_pointsegda
 

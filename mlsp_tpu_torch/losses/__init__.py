@@ -9,8 +9,12 @@ from mlsp_tpu_torch.losses.losses import (
     mixup_cross_entropy,
     normal_loss,
     region_weights,
+    scan_rec_loss,
+    transported_density_loss,
+    transported_normal_loss,
 )
 
 __all__ = ["DEFREC_SCALER", "cross_entropy", "defrec_loss", "density_loss",
            "masked_normal_loss", "mixup_cross_entropy", "normal_loss",
-           "region_weights"]
+           "region_weights", "scan_rec_loss", "transported_density_loss",
+           "transported_normal_loss"]

@@ -1,8 +1,6 @@
 """MLSP loss functions (counterpart of `mlsp_tpu/losses/losses.py`;
 channels-last, masks [B, N]). Weights and normalisation follow the
 reference; `p_vec` density predictions are post-softmax probabilities.
-The Chamfer-transported losses come with the `Density_normal_viachamfer`
-branch (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +24,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def defrec_loss(pred, gold, mask, defrec_weight: float) -> torch.Tensor:
     """`mlsp.calc_loss` (mlsp.py:222-229)."""
     return defrec_weight * reconstruction_loss(pred, gold, mask) * DEFREC_SCALER
+
+
+def scan_rec_loss(pred, gold, mask, scan_rec_weight: float) -> torch.Tensor:
+    """`mlsp.calc_scan_loss` (mlsp.py:231-238)."""
+    return (scan_rec_weight * reconstruction_loss(pred, gold, mask)
+            * DEFREC_SCALER)
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -86,3 +90,52 @@ def mixup_cross_entropy(logits, y_a, y_b, lam,
     loss = (lam * cross_entropy(logits, y_a)
             + (1.0 - lam) * cross_entropy(logits, y_b))
     return loss * (1.0 - defrec_weight)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-cloud row gather: x [B, N, ...], idx [B, N] -> [B, N, ...]."""
+    if x.ndim == 2:
+        return torch.gather(x, 1, idx)
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def transported_normal_loss(normal_pred, normal_labels, weights, idx_pair,
+                            weight: float) -> torch.Tensor:
+    """`mlsp.calc_def_normal_loss` (mlsp.py:289-329): the labels carried
+    onto the predictions through the pred -> gold map and the predictions
+    onto the labels through the gold -> pred map (`nearest_index_pair`),
+    -|cos| weighted by `weights` [B, N] (see `region_weights`), normalised
+    per cloud, summed and divided by the batch, both directions."""
+    i1, i2 = idx_pair
+    B = normal_pred.shape[0]
+    np_, nl = _unit(normal_pred), _unit(normal_labels)
+    denom = weights.sum(1).clamp_min(1e-12)  # defpart masks can be empty
+    t = (np_ * _gather_rows(nl, i1)).sum(-1).abs()
+    loss = -((t * weights).sum(1) / denom).sum() / B
+    t2 = (_gather_rows(np_, i2) * nl).sum(-1).abs()
+    loss = loss - ((t2 * weights).sum(1) / denom).sum() / B
+    return weight * loss
+
+
+def transported_density_loss(p_vec, p_val, target_vec, target_val, weights,
+                             idx_pair, density_weight: float
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`mlsp.deform_densityloss` (mlsp.py:370-427) on batched p_vec [B, N,
+    C], p_val [B, N], target_vec [B, N, C], target_val [B, N] and weights
+    [B, N]. Direction 1 scores the predictions against the labels carried
+    through the pred -> gold map; direction 2, as in the reference, swaps
+    the roles: the carried predictions become the "target" of the labels'
+    log-probabilities. Returns (kl, mae), each the sum of both
+    directions."""
+    i1, i2 = idx_pair
+    C = p_vec.shape[-1]
+    w = weights.reshape(-1)
+    kl, mae = density_loss(
+        p_vec.reshape(-1, C), p_val.reshape(-1),
+        _gather_rows(target_vec, i1).reshape(-1, C),
+        _gather_rows(target_val, i1).reshape(-1), density_weight, mask=w)
+    kl1, mae1 = density_loss(
+        target_vec.reshape(-1, C), target_val.reshape(-1),
+        _gather_rows(p_vec, i2).reshape(-1, C),
+        _gather_rows(p_val, i2).reshape(-1), density_weight, mask=w)
+    return kl + kl1, mae + mae1

@@ -1,4 +1,5 @@
-"""Masked Chamfer distance (counterpart of `mlsp_tpu/ops/chamfer.py`).
+"""Masked Chamfer distance and nearest-index transport (counterpart of
+`mlsp_tpu/ops/chamfer.py`, the reference's `MLSP/mlsp.py:115-238`).
 
 The reference's mask trick: points outside the deformed region get +100
 added to their column, so the row minimum never picks them, and the row
@@ -15,6 +16,13 @@ from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
 _BIG = 100.0
 
 
+def _masked_sqdist(p1: torch.Tensor, p2: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """||p1_i - p2_j||² [B, N, M], the columns outside the mask pushed away
+    by +100."""
+    return pairwise_sqdist(p1, p2) + (1.0 - mask)[:, None, :] * _BIG
+
+
 def masked_chamfer(p1: torch.Tensor, p2: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """One-directional masked Chamfer term: the batch sum of each cloud's
@@ -23,8 +31,7 @@ def masked_chamfer(p1: torch.Tensor, p2: torch.Tensor,
     `amin` shares the gradient among tied minima, as `jnp.min` does
     (`min(dim)` would send it all to one).
     """
-    d = pairwise_sqdist(p1, p2) + (1.0 - mask)[:, None, :] * _BIG
-    mind = d.amin(-1)
+    mind = _masked_sqdist(p1, p2, mask).amin(-1)
     # A cloud with an empty mask would divide 0/0 in the reference; it
     # contributes 0 here, as in the JAX package.
     denom = torch.clamp_min(mask.sum(-1), 1.0)
@@ -36,3 +43,18 @@ def reconstruction_loss(pred: torch.Tensor, gold: torch.Tensor,
     """Symmetric masked Chamfer, averaged over the batch."""
     return (masked_chamfer(gold, pred, mask)
             + masked_chamfer(pred, gold, mask)) / pred.shape[0]
+
+
+def nearest_index_pair(pred: torch.Tensor, gold: torch.Tensor,
+                       mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The masked nearest-neighbour index maps in both directions
+    (`findindexs`, `mlsp.py:184-220`), which carry per-point normal and
+    density labels between the DefRec prediction and the original cloud.
+    Ties go to the lowest index, as `jnp.argmin` takes them.
+
+    Returns (pred -> gold [B, N], gold -> pred [B, N]), int64, no
+    gradient."""
+    with torch.no_grad():
+        pred, gold = pred.detach(), gold.detach()
+        return (_masked_sqdist(pred, gold, mask).argmin(-1),
+                _masked_sqdist(gold, pred, mask).argmin(-1))

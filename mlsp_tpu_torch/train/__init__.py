@@ -1,6 +1,7 @@
-"""The PointDA and PointSegDA train steps and their optimizer
+"""The PointDA and PointSegDA train steps and their optimizers
 (counterpart of `mlsp_tpu.train`); the trainers are
-`train.pointda_trainer` and `train.pointsegda_trainer`."""
+`train.pointda_trainer`, `train.pointsegda_trainer` and `train.spst`
+(self-training)."""
 
 from mlsp_tpu_torch.train.state import cosine_per_epoch, make_optimizer
 from mlsp_tpu_torch.train.seg_steps import (

@@ -154,10 +154,6 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
     all_heads = validate_heads(cfg)
     trained = trained_heads(cfg)
     check_recipe(cfg)
-    if cfg.optimizer.upper() != "ADAM":
-        raise NotImplementedError(
-            f"optimizer={cfg.optimizer!r}: only ADAM is ported (see "
-            "ROADMAP.md)")
     io = io or IOStream(cfg.out_path, cfg.exp_name)
     io.cprint(str(cfg))
 
@@ -181,11 +177,12 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
                        density_num_cls=cfg.density_num_class,
                        pergroup=cfg.pergroup, knn_backend=cfg.knn_backend,
                        head_dtype=cfg.head_dtype)
-    # Heads no loss reads keep grad None, so Adam leaves them as they are.
+    # Heads no loss reads keep grad None, so the optimizer leaves them as
+    # they are.
     io.cprint(f"heads trained: {', '.join(trained)}; frozen: "
               f"{', '.join(h for h in all_heads if h not in trained)}")
     opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
-                                steps_per_epoch)
+                                steps_per_epoch, cfg.optimizer, cfg.momentum)
 
     # A copy, not the live state_dict: its tensors would go on training.
     best = {"src_val_acc": 0.0, "epoch": -1,

@@ -103,10 +103,6 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
     all_heads = validate_seg_heads(cfg)
     trained = trained_seg_heads(cfg)
     check_seg_recipe(cfg)
-    if cfg.optimizer.upper() != "ADAM":
-        raise NotImplementedError(
-            f"optimizer={cfg.optimizer!r}: only ADAM is ported (see "
-            "ROADMAP.md)")
     io = io or IOStream(cfg.out_path, f"{cfg.exp_name}_{cfg.src_dataset}_"
                                       f"{cfg.trgt_dataset}")
     io.cprint(str(cfg))
@@ -135,12 +131,13 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
                        dropout=cfg.dropout,
                        density_num_cls=cfg.density_num_class,
                        pergroup=cfg.pergroup, knn_backend=cfg.knn_backend)
-    # Heads no loss reads keep grad None, so Adam leaves them as they are.
+    # Heads no loss reads keep grad None, so the optimizer leaves them as
+    # they are.
     io.cprint(f"heads trained: {', '.join(trained)}; frozen: "
               f"{', '.join(h for h in all_heads if h not in trained)}")
     io.cprint("\n" + model_summary(model))
     opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
-                                steps_per_epoch)
+                                steps_per_epoch, cfg.optimizer, cfg.momentum)
 
     # A copy, not the live state_dict: its tensors would go on training.
     best = {"src_val_loss": MAX_LOSS, "epoch": -1,

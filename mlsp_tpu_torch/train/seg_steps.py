@@ -4,7 +4,7 @@
 PCM-mixed clouds and labels with `apply_PCM`), and the target branches:
 DefRec, normals, density, and the combined DefRec + normal + density
 forward on the deformed cloud (`Density_normal_viainput`), then one
-backward and one Adam update.
+backward and one optimizer update.
 
 Against the PointDA step, per the reference: the CE is per point over 8
 part classes, the deformed points' weight is mask + 1 (not mask·26 + 1,
@@ -24,6 +24,7 @@ from mlsp_tpu_torch.ops.density import density_labels
 from mlsp_tpu_torch.ops.normals import estimate_normals
 from mlsp_tpu_torch.train.steps import (
     augment_batch,
+    check_generator,
     deform_dispatch,
     draw_augment,
     draw_deform_dispatch,
@@ -146,7 +147,7 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
 def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
                           generator: torch.Generator, cfg):
     """One PointSegDA train iteration: draw, transform, forward, one
-    backward, one Adam step and one scheduler step.
+    backward, one optimizer step and one scheduler step.
 
     Args:
       model: the port `DGCNNSeg`, on the data's device.
@@ -161,12 +162,7 @@ def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
       still on the device.
     """
     check_seg_recipe(cfg)
-    gdev = generator.device
-    if gdev.type == "cuda" and gdev.index is None:
-        gdev = torch.device("cuda", torch.cuda.current_device())
-    if gdev != src_x.device:
-        raise ValueError(f"the generator lives on {generator.device}, the "
-                         f"batch on {src_x.device}")
+    check_generator(generator, src_x)
     g = generator
     src = augment_batch(src_x, *draw_augment(g, src_x))
     trgt = augment_batch(trgt_x, *draw_augment(g, trgt_x))

@@ -1,0 +1,358 @@
+"""SPST: self-paced self-training on pseudo-labels (counterpart of
+`mlsp_tpu/train/spst.py`, the reference's `PointDA/train_spst.py`).
+
+Load a pretrained PointDA model (a checkpoint of this package), then for
+each round select the target clouds the model is confident about (the
+entropy of softmax(softmax(logits)) below `threshold`, the reference's
+double-softmax `select_target_by_conf_v2`, `:239-281`, or the max-prob
+above it, `:284-313`), and fine-tune on them with their predicted labels
+(weight `spl_weight`) beside the source classification (weight
+`cls_weight`, or PCM mixup), both weights falling by
+`weight_decay_per_epoch` every epoch (`:499-500`). The best model is kept
+by source validation accuracy; the best target test among those is
+checkpointed apart (`:524-539`).
+
+The learning rate is set once per epoch from torch's cosine in closed
+form at the global epoch `round * epochs + epoch`, unclamped, so round 2's
+LR rises again (`train.state.torch_cosine_lr`). The JAX package's
+`scan_steps` fuses steps into one XLA program; this port takes the same
+steps one by one, the same math.
+
+Randomness: one numpy generator from `seed` shuffles the target and then
+the source batches of every epoch (the JAX trainer's order); the step
+draws and dropout come from a `torch.Generator` per global epoch.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from mlsp_tpu_torch import losses as L
+from mlsp_tpu_torch.data.pipeline import batch_indices
+from mlsp_tpu_torch.data.pointda import load_pointda
+from mlsp_tpu_torch.models import make_model
+from mlsp_tpu_torch.train.guard import check_finite_losses
+from mlsp_tpu_torch.train.pointda_trainer import (
+    epoch_generator,
+    eval_batches,
+    eval_logits,
+    evaluate,
+    fetch_metrics,
+)
+from mlsp_tpu_torch.train.state import (
+    make_epoch_lr_optimizer,
+    set_learning_rate,
+    torch_cosine_lr,
+)
+from mlsp_tpu_torch.train.steps import (
+    augment_batch,
+    check_generator,
+    draw_augment,
+    draw_pcm,
+    pcm_mix,
+)
+from mlsp_tpu_torch.transforms import augment
+from mlsp_tpu_torch.utils import checkpoint, metrics
+from mlsp_tpu_torch.utils.average_meter import MeterDict
+from mlsp_tpu_torch.utils.config import SPSTConfig
+from mlsp_tpu_torch.utils.device import resolve_device
+from mlsp_tpu_torch.utils.logging import IOStream
+
+
+def check_spst(cfg: SPSTConfig) -> None:
+    """Raise NotImplementedError for what the port does not run yet."""
+    if cfg.model != "dgcnn":
+        raise NotImplementedError(
+            f"SPST with model={cfg.model!r}: not ported to PyTorch yet (see "
+            "ROADMAP.md)")
+    if cfg.from_torch:
+        raise NotImplementedError(
+            "from_torch: reading the reference's torch model.pt is not "
+            "ported yet (see ROADMAP.md)")
+
+
+def draw_spst(generator: torch.Generator, t_x: torch.Tensor,
+              s_x: torch.Tensor, s_y: torch.Tensor, cfg) -> dict:
+    """The step's random transforms, in the JAX step's order: the target's
+    rotation about z (no jitter: the pseudo-labelled loader's
+    `DataLoad.__getitem__`, `train_spst.py:333-338`), the source's loader
+    augmentation (rotation + jitter), then PCM on the source. Returns the
+    `draws` of `spst_losses`."""
+    g = generator
+    rot = augment.axis_rotation(augment.draw_rotation(g, t_x.shape[0]), "z")
+    draws = {"t_x": augment.rotate(t_x, rot),
+             "s_x": augment_batch(s_x, *draw_augment(g, s_x))}
+    if cfg.apply_PCM:
+        pcm = draw_pcm(g, s_x.shape[0], s_x.shape[1], cfg.mixup_params)
+        draws["mixed"], (draws["ya"], draws["yb"], draws["lam"]) = pcm_mix(
+            draws["s_x"], s_y, pcm, cfg.knn_backend)
+    return draws
+
+
+def spst_losses(model, cfg, draws: dict, t_y: torch.Tensor,
+                s_y: torch.Tensor, spl_weight: float, cls_weight: float,
+                generator: torch.Generator | None):
+    """Total loss and its terms for one SPST iteration
+    (`train_spst.py:472-498`), from given draws: the target CE weighted by
+    `spl_weight`, then the source term, PCM mixup (weighted by
+    1 - DefRec_weight and NOT by `cls_weight`, as the reference and the
+    JAX package have it) or `cls_weight` times the CE. Train-mode BN; the
+    running statistics carry from the target forward to the source one.
+    Only the classifier is read: the SSL heads keep grad None."""
+    model.train()
+    m = {}
+    logits = model(draws["t_x"], (), generator)["cls"]
+    m["trgt_cls"] = spl_weight * L.cross_entropy(logits, t_y)
+    if cfg.apply_PCM:
+        logits = model(draws["mixed"], (), generator)["cls"]
+        m["src_mixup"] = L.mixup_cross_entropy(
+            logits, draws["ya"], draws["yb"], draws["lam"], cfg.DefRec_weight)
+        src = m["src_mixup"]
+    else:
+        logits = model(draws["s_x"], (), generator)["cls"]
+        m["src_cls"] = cls_weight * L.cross_entropy(logits, s_y)
+        src = m["src_cls"]
+    m["total"] = m["trgt_cls"] + src
+    return m["total"], m
+
+
+def spst_train_step(model, opt, t_x, t_y, s_x, s_y, spl_weight: float,
+                    cls_weight: float, generator: torch.Generator,
+                    cfg) -> dict:
+    """One SPST iteration: draw, transform, forward, one backward and one
+    optimizer step (the LR is the epoch's, `set_learning_rate`).
+
+    Args:
+      model: the port `DGCNN`, on the data's device.
+      opt: from `train.state.make_epoch_lr_optimizer`.
+      t_x, s_x: [B, N, 3] float32 clouds (pseudo-labelled target, source);
+        t_y, s_y: [B] int64 labels.
+      spl_weight, cls_weight: the epoch's loss weights.
+      generator: a `torch.Generator` on the data's device.
+      cfg: `utils.config.SPSTConfig`.
+
+    Returns:
+      The loss terms (detached 0-d tensors, still on the device).
+    """
+    check_generator(generator, t_x)
+    draws = draw_spst(generator, t_x, s_x, s_y, cfg)
+    opt.zero_grad(set_to_none=True)
+    total, m = spst_losses(model, cfg, draws, t_y, s_y, spl_weight,
+                           cls_weight, generator)
+    total.backward()
+    opt.step()
+    return {name: t.detach() for name, t in m.items()}
+
+
+def select_pseudo_labels(model, data, label: np.ndarray,
+                         indices: np.ndarray, batch_size: int,
+                         threshold: float, use_entropy: bool, io: IOStream,
+                         epoch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Confidence-gated target selection (`train_spst.py:239-313`).
+
+    Eval-mode forwards of `data[indices]` at `batch_size`, the trailing
+    batch padded as `evaluate` pads it; kept where the entropy of
+    softmax(softmax(logits)) is below `threshold` (the reference's double
+    softmax, `:258`), or with `use_entropy=False` where the max-prob is
+    above it. The gate runs in numpy on the fetched logits, as the JAX
+    package's does.
+
+    Returns (the kept clouds as they are in `data`, unaugmented, on the
+    data's device [M, N, 3]; their predicted labels, int64 [M] on the same
+    device)."""
+    label = np.asarray(label)
+    data = torch.as_tensor(data, device=next(model.parameters()).device)
+    sels, counts = eval_batches(label.shape[0], batch_size, indices)
+    keep_idx, plabels, tlabels = [], [], []
+    if sels:
+        for logits, sel, n in zip(eval_logits(model, data, sels), sels,
+                                  counts):
+            conf = metrics.softmax_np(logits[:n])
+            pred = conf.argmax(-1)
+            if use_entropy:
+                ent = -(conf * metrics.log_softmax_np(conf)).sum(-1)
+                keep = ent < threshold
+            else:
+                keep = conf.max(-1) > threshold
+            keep_idx.append(sel[:n][keep])
+            plabels.append(pred[keep])
+            tlabels.append(label[sel[:n]][keep])
+    keep_idx = np.concatenate(keep_idx) if keep_idx else np.zeros(0, np.int64)
+    plabels = (np.concatenate(plabels) if plabels
+               else np.zeros(0, np.int64)).astype(np.int64)
+    if len(plabels):
+        io.print_progress("pseudo_label", "for_train", epoch, None,
+                          np.concatenate(tlabels), plabels)
+    io.cprint(f"pseudo label selection: {len(plabels)}/{len(indices)}")
+    sel = torch.from_numpy(keep_idx.astype(np.int64)).to(data.device)
+    return data[sel], torch.from_numpy(plabels).to(data.device)
+
+
+def epoch_pairs(n_selected: int, src, batch_size: int,
+                rng: np.random.Generator
+                ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The epoch's (selected target, source) batch indices: the selection
+    shuffled by `rng` first, then the source train split, full batches
+    only, zipped to the shorter (the JAX trainer's order)."""
+    return list(zip(
+        batch_indices(n_selected, batch_size, shuffle=True, drop_last=True,
+                      rng=rng),
+        batch_indices(len(src), batch_size, indices=src.train_ind,
+                      shuffle=True, drop_last=True, rng=rng)))
+
+
+def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
+    """SPST fine-tuning; returns (model with the best epoch's weights,
+    results dict with "initial", "final", "spl_weight", "cls_weight" and
+    "best")."""
+    check_spst(cfg)
+    device = resolve_device(cfg.device or None)
+    io = io or IOStream(cfg.out_path, cfg.exp_name)
+    io.cprint(str(cfg))
+    rng = np.random.default_rng(cfg.seed)
+
+    def load(name, partition):
+        return load_pointda(name, cfg.dataroot, partition, cfg.num_points,
+                            cfg.synthetic, cfg.seed, device=device)
+
+    src_train = load(cfg.src_dataset, "train")
+    trgt_train = load(cfg.trgt_dataset, "train")
+    trgt_test = load(cfg.trgt_dataset, "test")
+    src_x, trgt_x, test_x = (torch.from_numpy(d.data).to(device)
+                             for d in (src_train, trgt_train, trgt_test))
+    src_y = torch.from_numpy(src_train.label).to(device)
+
+    # Every head is built, for checkpoint compatibility with the pretrain
+    # stage; the SPST loss reads the classifier only, so the SSL heads keep
+    # grad None and the optimizer leaves them as loaded.
+    model = make_model(cfg.model, cfg.num_class, device=device,
+                       generator=torch.Generator().manual_seed(cfg.seed),
+                       dropout=cfg.dropout,
+                       density_num_cls=cfg.density_num_class,
+                       pergroup=cfg.pergroup, knn_backend=cfg.knn_backend,
+                       head_dtype=cfg.head_dtype)
+    if cfg.model_file:
+        # weights only: the pretrain stage's optimizer is not SPST's
+        checkpoint.load_model_weights(model, cfg.model_file)
+        io.cprint(f"loaded pretrained model from {cfg.model_file}")
+    opt = make_epoch_lr_optimizer(model, cfg.optimizer, cfg.lr, cfg.wd,
+                                  cfg.momentum)
+
+    initial = evaluate(model, test_x, trgt_test.label, cfg.test_batch_size,
+                       cfg.num_class)
+    io.cprint(f"initial target test accuracy: {initial['acc']:.4f}")
+
+    B = cfg.batch_size
+    spl_weight, cls_weight = cfg.spl_weight, cfg.cls_weight
+    # A copy, not the live state_dict: its tensors would go on training.
+    best = {"src_val_acc": 0.0, "trgt_test_acc": 0.0, "epoch": -1,
+            "weights": copy.deepcopy(model.state_dict())}
+    curves = {"src_val_acc": [], "src_val_loss": [],
+              "trgt_val_acc": [], "trgt_val_loss": []}
+
+    io.trim_metrics(0)  # a fresh run: empty a reused directory's records
+    for rnd in range(cfg.rounds):
+        pcs, plabels = select_pseudo_labels(
+            model, trgt_x, trgt_train.label, trgt_train.train_ind,
+            cfg.test_batch_size, cfg.threshold, cfg.use_entropy_selection,
+            io, rnd)
+        if len(pcs) < B:
+            # A degenerate round: fewer confident clouds than one batch.
+            # The reference would step its epoch loop with no batch and
+            # crash on the empty loss average (`train_spst.py:493-505`);
+            # the JAX package skips the round's epochs but still applies
+            # their weight decay. The LR needs nothing: it is indexed by
+            # the global epoch.
+            io.cprint(f"round {rnd}: only {len(pcs)} confident samples "
+                      f"(< batch_size {B}); skipping train steps, advancing "
+                      f"spl/cls weight decay")
+            spl_weight -= cfg.weight_decay_per_epoch * cfg.epochs
+            cls_weight -= cfg.weight_decay_per_epoch * cfg.epochs
+            continue
+        for epoch in range(cfg.epochs):
+            global_epoch = rnd * cfg.epochs + epoch
+            t0 = time.perf_counter()
+            lr = torch_cosine_lr(cfg.lr, cfg.epochs, global_epoch)
+            set_learning_rate(opt, lr)
+            io.cprint(f"spl_weight: {spl_weight:.4f}, cls_weight: "
+                      f"{cls_weight:.4f}, lr: {lr:.6f}")
+            with torch.profiler.record_function(f"mlsp/spst epoch "
+                                                f"{global_epoch}"):
+                pairs = epoch_pairs(len(pcs), src_train, B, rng)
+                gen = epoch_generator(cfg.seed, global_epoch, device)
+                steps = []
+                if pairs:
+                    sel = torch.from_numpy(np.asarray(pairs)).to(device)
+                    for t, s in sel:  # [S, 2, B]
+                        steps.append(spst_train_step(
+                            model, opt, pcs[t], plabels[t], src_x[s],
+                            src_y[s], spl_weight, cls_weight, gen, cfg))
+                meters = MeterDict()
+                for m in fetch_metrics(steps):
+                    meters.update(m, n=B)
+                t_train = time.perf_counter() - t0
+            spl_weight -= cfg.weight_decay_per_epoch
+            cls_weight -= cfg.weight_decay_per_epoch
+            io.print_progress("SPST", "Trn", global_epoch, meters.averages())
+            check_finite_losses(meters.averages(), model, opt, None,
+                                global_epoch, io)
+
+            src_val = evaluate(model, src_x, src_train.label,
+                               cfg.test_batch_size, cfg.num_class,
+                               src_train.val_ind)
+            trgt_val = evaluate(model, trgt_x, trgt_train.label,
+                                cfg.test_batch_size, cfg.num_class,
+                                trgt_train.val_ind)
+            trgt_tst = evaluate(model, test_x, trgt_test.label,
+                                cfg.test_batch_size, cfg.num_class)
+            for name, v in (("src_val_acc", src_val["acc"]),
+                            ("src_val_loss", src_val["loss"]),
+                            ("trgt_val_acc", trgt_val["acc"]),
+                            ("trgt_val_loss", trgt_val["loss"])):
+                curves[name].append(v)
+            if io.primary:
+                with open(os.path.join(io.path, "finetune_convergence.json"),
+                          "w") as f:
+                    json.dump(curves, f)
+            io.log_metrics({
+                "round": rnd, "epoch": global_epoch, "lr": lr,
+                "spl_weight": spl_weight, "cls_weight": cls_weight,
+                "seconds": {"train": t_train,
+                            "epoch": time.perf_counter() - t0},
+                "train": meters.averages(),
+                "src_val": {"acc": src_val["acc"], "loss": src_val["loss"]},
+                "trgt_val": {"acc": trgt_val["acc"],
+                             "loss": trgt_val["loss"]},
+                "trgt_test": {"acc": trgt_tst["acc"],
+                              "loss": trgt_tst["loss"]},
+            })
+
+            if src_val["acc"] > best["src_val_acc"]:
+                best.update(src_val_acc=src_val["acc"], epoch=global_epoch,
+                            weights=copy.deepcopy(model.state_dict()))
+                checkpoint.save_train_state(
+                    os.path.join(io.path, "model.ckpt"), model, opt, None,
+                    global_epoch, {"src_val_acc": src_val["acc"]})
+                io.cprint(
+                    f"== Best val model at epoch {global_epoch}: src val "
+                    f"{src_val['acc']:.4f}, trgt test {trgt_tst['acc']:.4f}")
+                if trgt_tst["acc"] > best["trgt_test_acc"]:
+                    best["trgt_test_acc"] = trgt_tst["acc"]
+                    checkpoint.save_train_state(
+                        os.path.join(io.path, "best_model.ckpt"), model, opt,
+                        None, global_epoch,
+                        {"trgt_test_acc": trgt_tst["acc"]})
+
+    model.load_state_dict(best.pop("weights"))
+    final = evaluate(model, test_x, trgt_test.label, cfg.test_batch_size,
+                     cfg.num_class)
+    io.cprint(f"target test accuracy: {final['acc']:.4f}")
+    return model, {"initial": initial, "final": final,
+                   "spl_weight": spl_weight, "cls_weight": cls_weight,
+                   "best": best}

@@ -10,7 +10,8 @@ model's device (the optimizer's too, but for Adam's step counts, which
 it keeps on the CPU as a fresh optimizer does). So a checkpoint written
 on the card loads on the CPU and the other way round. The JAX package's
 msgpack `.ckpt` files and reference torch `model.pt` files are not read
-yet (ROADMAP.md, Slice G).
+yet (ROADMAP.md, Slice G): a file that is no `torch.save` archive raises
+`ForeignCheckpoint`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ import torch
 from mlsp_tpu_torch.utils.device import process_index
 
 FORMAT = "mlsp_tpu_torch/train-state-v1"
+
+
+class ForeignCheckpoint(NotImplementedError, ValueError):
+    """A checkpoint in a format the port does not read yet (the JAX
+    package's msgpack `.ckpt`): not implemented, and a bad value for the
+    callers that ask for this package's format."""
 
 
 def _cpu(obj):
@@ -63,11 +70,13 @@ def _read(path: str) -> dict:
         raise FileNotFoundError(f"model checkpoint not found: {path!r}")
     # torch.save writes a zip archive; anything else (a JAX msgpack .ckpt)
     # is refused before the unpickler sees it
-    raw = (torch.load(path, map_location="cpu", weights_only=True)
-           if zipfile.is_zipfile(path) else None)
+    if not zipfile.is_zipfile(path):
+        raise ForeignCheckpoint(
+            f"checkpoint {path!r} is not a {FORMAT} file (the JAX package's "
+            ".ckpt files are not read yet, see ROADMAP.md)")
+    raw = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(raw, dict) or raw.get("format") != FORMAT:
-        raise ValueError(f"checkpoint {path!r} is not a {FORMAT} file (the "
-                         "JAX package's .ckpt files are not read yet)")
+        raise ValueError(f"checkpoint {path!r} is not a {FORMAT} file")
     return raw
 
 

@@ -1,13 +1,14 @@
-"""Experiment configuration: copies of `PointDAConfig`, `PointSegDAConfig`
-and `EvalConfig` from `mlsp_tpu/utils/config.py` (whose module the port
-may not import), the head tables and the YAML/CLI funnel.
+"""Experiment configuration: copies of `PointDAConfig`, `SPSTConfig`,
+`PointSegDAConfig` and `EvalConfig` from `mlsp_tpu/utils/config.py` (whose
+module the port may not import), the head tables and the YAML/CLI funnel.
 
 Field names and defaults mirror the reference's argparse surfaces
-(`PointDA/trainer.py:44-99`, `PointSegDA/trainer.py:93-135`) plus their
-per-target radius tables. Left out as having no meaning here:
-`edge_impl` (the port has one EdgeConv core), `compute_dtype`/
-`gather_dtype` (the port runs in float32 but for the PointDA heads),
-`scan_steps` (a TPU dispatch amortisation) and `debug_aux`
+(`PointDA/trainer.py:44-99`, `train_spst.py:56-100`,
+`PointSegDA/trainer.py:93-135`) plus their per-target radius tables. Left
+out as having no meaning here: `edge_impl` (the port has one EdgeConv
+core), `compute_dtype`/`gather_dtype` (the port runs in float32 but for
+the PointDA heads), `scan_steps` (a TPU dispatch amortisation: the port
+takes the same steps one by one, the same math) and `debug_aux`
 (`pointda_losses` and `pointsegda_losses` take the draws as inputs); a
 YAML or CLI naming one of them is refused as an unknown key. Added:
 `device`, where the entry points run ("" is the CUDA card, which they
@@ -109,6 +110,50 @@ class PointDAConfig:
             DefRec_weight=0.5,
             Density_weight=0.05,
         )
+
+
+@dataclass(frozen=True)
+class SPSTConfig:
+    """Self-paced self-training stage (`train_spst.py:56-100`): fine-tune a
+    pretrained PointDA model on confidently pseudo-labelled target clouds.
+
+    `model_file` is a checkpoint of the port (`utils.checkpoint`);
+    `from_torch` (a reference torch model.pt) is not read yet."""
+
+    exp_name: str = "SPST"
+    out_path: str = "./experiments"
+    dataroot: str = "./data"
+    src_dataset: str = "shapenet"
+    trgt_dataset: str = "scannet"
+    model: str = "dgcnn"
+    model_file: str = "./experiments/MLSP/model.ckpt"
+    from_torch: bool = False  # a reference torch model.pt (not ported yet)
+    seed: int = 1
+    num_class: int = 10
+    num_points: int = 1024
+    batch_size: int = 32
+    test_batch_size: int = 32
+    optimizer: str = "ADAM"
+    lr: float = 1e-4
+    momentum: float = 0.9
+    wd: float = 5e-5
+    dropout: float = 0.5
+    apply_PCM: bool = False  # reference train_spst.py:78 default
+    mixup_params: float = 1.0
+    DefRec_weight: float = 0.5
+    epochs: int = 10
+    rounds: int = 5
+    threshold: float = 1.5492  # entropy threshold (v2 selection)
+    use_entropy_selection: bool = True  # select_target_by_conf_v2
+    spl_weight: float = 1.0
+    cls_weight: float = 1.0
+    weight_decay_per_epoch: float = 5e-3  # train_spst.py:499-500
+    density_num_class: int = 16
+    pergroup: float = 2.0
+    knn_backend: str = "auto"
+    head_dtype: str = "bf16"  # see PointDAConfig
+    synthetic: bool = False
+    device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
 
 
 @dataclass(frozen=True)

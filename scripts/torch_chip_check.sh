@@ -1,6 +1,6 @@
 #!/bin/bash
 # Check the PyTorch/CUDA port (mlsp_tpu_torch) on one CUDA card, from the
-# root of a checkout. Five steps:
+# root of a checkout. Six steps:
 #   smoke       python3 chip_smoke.py: every kernel against its plain
 #               version, the serving, train step, data pipeline, trainer
 #               CLI and eval/infer paths, the times
@@ -9,6 +9,8 @@
 #   profile     scripts/torch_train_profile.py: where a PointDA train
 #               step's device time goes
 #   seg_profile the same for a PointSegDA train step (--seg)
+#   all_profile the same for a PointDA step with every recipe flag
+#               (--all_branches)
 #   alone       chip_smoke.py copied alone into an empty directory: it
 #               must exit non-zero, since it cannot run without the package
 #
@@ -16,8 +18,8 @@
 #
 # Each step's output goes to LOG_DIR/<step>.log; stdout gets one
 # "<step> rc=<exit code> seconds=<s>" line per step and the last lines of
-# the smoke and test logs. Exits 0 only when smoke, cuda_tests and both
-# profiles exit 0 and alone does not.
+# the smoke and test logs. Exits 0 only when smoke, cuda_tests and the
+# three profiles exit 0 and alone does not.
 set -u
 out=$(mkdir -p "${1:?usage: bash scripts/torch_chip_check.sh LOG_DIR}" \
       && cd "$1" && pwd) || exit 2
@@ -41,6 +43,8 @@ tail -n 1 "$out/cuda_tests.log"
 step profile env PYTHONPATH=. python3 scripts/torch_train_profile.py || status=1
 step seg_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py --seg \
   || status=1
+step all_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py \
+  --all_branches || status=1
 
 alone=$(mktemp -d)
 cp chip_smoke.py "$alone/"

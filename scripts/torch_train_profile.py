@@ -1,14 +1,16 @@
 """Where the port's train time goes: a torch.profiler trace of a train step
 (`mlsp_tpu_torch`) on one NVIDIA card.
 
-Usage: PYTHONPATH=. python scripts/torch_train_profile.py [--seg]
+Usage: PYTHONPATH=. python scripts/torch_train_profile.py [--seg | --all_branches]
 
 Builds the full-width model `chip_smoke.py` trains, with seeded random
 weights: without `--seg` the PointDA paper-recipe step (DGCNN k=20, N=1024,
 B=32, 10 classes, `PointDAConfig().paper_recipe`, `pointda_train_step`);
 with `--seg` the PointSegDA step (DGCNNSeg k=20, N=2048, B=16, 8 classes,
 the MLSP recipe of configs/pointsegda_mlsp.yaml plus PCM,
-`pointsegda_train_step`). Takes 3 warm-up steps, then 5 steps under the
+`pointsegda_train_step`); with `--all_branches` the PointDA step with every
+recipe flag on, as `chip_smoke.py`'s `branches` phase takes it (9 forwards,
+3 normal estimates, SPL_v2 keeping every cloud). Takes 3 warm-up steps, then 5 steps under the
 profiler, and prints one JSON line: wall time per step, the device's busy
 share of that window, device time per step grouped by kernel name (largest
 first), the hand-written kernels' share, and the card's name and power
@@ -47,6 +49,12 @@ WARMUP, ITERS = 3, 5
 # device kernels of csrc/*.cu, by the name the profiler reports
 PORT_KERNELS = ("knn_kernel", "edge_moments_kernel", "edge_moments_bwd_kernel",
                 "knn_moments_kernel", "fps_kernel")
+# chip_smoke.py's all-branch recipe (its gate above log 10 keeps every cloud)
+ALL_BRANCHES = dict(
+    DefRec_on_src=True, apply_PCM=True, Density_normal_viainput_onsrc=True,
+    DefRec_on_trgt=True, Norm_on_trgt=True, Scan_on_trgt=True,
+    Density_on_trgt=True, Density_normal_viainput=True, Normal_ondef=True,
+    Density_ondef=True, apply_SPL_v2=True, gamma_v2=2.31)
 
 
 def main() -> int:
@@ -72,6 +80,8 @@ def main() -> int:
               "pergroup": cfg.pergroup}
     else:
         cfg = PointDAConfig().paper_recipe
+        if "--all_branches" in sys.argv[1:]:
+            cfg = dataclasses.replace(cfg, **ALL_BRANCHES)
         name, make, step = "dgcnn", make_classification, pointda_train_step
         kw = {"head_dtype": cfg.head_dtype}
     model = make_model(name, cfg.num_class, device=device,
@@ -109,7 +119,8 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     print(json.dumps({
         "model": name, "batch": cfg.batch_size, "points": cfg.num_points,
-        "iters": ITERS,
+        "iters": ITERS, "all_branches": "--all_branches" in sys.argv[1:],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": card, "wall_ms_per_step": wall_ms / ITERS,
         "device_ms_per_step": busy_ms / ITERS,
         "device_busy_share": busy_ms / wall_ms,

@@ -6,6 +6,8 @@ Marked `cuda`: they skip without a card. This file imports neither JAX nor
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -29,12 +31,18 @@ from mlsp_tpu_torch.ops.kernels import (
     knn_moments_cuda,
 )
 from mlsp_tpu_torch.ops.knn import knn_gather, knn_indices_torch
-from mlsp_tpu_torch.testing import edge_grad_magnitude, knn_set_gap
+from mlsp_tpu_torch.testing import (
+    Tape,
+    edge_grad_magnitude,
+    grad_gaps,
+    knn_set_gap,
+)
 from mlsp_tpu_torch.train import (
     make_optimizer,
     pointda_train_step,
     pointsegda_train_step,
 )
+from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
 from mlsp_tpu_torch.utils.config import PointDAConfig, PointSegDAConfig
 
 pytestmark = pytest.mark.cuda
@@ -476,3 +484,79 @@ def test_seg_train_step_launches(card):
                                   "fps": 1}
     assert all(torch.isfinite(t) for t in m.values())
     assert preds.is_cuda and preds.shape == labels.shape == (4, 512)
+
+
+def test_kernels_on_a_scan_batch(card):
+    """K1 and K2-bwd on a simulated scan (`Scan_on_trgt`): about a quarter
+    of the points are exact zeros, so K1 breaks hundreds of exact ties to
+    the lowest index and the graph's in-degree runs to the hundreds, K2-bwd's
+    heaviest load. K1 by equal sorted distance sets, K2-bwd by du within
+    1e-5 of its terms' magnitudes."""
+    x = torch.from_numpy(make_classification(4, 1024, 10, seed=3)[0]).to(card)
+    g = torch.Generator(device=card).manual_seed(0)
+    sx, smask = scan_batch(x, *draw_scan(g, 4))
+    assert 0.1 < float((sx == 0).all(-1).float().mean()) < 0.5
+    idx = knn_cuda(sx, 20)
+    gap, tol = knn_set_gap(sx, idx, knn_indices_torch(sx, 20))
+    assert (gap <= tol).all()
+    indeg = torch.stack([torch.bincount(i.flatten(), minlength=1024)
+                         for i in idx])
+    assert int(indeg.max()) >= 100
+    u = _x(7, (4, 1024, 64), card)
+    cots = [_x(8 + i, (4, 1024, 64), card) for i in range(4)]
+
+    def grad(fn):
+        uu = u.clone().requires_grad_()
+        loss = sum((a * o).sum() for a, o in zip(cots, fn(uu)))
+        return torch.autograd.grad(loss, uu)[0]
+
+    got = grad(lambda uu: edge_moments(sx, uu, 20, True))
+    want = grad(lambda uu: edge_moments_torch(uu, idx, True))
+    tol = 1e-5 * edge_grad_magnitude(u, idx, cots)
+    assert ((got - want).abs() <= tol).all()
+
+
+ALL_BRANCHES = dict(
+    DefRec_on_src=True, apply_PCM=True, Density_normal_viainput_onsrc=True,
+    DefRec_on_trgt=True, Norm_on_trgt=True, Scan_on_trgt=True,
+    Density_on_trgt=True, Density_normal_viainput=True, Normal_ondef=True,
+    Density_ondef=True, apply_SPL_v2=True, gamma_v2=2.31)
+
+
+def test_all_branch_step_matches_the_plain_route(card):
+    """One step of every PointDA branch at B=4, N=512 with eval-mode BN: 9
+    forwards (K1 45, K2-fwd 36, K2-bwd 36), 3 normal estimates (K3) and one
+    PCM (K4); then the same step through the plain versions on the kernel
+    run's kNN graphs and FPS order: every loss term within 1e-4 relative,
+    every gradient within 1e-4 (`testing.grad_gaps`)."""
+    cfg = dataclasses.replace(PointDAConfig(batch_size=4, num_points=512),
+                              debug_bn_eval=True, **ALL_BRANCHES)
+    x, y = make_classification(8, 512, 10, seed=1)
+    x, y = torch.from_numpy(x).to(card), torch.from_numpy(y[:4]).to(card)
+
+    def step(backend):
+        model = make_model("dgcnn", 10, device=card, knn_backend=backend,
+                           generator=torch.Generator().manual_seed(0))
+        c = dataclasses.replace(cfg, knn_backend=backend)
+        opt, sched = make_optimizer(model, c.lr, c.wd, c.epochs, 10)
+        m = pointda_train_step(model, opt, sched, x[:4], y, x[4:],
+                               torch.Generator(device=card).manual_seed(0), c)
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None})
+
+    tape = Tape()
+    kernels.reset_launches()
+    with tape.record():
+        k_loss, k_grad = step("auto")
+    assert kernels.launches() == {"knn": 45, "edge_moments": 36,
+                                  "edge_moments_bwd": 36, "knn_moments": 3,
+                                  "fps": 1}
+    assert (len(tape.graphs), len(tape.orders)) == (48, 1)
+    with tape.replay():
+        p_loss, p_grad = step("torch")
+    assert k_loss["trgt_SPL_selected"] == 1.0
+    assert set(p_loss) == set(k_loss) and set(p_grad) == set(k_grad)
+    for n, v in k_loss.items():
+        assert p_loss[n] == pytest.approx(v, rel=1e-4, abs=1e-12), n
+    assert max(grad_gaps(p_grad, k_grad).values()) <= 1e-4

@@ -322,9 +322,15 @@ class TestSegTrainer:
         with pytest.raises(ValueError, match="head"):
             pointsegda_trainer.train_pointsegda(PointSegDAConfig(
                 model="hengshuang_seg", Norm_on_trgt=True, **base))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pointsegda_trainer.train_pointsegda(PointSegDAConfig(
-                optimizer="SGD", **base))
+        # SGD trains: the optimizer's refusal is gone
+        cfg = PointSegDAConfig(optimizer="SGD", epochs=1, num_points=32,
+                               exp_name="sgd", **base)
+        model, res = pointsegda_trainer.train_pointsegda(cfg)
+        init = make_model("dgcnn_seg", 8, device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+        assert not torch.equal(init.state_dict()["seg.conv1.weight"],
+                               model.state_dict()["seg.conv1.weight"])
+        assert np.isfinite(res["test"]["loss"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             evaluation.run_eval(EvalConfig(task="pointsegda", model="pointnet",
                                            **base))
