@@ -99,6 +99,33 @@ one JSON line each; any failure exits non-zero before the last line:
                torch`: per-point classes agree on >= 99% of points, max
                |dprob| <= 2e-2, eval's accuracy equals infer's, 1 forward
                each (K1 4)
+  families     PointNet, PointNet++, PointTransformer and the Hengshuang
+               classifier and segmenter at full width: K1 at every graph a
+               Hengshuang forward builds ([32, N, 3], N = 1024, 256, 64,
+               16, 4; seg [16, N, 3], N = 2048, 512, 128, 32, 8; k =
+               min(16, N)) by equal sorted distance sets and, on integer
+               coordinates, equal indices; K4 at every (B, N, npoint) the
+               families launch, index for index; 2 steps each through
+               `pointda_train_step` at B=32, N=1024 (PointNet: PCM + DefRec
+               on the target, K4 1 a step; PointNet++: PCM, K4 3;
+               PointTransformer and Hengshuang: their YAMLs, K4 3 and K1 15
+               + K4 9), p50 and peak memory, and the PointTransformer and
+               Hengshuang first steps against the plain route (eval-mode
+               BN); 2 Hengshuang seg steps at B=16, N=2048 (K1 20 + K4 8
+               a step), p50 and peak memory; a full-width PointTransformer
+               bundle answering 3
+               requests of 32 clouds (K4 3); the CLI in-process: `trainer
+               --config configs/pointda_pointtransformer.yaml` (2 epochs)
+               and `configs/pointda_hengshuang.yaml` (1 epoch), `eval` and
+               `infer --model ...` from each model.ckpt on both routes, and
+               `spst --model ...` (1 round of 1 epoch with PCM); `seg
+               --config configs/pointsegda_hengshuang.yaml` (1 epoch) and
+               `eval`/`infer --task pointsegda --model hengshuang_seg` on
+               both routes; exact launch counts on every path (a forward:
+               PointNet++ K4 2, PointTransformer K4 1, Hengshuang K1 5 and
+               K4 4, with its decoder K1 10 and K4 4); then K1 and K4 timed
+               per launch at these shapes, each path's epoch time and its
+               eval/infer clouds/s
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
                kernel's bound, K2-bwd on the repeated-point graph too, K4
@@ -122,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import os
 import statistics
@@ -129,14 +157,17 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mlsp_tpu_torch import ServingModel, cli, make_model, save_serving_bundle
+from mlsp_tpu_torch.models import model_kwargs
 from mlsp_tpu_torch.data.pipeline import standardize_clouds
 from mlsp_tpu_torch.data.pointda import load_pointda
+from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.data.synthetic import (
     make_classification,
     make_segmentation,
@@ -187,6 +218,8 @@ from mlsp_tpu_torch.utils.config import (
 )
 from mlsp_tpu_torch.utils.logging import IOStream
 
+_knn_mod = importlib.import_module("mlsp_tpu_torch.ops.knn")
+_fps_mod = importlib.import_module("mlsp_tpu_torch.ops.fps")
 SEED = 0
 B, N, K, NUM_CLASS = 32, 1024, 20, 10  # utils/config.py PointDAConfig
 REQUESTS = (32, 32, 32, 32, 7)
@@ -1810,6 +1843,580 @@ def spst(tmp: str, model_file: str, device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The `families` phase: PointNet, PointNet++, PointTransformer and the
+# Hengshuang classifier and segmenter at full width (B=32, N=1024; seg
+# B=16, N=2048). Launches, derived from the models: each forward of
+# PointNet++ K4 2 (its two set abstractions), PointTransformer K4 1 (its
+# group centers), Hengshuang K1 5 and K4 4 (a vector attention on the cloud
+# and after each of 4 transition downs to N/4, N/16, N/64, N/256), with its
+# DefRec or seg decoder K1 10 and K4 4 (5 more vector attentions; the
+# decoder samples nothing); PointNet none; PCM K4 1 a step. The cross-set
+# kNN of the groupings and the decoders' 3-NN interpolation are plain
+# PyTorch on both routes (the JAX package runs them on XLA).
+# ---------------------------------------------------------------------------
+
+FAM_CONFIGS = {"point_transformer": "configs/pointda_pointtransformer.yaml",
+               "hengshuang": "configs/pointda_hengshuang.yaml"}
+FAM_SEG_CONFIG = "configs/pointsegda_hengshuang.yaml"
+FAM_FORWARD = {"pointnet": {}, "pointnet2": {"fps": 2},
+               "point_transformer": {"fps": 1},
+               "hengshuang": {"knn": 5, "fps": 4},
+               "hengshuang_defrec": {"knn": 10, "fps": 4},
+               "hengshuang_seg": {"knn": 10, "fps": 4}}
+FAM_STEPS, FAM_TIMED = 2, 6
+FAM_TRAINER_EPOCHS = {"point_transformer": 2, "hengshuang": 1}
+FAM_SEG_EPOCHS = 1
+FAM_REQUESTS = (32, 32, 32)
+
+
+def launch_sum(*parts) -> dict:
+    """Sum of (count, per-launch-dict) pairs over every kernel name."""
+    return {k: sum(n * per.get(k, 0) for n, per in parts) for k in PER_STEP}
+
+
+def fam_step_launches(name: str) -> dict:
+    """One step of the family's recipe: the PCM forward, then (but for
+    PointNet++, which has no DefRec head) the DefRec forward."""
+    defrec = {"pointnet": FAM_FORWARD["pointnet"],
+              "pointnet2": None,
+              "point_transformer": FAM_FORWARD["point_transformer"],
+              "hengshuang": FAM_FORWARD["hengshuang_defrec"]}[name]
+    return launch_sum((1, {"fps": 1}), (1, FAM_FORWARD[name]),
+                      *([(1, defrec)] if defrec is not None else []))
+
+
+def fam_cfg(name: str) -> PointDAConfig:
+    """PointNet: PCM + DefRec_on_trgt; PointNet++: PCM; PointTransformer and
+    Hengshuang: their YAMLs (PCM + DefRec_on_trgt). B=32, N=1024."""
+    if name in FAM_CONFIGS:
+        return load_yaml(PointDAConfig, repo_file(FAM_CONFIGS[name]))
+    return PointDAConfig(model=name, DefRec_on_trgt=name == "pointnet")
+
+
+def fam_model(name: str, cfg, device, knn_backend: str = "auto",
+              classes: int = NUM_CLASS):
+    g = torch.Generator().manual_seed(SEED + 8)
+    kw = model_kwargs(dataclasses.replace(cfg, knn_backend=knn_backend),
+                      name)
+    model = make_model(name, classes, device=device, generator=g, **kw)
+    randomise_batch_norm(model, g)
+    return model.train()
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Records the inputs of every K1 and K4 launch made inside."""
+    calls = {"knn": [], "fps": []}
+
+    def keep(fn, into):
+        def wrapped(*args):
+            into.append(args)
+            return fn(*args)
+        return wrapped
+
+    with mock.patch.object(_knn_mod, "knn_cuda",
+                           keep(_knn_mod.knn_cuda, calls["knn"])), \
+            mock.patch.object(_fps_mod, "fps_cuda",
+                              keep(_fps_mod.fps_cuda, calls["fps"])):
+        yield calls
+
+
+def fam_kernel_checks(device, g: torch.Generator) -> dict:
+    """K1 and K4 at every shape the families give them, on the inputs of
+    full-width eval forwards (Hengshuang at [32, 1024, 3], its segmenter
+    at [16, 2048, 3], PointNet++ and PointTransformer at [32, 1024, 3]):
+    K1 by equal sorted distance sets and, on integer coordinates of the
+    same shape, equal indices; K4 index for index, on the recorded inputs
+    and on integer coordinates."""
+    clouds = {n: torch.from_numpy(make_classification(b, n, NUM_CLASS,
+                                                      seed=SEED + 9)[0]
+                                  ).to(device)
+              for b, n in ((B, N), (SEG_B, SEG_N))}
+    cfg = PointDAConfig()
+    with kernel_calls() as calls, torch.no_grad():
+        for name, x in (("pointnet2", clouds[N]),
+                        ("point_transformer", clouds[N]),
+                        ("hengshuang", clouds[N]),
+                        ("hengshuang_seg", clouds[SEG_N])):
+            fam_model(name, cfg, device,
+                      classes=SEG_NUM_CLASS if name == "hengshuang_seg"
+                      else NUM_CLASS).eval()(x)
+    knn_res, fps_res, seen = [], [], set()
+    for x, k in calls["knn"]:
+        key = ("knn", tuple(x.shape), k)
+        if key in seen:
+            continue
+        seen.add(key)
+        got, want = knn_cuda(x, k), knn_indices_torch(x, k)
+        xi = integer_cloud(g, x.shape, device)
+        exact = bool(torch.equal(knn_cuda(xi, k), knn_indices_torch(xi, k)))
+        torch.cuda.synchronize()
+        gap, tol = knn_set_gap(x, got, want)
+        r = {"shape": list(x.shape), "k": k,
+             "rows_same_indices": float((got == want).all(-1).float().mean()),
+             "max_dist_gap": float(gap.max()),
+             "max_gap_over_tol": float((gap / tol).max()),
+             "integer_indices_equal": exact}
+        emit("families", kernel="knn", **r)
+        check(bool((gap <= tol).all()) and exact,
+              f"K1 disagrees with its plain version at a family shape: {r}")
+        knn_res.append({**r, "x": x})
+    for xyz, npoint, start in calls["fps"]:
+        key = ("fps", tuple(xyz.shape), npoint)
+        if key in seen:
+            continue
+        seen.add(key)
+        xi = integer_cloud(g, xyz.shape, device)
+        r = {"shape": list(xyz.shape), "npoint": npoint,
+             "unequal_indices": int((fps_cuda(xyz, npoint, start)
+                                     != fps_torch(xyz, npoint, start)).sum()),
+             "integer_unequal_indices": int(
+                 (fps_cuda(xi, npoint, start)
+                  != fps_torch(xi, npoint, start)).sum())}
+        emit("families", kernel="fps", **r)
+        check(r["unequal_indices"] == 0 and r["integer_unequal_indices"] == 0,
+              f"K4 disagrees with the plain loop at a family shape: {r}")
+        fps_res.append({**r, "x": xyz, "start": start})
+    levels = {max(n // 4 ** i, 1) for n in (N, SEG_N) for i in range(5)}
+    check({(r["shape"][1], r["k"]) for r in knn_res}
+          == {(n, min(16, n)) for n in levels},
+          f"the Hengshuang forwards did not build kNN graphs at {levels}")
+    # PointNet++ 512 of N and 128 of 512, PointTransformer 64 of N,
+    # Hengshuang N/4 of N at each level (the seg model from SEG_N)
+    want_fps = {(N, 512), (512, 128), (N, 64)} | {
+        (max(n // 4 ** i, 1), max(n // 4 ** (i + 1), 1))
+        for n in (N, SEG_N) for i in range(4)}
+    check({(r["shape"][1], r["npoint"]) for r in fps_res} == want_fps,
+          f"the family forwards did not sample at {want_fps}")
+    return {"knn": knn_res, "fps": fps_res}
+
+
+def fam_first_step(name, cfg, batch, init, device) -> dict:
+    """The first step with eval-mode BN through the kernels, then through
+    the plain versions on the kernel run's kNN graphs and FPS orders."""
+    cfg = dataclasses.replace(cfg, debug_bn_eval=True)
+
+    def rerun(backend, delta=0.0):
+        m = fam_model(name, cfg, device, backend)
+        m.load_state_dict(init)
+        return first_step(m, dataclasses.replace(cfg, knn_backend=backend),
+                          batch, device, delta)
+
+    return compare_routes(rerun, False)
+
+
+def fam_train(device, card: str) -> dict:
+    """FAM_STEPS counted steps of each PointDA family at full width with
+    exact launch counts, finite losses, p50 and peak memory; for
+    PointTransformer and Hengshuang the first step again through the
+    plain route (eval-mode BN; losses within LOSS_RTOL, gradients within
+    GRAD_RTOL)."""
+    batches = train_batches(train_cfg(), device)
+    total = dict.fromkeys(PER_STEP, 0)
+    res = {}
+    for name in ("pointnet", "pointnet2", "point_transformer", "hengshuang"):
+        cfg = fam_cfg(name)
+        model = fam_model(name, cfg, device)
+        init = copy.deepcopy(model.state_dict())
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                    STEPS_PER_EPOCH)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        steps = [pointda_train_step(model, opt, sched,
+                                    *batches[i % len(batches)], gen, cfg)
+                 for i in range(FAM_STEPS)]
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [{k: float(v) for k, v in m.items()} for m in steps]
+        per_step = fam_step_launches(name)
+        r = {"model": name, "recipe": {"apply_PCM": cfg.apply_PCM,
+                                       "DefRec_on_trgt": cfg.DefRec_on_trgt},
+             "batch": cfg.batch_size, "points": cfg.num_points,
+             "steps": FAM_STEPS, "launches": launches,
+             "launches_expected": {k: FAM_STEPS * v
+                                   for k, v in per_step.items()},
+             "losses": losses,
+             "finite": all(np.isfinite(v) for m in losses
+                           for v in m.values()),
+             "p50_ms": branch_step_time(model, opt, sched, batches, gen, cfg,
+                                        FAM_TIMED),
+             "steps_timed": FAM_TIMED, "peak_memory_gb": peak_gb,
+             "card": card}
+        if name in FAM_CONFIGS:
+            c = fam_first_step(name, cfg, batches[0], init, device)
+            r["first_step_plain_vs_kernel_eval_bn"] = c
+        emit("families", what="train", **r)
+        check(r["finite"], f"non-finite {name} losses: {losses}")
+        check(launches == r["launches_expected"],
+              f"the {name} steps did not launch K1/K4 as derived: {launches}")
+        if name in FAM_CONFIGS:
+            rep = c["replayed"]
+            check(not any(c["plain_route_launches"].values()),
+                  f"the plain route launched kernels: "
+                  f"{c['plain_route_launches']}")
+            check((rep["graphs"], rep["fps_orders"])
+                  == (per_step["knn"], per_step["fps"])
+                  and rep["plain_own_fps_entries_differ"] == 0,
+                  f"{name} first step: unexpected kNN graphs or FPS orders "
+                  f"{rep}")
+            check(c["same_grad_set"] and not c["outside"],
+                  f"{name} first step: the plain route or a kernel rerun "
+                  f"disagrees with the kernel route on {c['outside']}")
+        for k, v in launches.items():
+            total[k] += v
+        res[name] = r
+    return {"families": res, "launches": total}
+
+
+def fam_seg_train(device, card: str) -> dict:
+    """FAM_STEPS seg steps of the Hengshuang segmenter, configs/
+    pointsegda_hengshuang.yaml at B=16, N=2048 (the source seg forward and
+    the DefRec forward, both decoding: K1 20, K4 8 a step), then p50 over
+    FAM_TIMED more and peak memory (its vector attentions hold
+    [16, 2048, 16, 128] tensors for the backward)."""
+    cfg = load_yaml(PointSegDAConfig, repo_file(FAM_SEG_CONFIG)).resolved()
+    batches = seg_batches(cfg, device)
+    model = fam_model("hengshuang_seg", cfg, device, classes=cfg.num_class)
+    opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                STEPS_PER_EPOCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    steps = [pointsegda_train_step(model, opt, sched,
+                                   *batches[i % len(batches)], gen, cfg)[0]
+             for i in range(FAM_STEPS)]
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = []
+    for i in range(FAM_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pointsegda_train_step(model, opt, sched, *batches[i % len(batches)],
+                              gen, cfg)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    losses = [{k: float(v) for k, v in m.items()} for m in steps]
+    r = {"model": "hengshuang_seg", "batch": cfg.batch_size,
+         "points": cfg.num_points, "steps": FAM_STEPS, "launches": launches,
+         "launches_expected": launch_sum(
+             (2 * FAM_STEPS, FAM_FORWARD["hengshuang_seg"])),
+         "losses": losses, "finite": all(np.isfinite(v) for m in losses
+                                         for v in m.values()),
+         "p50_ms": statistics.median(times), "steps_timed": FAM_TIMED,
+         "peak_memory_gb": peak_gb, "card": card}
+    emit("families", what="seg_train", **r)
+    check(r["finite"], f"non-finite hengshuang_seg losses: {losses}")
+    check(launches == r["launches_expected"],
+          f"the hengshuang_seg steps launched {launches}")
+    return r
+
+
+def fam_serve(bundle_dir: str, device) -> dict:
+    """A full-width PointTransformer bundle answers FAM_REQUESTS on the
+    card; launches counted over exactly those requests; answers held
+    against the plain path."""
+    cfg = fam_cfg("point_transformer")
+    model = fam_model("point_transformer", cfg, device).eval()
+    clouds, _ = make_classification(sum(FAM_REQUESTS), N, NUM_CLASS,
+                                    seed=SEED + 10)
+    requests = np.split(clouds, np.cumsum(FAM_REQUESTS)[:-1])
+    save_serving_bundle(model, bundle_dir, num_points=N, num_class=NUM_CLASS)
+    served = ServingModel(bundle_dir, device=device)
+    kernels.reset_launches()
+    answers = [served.predict(r) for r in requests]
+    launches = kernels.launches()
+    plain = fam_model("point_transformer", cfg, device, "torch").eval()
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = np.concatenate([
+            plain(torch.from_numpy(r).to(device))["cls"].cpu().numpy()
+            for r in requests])
+    got = np.concatenate(answers)
+    res = {"model": served.meta["model"], "requests": list(FAM_REQUESTS),
+           "launches": launches,
+           "launches_expected": launch_sum((len(requests),
+                                            FAM_FORWARD["point_transformer"])),
+           "finite": bool(np.isfinite(got).all()),
+           "class_agreement": float((got.argmax(-1) == want.argmax(-1)).mean()),
+           "max_logit_diff": float(np.abs(got - want).max())}
+    emit("families", what="serve", **res)
+    check(res["model"] == "point_transformer" and res["finite"]
+          and got.shape == (sum(FAM_REQUESTS), NUM_CLASS),
+          f"the PointTransformer bundle did not serve: {res}")
+    check(launches == res["launches_expected"],
+          f"the PointTransformer bundle launched {launches}")
+    check(res["class_agreement"] >= MIN_CLASS_AGREEMENT
+          and res["max_logit_diff"] <= MAX_LOGIT_DIFF,
+          f"the PointTransformer bundle disagrees with the plain path: {res}")
+    return res
+
+
+def fam_eval_infer(tmp: str, tag: str, model_file: str, model: str,
+                   forward: dict, seg: bool) -> dict:
+    """`eval` and `infer` (`--task pointsegda` with `seg`) from
+    `model_file`, through the kernels and with `--knn_backend torch`:
+    classes (seg: per-point classes) agree on >= 99%, max |dprob| <= 2e-2,
+    eval's accuracy equals infer's; launches exactly `forward` per eval
+    forward (80 target test clouds at B=32: 3 forwards; seg: 16, 1)."""
+    out = os.path.join(tmp, "runs")
+    n_fwd = 1 if seg else EVAL_FORWARDS
+    task = ["--task", "pointsegda"] if seg else []
+    res, preds = {}, {}
+    for route in ("kernels", "plain"):
+        extra = [] if route == "kernels" else ["--knn_backend", "torch"]
+        for cmd in ("eval", "infer"):
+            exp = f"{tag}_{cmd}_{route}"
+            argv = [cmd, *task, "--model", model, "--model_file", model_file,
+                    "--synthetic", "True", "--out_path", out, "--exp_name",
+                    exp, *extra]
+            launches = run_cli(argv, os.path.join(tmp, f"{exp}.log"))
+            with open(os.path.join(out, exp, "run.log")) as f:
+                summary = json.loads(f.read().splitlines()[-1].split(": ",
+                                                                     1)[1])
+            res[f"{cmd}_{route}"] = {"launches": launches, **summary}
+            if cmd == "infer":
+                preds[route] = np.load(summary["output"])
+    k, p = preds["kernels"], preds["plain"]
+    expected = launch_sum((n_fwd, forward))
+    cmp = {"rows": int(k["pred"].shape[0]),
+           "class_agreement": float((k["pred"] == p["pred"]).mean()),
+           "max_prob_diff": float(np.abs(k["prob"] - p["prob"]).max()),
+           "finite": bool(np.isfinite(k["prob"]).all()),
+           "launches_expected": expected}
+    emit("families", what=f"{tag}_eval_infer", **res, compare=cmp)
+    for cmd in ("eval", "infer"):
+        check(res[f"{cmd}_kernels"]["launches"] == expected,
+              f"{tag} {cmd} launched {res[f'{cmd}_kernels']['launches']}, "
+              f"not {expected}")
+        check(not any(res[f"{cmd}_plain"]["launches"].values()),
+              f"plain {tag} {cmd} launched kernels")
+    shape = (16, SEG_N, SEG_NUM_CLASS) if seg else (80, NUM_CLASS)
+    check(cmp["finite"] and k["prob"].shape == shape
+          and np.array_equal(k["index"], p["index"]),
+          f"{tag} infer's output is not finite probabilities of {shape}")
+    check(cmp["class_agreement"] >= MIN_CLASS_AGREEMENT
+          and cmp["max_prob_diff"] <= MAX_LOGIT_DIFF,
+          f"{tag} infer through the kernels disagrees with the plain "
+          f"route: {cmp}")
+    for route in ("kernels", "plain"):
+        check(res[f"eval_{route}"]["acc"] == res[f"infer_{route}"]["acc"],
+              f"{tag} eval's accuracy differs from infer's ({route})")
+    return {**res, "compare": cmp}
+
+
+def fam_main_path(tmp: str, name: str) -> dict:
+    """The CLI in-process at full width: `trainer --config` the family's
+    YAML on the synthetic data for FAM_TRAINER_EPOCHS[name] epochs, `eval`
+    and `infer --model name` from its model.ckpt on both routes, then
+    `spst --model name` (1 round of 1 epoch with PCM at threshold 2.31,
+    which selects every target cloud); exact launch counts throughout."""
+    out = os.path.join(tmp, "runs")
+    epochs = FAM_TRAINER_EPOCHS[name]
+    tag = {"point_transformer": "pt", "hengshuang": "hs"}[name]
+    exp = f"{tag}_trainer"
+    argv = ["trainer", "--config", repo_file(FAM_CONFIGS[name]), "--synthetic",
+            "True", "--epochs", str(epochs), "--out_path", out, "--exp_name",
+            exp]
+    fwd = FAM_FORWARD[name]
+    want = launch_sum((8 * epochs, fam_step_launches(name)),
+                      (4 * epochs + EVAL_FORWARDS, fwd))
+    t0 = time.perf_counter()
+    launches = run_cli(argv, os.path.join(tmp, f"{exp}.log"))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out, exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train"] for r in records]
+    model_file = os.path.join(out, exp, "model.ckpt")
+    tr = {"argv": argv, "epochs": epochs, "seconds": seconds,
+          "launches": launches, "launches_expected": want, "losses": losses,
+          "finite": all(np.isfinite(v) for r in losses for v in r.values()),
+          "epoch_seconds": [r["seconds"] for r in records],
+          "val": [{k: r[k]["acc"] for k in ("src_val", "trgt_val")}
+                  for r in records]}
+    emit("families", what=f"{tag}_trainer", **tr)
+    check(tr["finite"] and len(records) == epochs
+          and os.path.exists(model_file),
+          f"the {name} trainer left {len(records)} records: {losses}")
+    check(launches == want,
+          f"the {name} trainer launched {launches}, not {want}")
+    ei = fam_eval_infer(tmp, tag, model_file, name, fwd, False)
+
+    sp_exp = f"{tag}_spst"
+    sp_argv = ["spst", "--model", name, "--synthetic", "True", "--model_file",
+               model_file, "--rounds", "1", "--epochs", "1", "--threshold",
+               str(SPST_THRESHOLD), "--apply_PCM", "True", "--out_path", out,
+               "--exp_name", sp_exp]
+    sp_want = launch_sum(
+        (2 * EVAL_FORWARDS + SELECT_FORWARDS + VAL_FORWARDS + EVAL_FORWARDS
+         + 2 * SPST_STEPS, fwd), (SPST_STEPS, {"fps": 1}))
+    sp_launches = run_cli(sp_argv, os.path.join(tmp, f"{sp_exp}.log"))
+    with open(os.path.join(out, sp_exp, "metrics.jsonl")) as f:
+        sp_records = [json.loads(line) for line in f]
+    with open(os.path.join(out, sp_exp, "run.log")) as f:
+        sels = [ln.split("pseudo label selection: ")[1]
+                for ln in f.read().splitlines()
+                if "pseudo label selection: " in ln]
+    sp = {"argv": sp_argv, "launches": sp_launches,
+          "launches_expected": sp_want, "selections": sels,
+          "losses": [r["train"] for r in sp_records],
+          "epoch_seconds": [r["seconds"] for r in sp_records]}
+    emit("families", what=f"{tag}_spst", **sp)
+    check(sp_launches == sp_want,
+          f"{name} spst launched {sp_launches}, not {sp_want}")
+    check(sels == ["256/256"] and all(
+        np.isfinite(v) for m in sp["losses"] for v in m.values())
+        and os.path.exists(os.path.join(out, sp_exp, "model.ckpt")),
+        f"{name} spst: selections {sels}, losses {sp['losses']}")
+    return {"trainer": tr, "eval_infer": ei, "spst": sp,
+            "model_file": model_file}
+
+
+def fam_seg_path(tmp: str) -> dict:
+    """`seg --config configs/pointsegda_hengshuang.yaml --synthetic True
+    --epochs 1` (B=16, N=2048, DefRec on the target: 3 steps of 2
+    decoding forwards, 2 validation forwards and 1 final-test forward),
+    then `eval` and `infer --task pointsegda --model hengshuang_seg` on
+    both routes."""
+    out = os.path.join(tmp, "runs")
+    argv = ["seg", "--config", repo_file(FAM_SEG_CONFIG), "--synthetic",
+            "True", "--epochs", str(FAM_SEG_EPOCHS), "--out_path", out,
+            "--exp_name", "hs_seg"]
+    fwd = FAM_FORWARD["hengshuang_seg"]
+    want = launch_sum((3 * FAM_SEG_EPOCHS * 2 + 2 * FAM_SEG_EPOCHS + 1, fwd))
+    t0 = time.perf_counter()
+    launches = run_cli(argv, os.path.join(tmp, "hs_seg_trainer.log"))
+    seconds = time.perf_counter() - t0
+    exp = os.path.join(out, "hs_seg_adobe_faust")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    model_file = os.path.join(exp, "model.ckpt")
+    tr = {"argv": argv, "seconds": seconds, "launches": launches,
+          "launches_expected": want,
+          "losses": [r["train"] for r in records],
+          "epoch_seconds": [r["seconds"] for r in records]}
+    emit("families", what="hs_seg_trainer", **tr)
+    check(launches == want,
+          f"the hengshuang_seg trainer launched {launches}, not {want}")
+    check(len(records) == FAM_SEG_EPOCHS and os.path.exists(model_file)
+          and all(np.isfinite(v) for r in tr["losses"]
+                  for v in r.values() if isinstance(v, float)),
+          f"the hengshuang_seg trainer left {records}")
+    ei = fam_eval_infer(tmp, "hs_seg", model_file, "hengshuang_seg", fwd,
+                        True)
+    return {"trainer": tr, "eval_infer": ei, "model_file": model_file}
+
+
+def fam_times(device, card: str, kc: dict, paths: dict) -> dict:
+    """K1 and K4 per launch at the families' shapes beside their bounds
+    (and K4's chain floor); each main path's epoch time and eval/infer
+    clouds/s at its test batch on the target train split."""
+    rows = {"knn": [], "fps": []}
+    for r in kc["knn"]:
+        x, k = r["x"], r["k"]
+        b_ms, b_by = bound(*knn_cost(x, k))
+        rows["knn"].append({"shape": r["shape"], "k": k,
+                            "ms": median_ms(lambda: knn_cuda(x, k)),
+                            "plain_ms": median_ms(
+                                lambda: knn_indices_torch(x, k)),
+                            "bound_ms": b_ms, "bound_by": b_by})
+    for r in kc["fps"]:
+        xf, npoint, start = r["x"], r["npoint"], r["start"]
+        b, n = xf.shape[:2]
+        b_ms, b_by = bound(*fps_cost(b, n, npoint))
+        one, s1 = xf[:1].contiguous(), start[:1].contiguous()
+        step = ((median_ms(lambda: fps_cuda(one, npoint, s1))
+                 - median_ms(lambda: fps_cuda(one, 2, s1))) / (npoint - 2)
+                if npoint > 2 else float("nan"))
+        rows["fps"].append({"shape": r["shape"], "npoint": npoint,
+                            "ms": median_ms(lambda: fps_cuda(xf, npoint,
+                                                             start)),
+                            "plain_ms": median_ms(
+                                lambda: fps_torch(xf, npoint, start),
+                                reps=3, warmup=1),
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "chain_floor_ms": step * npoint})
+    for kname, per in rows.items():
+        emit("times", what=f"families_{kname}", per_launch=per, card=card)
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()  # returns host numpy: the device has finished
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    paths_res = {}
+    for tag, (name, model_file, seg) in paths.items():
+        classes = SEG_NUM_CLASS if seg else NUM_CLASS
+        model = make_model(name, classes, device=device)
+        checkpoint.load_model_weights(model, model_file)
+        if seg:
+            ds = load_pointsegda("faust", ".", "train", True, SEG_N)
+            batch = SEG_TEST_B
+        else:
+            ds = load_pointda("scannet", ".", "train", N, True, 1,
+                              device=device)
+            batch = B
+        x = torch.from_numpy(ds.data).to(device)
+        sels, _ = eval_batches(len(ds.data), batch)
+        if seg:
+            t_eval = timed(lambda: evaluate_seg(model, x, ds.label, batch))
+            t_infer = timed(lambda: eval_logits(model, x, sels, "seg"))
+        else:
+            t_eval = timed(lambda: evaluate(model, x, ds.label, batch,
+                                            NUM_CLASS))
+            t_infer = timed(lambda: eval_logits(model, x, sels))
+        paths_res[tag] = {"model": name, "clouds": len(ds.data),
+                          "batch": batch,
+                          "eval_clouds_per_s": len(ds.data) / t_eval,
+                          "infer_clouds_per_s": len(ds.data) / t_infer}
+    emit("times", what="families_paths", paths=paths_res, card=card)
+    return {"rows": rows, "paths": paths_res}
+
+
+def families(device, card: str, g: torch.Generator, tmp: str) -> dict:
+    """The `families` phase (see FAM_FORWARD for the launch counts)."""
+    kc = fam_kernel_checks(device, g)
+    ft = fam_train(device, card)
+    fst = fam_seg_train(device, card)
+    with tempfile.TemporaryDirectory() as bundle_dir:
+        srv = fam_serve(bundle_dir, device)
+    pt = fam_main_path(tmp, "point_transformer")
+    hs = fam_main_path(tmp, "hengshuang")
+    seg = fam_seg_path(tmp)
+    epochs = {"pt": pt["trainer"]["epoch_seconds"],
+              "hs": hs["trainer"]["epoch_seconds"],
+              "hs_seg": seg["trainer"]["epoch_seconds"]}
+    emit("times", what="families_epochs", epoch_seconds=epochs, card=card)
+    times = fam_times(device, card, kc, {
+        "pt": ("point_transformer", pt["model_file"], False),
+        "hs": ("hengshuang", hs["model_file"], False),
+        "hs_seg": ("hengshuang_seg", seg["model_file"], True)})
+    by_path = {"families_train": ft["launches"],
+               "families_seg_train": fst["launches"],
+               "families_serve": srv["launches"]}
+    for tag, p in (("pt", pt), ("hs", hs)):
+        by_path[f"{tag}_trainer"] = p["trainer"]["launches"]
+        by_path[f"{tag}_eval"] = p["eval_infer"]["eval_kernels"]["launches"]
+        by_path[f"{tag}_infer"] = p["eval_infer"]["infer_kernels"]["launches"]
+        by_path[f"{tag}_spst"] = p["spst"]["launches"]
+    by_path["hs_seg_trainer"] = seg["trainer"]["launches"]
+    by_path["hs_seg_eval"] = seg["eval_infer"]["eval_kernels"]["launches"]
+    by_path["hs_seg_infer"] = seg["eval_infer"]["infer_kernels"]["launches"]
+    return {"kernel_checks": kc, "by_path": by_path, "times": times,
+            "train": ft}
+
+
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
 # one B=32 serving forward, the train-only kernels over one B=32 train step.
 KERNELS = {
@@ -1899,6 +2506,7 @@ def run(device: torch.device, card: str) -> None:
         sp = spst(tmp, trn["model_file"], device)
         seg_trn = seg_trainer(tmp)
         seg_ei = seg_eval_infer(tmp, seg_trn["model_file"])
+        fam = families(device, card, g, tmp)
 
         kt = kernel_times(device, card, knn_in, edge_in, g)
         serving_times(srv["served"], srv["plain"], device, card)
@@ -1918,8 +2526,11 @@ def run(device: torch.device, card: str) -> None:
         "knn_moments": max(moments_check["max_abs_err"],
                            seg["knn_moments"]["max_abs_err"]),
         "fps": float(max(c["unequal_indices"]
-                         for c in fps_checks + [seg["fps"]])),
+                         for c in fps_checks + [seg["fps"]]
+                         + fam["kernel_checks"]["fps"])),
     }
+    errs["knn"] = max(errs["knn"], max(
+        c["max_dist_gap"] for c in fam["kernel_checks"]["knn"]))
     rows = kt["rows"]
     # (launches, per-launch row) over one train step's shapes, by kernel
     step_rows = {"knn": [(2, r) for r in rows["knn"]],
@@ -1959,13 +2570,15 @@ def run(device: torch.device, card: str) -> None:
                    "seg_train": seg_tr["launches"][kname],
                    "seg_trainer": seg_trn["launches"][kname],
                    "seg_eval": seg_ei["seg_eval_kernels"]["launches"][kname],
-                   "seg_infer": seg_ei["seg_infer_kernels"]["launches"][kname]}
+                   "seg_infer": seg_ei["seg_infer_kernels"]["launches"][kname],
+                   **{path: n[kname] for path, n in fam["by_path"].items()}}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": errs[kname],
             **main, "library_ms": None, "ms_over": over,
             "per_train_step": total(step_rows[kname]),
+            "per_launch_at_family_shapes": fam["times"]["rows"].get(kname),
             "per_seg_train_step": (total(seg_step_rows[kname])
                                    if kname in seg_step_rows else None),
             "check": "passed",  # a failed check exits before this line

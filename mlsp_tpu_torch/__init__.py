@@ -8,10 +8,13 @@ plain PyTorch version beside it, used for CPU tensors and as the reference.
 
 Subpackages
 -----------
-ops         pairwise distances, the kNN graph, EdgeConv neighbourhood
-            statistics, FPS, normals, density labels, masked Chamfer;
+ops         pairwise distances, the kNN graph (self and cross-set), ball
+            query and grouping, EdgeConv neighbourhood statistics, FPS,
+            normals, density labels, masked Chamfer;
             `ops.kernels` wraps the CUDA kernels
-models      DGCNN with the MLSP heads (reference state_dict layout)
+models      DGCNN and DGCNNSeg with the MLSP heads, PointNet, PointNet++,
+            PointTransformer, the Hengshuang classifier and segmenter
+            (reference state_dict layouts where one exists)
 transforms  augmentation and DefRec deformation (draw, then apply)
 losses      the MLSP losses
 train       the PointDA paper-recipe train step, Adam + cosine schedule

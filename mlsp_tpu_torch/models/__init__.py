@@ -1,7 +1,8 @@
 """PyTorch models of the port (channels-last, reference state_dict layout).
 
-DGCNN (PointDA) and DGCNNSeg (PointSegDA) are ported; the other families
-of `mlsp_tpu.models` are queued in ROADMAP.md.
+Ported: DGCNN and DGCNNSeg, PointNet, PointNet++ (SSG), PointTransformer
+and the Hengshuang family (classifier and segmenter), under the names and
+aliases `mlsp_tpu.models.make_model` takes. `vit` is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -10,15 +11,56 @@ import torch
 
 from mlsp_tpu_torch.models.dgcnn import DGCNN
 from mlsp_tpu_torch.models.dgcnn_seg import DGCNNSeg
+from mlsp_tpu_torch.models.hengshuang import HengshuangSeg, HengshuangTransformer
 from mlsp_tpu_torch.models.layers import init_parameters
+from mlsp_tpu_torch.models.pointnet import PointNet
+from mlsp_tpu_torch.models.pointnet2 import PointNet2SSG
+from mlsp_tpu_torch.models.transformer import PointTransformer
 from mlsp_tpu_torch.utils.device import resolve_device
 
-__all__ = ["DGCNN", "DGCNNSeg", "make_model"]
+__all__ = ["DGCNN", "DGCNNSeg", "HengshuangSeg", "HengshuangTransformer",
+           "PointNet", "PointNet2SSG", "PointTransformer", "canonical_name",
+           "make_model", "model_kwargs"]
 
-_MODELS = {"dgcnn": DGCNN, "dgcnn_seg": DGCNNSeg}
-_NOT_PORTED = ("pointnet", "pointnet2", "pointnet2_ssg",
-               "point_transformer", "transformer", "hengshuang",
-               "hengshuang_transformer", "hengshuang_seg", "vit")
+_MODELS = {m.NAME: m for m in (DGCNN, DGCNNSeg, PointNet, PointNet2SSG,
+                               PointTransformer, HengshuangTransformer,
+                               HengshuangSeg)}
+_ALIASES = {"pointnet2_ssg": "pointnet2", "transformer": "point_transformer",
+            "hengshuang_transformer": "hengshuang"}
+_NOT_PORTED = ("vit",)
+POINTDA_MODELS = ("dgcnn", "pointnet", "pointnet2", "point_transformer",
+                  "hengshuang")
+SEG_MODELS = ("dgcnn_seg", "hengshuang_seg")
+
+
+def canonical_name(name: str) -> str:
+    """The model's own name for `name` or a JAX alias of it; raises
+    NotImplementedError for a family not ported yet, ValueError for an
+    unknown name."""
+    name = _ALIASES.get(name.lower(), name.lower())
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to PyTorch yet: see ROADMAP.md")
+    if name not in _MODELS:
+        raise ValueError(f"unknown model {name!r}")
+    return name
+
+
+def model_kwargs(cfg, name: str | None = None) -> dict:
+    """The constructor keywords a config gives model `name` (default
+    `cfg.model`), as the JAX trainers and `evaluation._build_model` build
+    it: `dropout` always, `knn_backend` for every family but PointNet
+    (which builds no graph), DGCNN's and DGCNNSeg's density head sizes, and
+    DGCNN's head dtype where the config has one."""
+    name = canonical_name(name or cfg.model)
+    kw = {"dropout": cfg.dropout}
+    if name != "pointnet":
+        kw["knn_backend"] = cfg.knn_backend
+    if name in ("dgcnn", "dgcnn_seg"):
+        kw.update(density_num_cls=cfg.density_num_class, pergroup=cfg.pergroup)
+    if name == "dgcnn" and getattr(cfg, "head_dtype", None) is not None:
+        kw["head_dtype"] = cfg.head_dtype or "f32"
+    return kw
 
 
 def make_model(name: str, num_classes: int, *,
@@ -26,14 +68,11 @@ def make_model(name: str, num_classes: int, *,
                generator: torch.Generator | None = None, **kw
                ) -> torch.nn.Module:
     """Build a model with weights drawn from `generator` (seed 0 if None),
-    on `device` (the CUDA card if None; raises without one), in eval mode."""
-    name = name.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet: see ROADMAP.md")
-    if name not in _MODELS:
-        raise ValueError(f"unknown model {name!r}")
+    on `device` (the CUDA card if None; raises without one), in eval mode.
+    `name` may be a JAX alias (`pointnet2_ssg`, `transformer`,
+    `hengshuang_transformer`)."""
+    cls = _MODELS[canonical_name(name)]
     device = resolve_device(device)
-    model = _MODELS[name](num_classes=num_classes, **kw)
+    model = cls(num_classes=num_classes, **kw)
     init_parameters(model, generator or torch.Generator().manual_seed(0))
     return model.to(device).eval()

@@ -19,6 +19,7 @@ from mlsp_tpu_torch.models.layers import (
     PointwiseConv,
     TransformNet,
     batch_norm,
+    check_heads,
 )
 from mlsp_tpu_torch.ops.edge import edge_moments
 from mlsp_tpu_torch.ops.knn import edge_features, knn_indices
@@ -97,6 +98,8 @@ class DGCNN(nn.Module):
     float32, as the JAX package's `head_dtype` does.
     """
 
+    NAME = "dgcnn"
+
     def __init__(self, num_classes: int = 10, k: int = 20,
                  dropout: float = 0.5, density_num_cls: int = 16,
                  pergroup: float = 2.0, knn_backend: str = "auto",
@@ -131,9 +134,7 @@ class DGCNN(nn.Module):
         """x [B, N, 3] -> dict with "cls" [B, num_classes], "feat"
         [B, 1024] and the per-point heads asked for. In train mode with
         dropout, the masks come from `generator` (on x's device)."""
-        unknown = set(heads) - set(HEADS)
-        if unknown:
-            raise ValueError(f"unknown heads {sorted(unknown)}; know {HEADS}")
+        check_heads(heads, HEADS, self.NAME)
         idx = knn_indices(x.detach(), self.k, backend=self.knn_backend)
         T = self.input_transform_net(edge_features(x, idx))
         # The reference applies T @ x_col; channels-last that is x_row @ T^T.

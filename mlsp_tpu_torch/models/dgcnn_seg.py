@@ -36,6 +36,7 @@ from mlsp_tpu_torch.models.layers import (
     DensityHead,
     PointMLPHead,
     PointwiseConv,
+    check_heads,
 )
 from mlsp_tpu_torch.ops import knn as knn_ops
 
@@ -128,6 +129,8 @@ class DGCNNSeg(nn.Module):
     anywhere).
     """
 
+    NAME = "dgcnn_seg"
+
     def __init__(self, num_classes: int = 8, k: int = 20,
                  dropout: float = 0.5, density_num_cls: int = 16,
                  pergroup: float = 5.0, knn_backend: str = "auto"):
@@ -157,10 +160,7 @@ class DGCNNSeg(nn.Module):
         for: "seg" [B, N, num_classes], "defrec" and "normal" [B, N, 3],
         "density" [B, N, num_cls] with "density_mse" [B, N]. In train mode
         with dropout, the masks come from `generator` (on x's device)."""
-        unknown = set(heads) - set(SEG_HEADS)
-        if unknown:
-            raise ValueError(f"unknown heads {sorted(unknown)}; know "
-                             f"{SEG_HEADS}")
+        check_heads(heads, SEG_HEADS, self.NAME)
         T = self.input_transform_net(
             knn_ops.edge_features(x, self._knn(x)))
         # The reference applies T @ x_col; channels-last that is x_row @ T^T.

@@ -33,6 +33,14 @@ def act_fn(name: str):
     raise ValueError(f"unknown activation {name!r}")
 
 
+def check_heads(heads, known: tuple[str, ...], model: str) -> None:
+    """Raise ValueError naming the heads `model` does not have."""
+    unknown = set(heads) - set(known)
+    if unknown:
+        raise ValueError(f"{model}: unknown heads {sorted(unknown)}; know "
+                         f"{known}")
+
+
 class PointwiseConv(nn.Module):
     """A 1x1 Conv1d (rank 1) or Conv2d (rank 2) of the reference, run
     channels-last as a matmul. The weight keeps the conv's shape,
@@ -111,21 +119,33 @@ class DenseBN(nn.Module):
 
 
 class TransformNet(nn.Module):
-    """DGCNN's 3x3 input transform (reference `transform_net`): edge
-    features [B, N, k, 6] -> [B, 3, 3], the identity plus a learned term."""
+    """Spatial/feature transform net (reference `transform_net`) ->
+    [B, out, out], the identity plus a learned term.
 
-    def __init__(self, out: int = 3):
+    `mode="dgcnn"` takes edge features [B, N, k, 2·out], max-reduces over
+    k after the second conv and uses LeakyReLU and bias-free convs;
+    `mode="pointnet"` takes per-point features [B, N, out] and uses ReLU
+    with biases (the JAX `TransformNet`'s two modes)."""
+
+    def __init__(self, out: int = 3, mode: str = "dgcnn"):
         super().__init__()
-        self.out = out
-        self.conv2d1 = DenseBN(2 * out, 64, "leakyrelu", False, conv=True)
-        self.conv2d2 = DenseBN(64, 128, "leakyrelu", False, conv=True)
-        self.conv2d3 = DenseBN(128, 1024, "leakyrelu", False, conv=True)
-        self.fc1 = DenseBN(1024, 512, "leakyrelu", False, conv=False)
-        self.fc2 = DenseBN(512, 256, "leakyrelu", True, conv=False)
+        if mode not in ("dgcnn", "pointnet"):
+            raise ValueError(f"unknown TransformNet mode {mode!r}")
+        self.out, self.mode = out, mode
+        leaky = mode == "dgcnn"
+        act, bias = ("leakyrelu", False) if leaky else ("relu", True)
+        cin = 2 * out if leaky else out
+        self.conv2d1 = DenseBN(cin, 64, act, bias, conv=True)
+        self.conv2d2 = DenseBN(64, 128, act, bias, conv=True)
+        self.conv2d3 = DenseBN(128, 1024, act, bias, conv=True)
+        self.fc1 = DenseBN(1024, 512, act, bias, conv=False)
+        self.fc2 = DenseBN(512, 256, act, True, conv=False)
         self.fc3 = nn.Linear(256, out * out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv2d2(self.conv2d1(x)).amax(-2)  # over k
+        x = self.conv2d2(self.conv2d1(x))
+        if self.mode == "dgcnn":
+            x = x.amax(-2)  # over k
         x = self.conv2d3(x).amax(-2)  # over N
         x = self.fc3(self.fc2(self.fc1(x)))
         eye = torch.eye(self.out, dtype=x.dtype, device=x.device).reshape(-1)
@@ -133,12 +153,17 @@ class TransformNet(nn.Module):
 
 
 class Classifier(nn.Module):
-    """Global-feature classifier head (reference `classifier`, DGCNN form)."""
+    """Global-feature classifier head (reference `classifier`): the DGCNN
+    form (LeakyReLU, biases) or, with `model="pointnet"`, PointNet's (ReLU,
+    the first layer bias-free)."""
 
-    def __init__(self, cin: int, num_classes: int, dropout: float = 0.5):
+    def __init__(self, cin: int, num_classes: int, dropout: float = 0.5,
+                 model: str = "dgcnn"):
         super().__init__()
-        self.mlp1 = DenseBN(cin, 512, "leakyrelu", True, conv=False)
-        self.mlp2 = DenseBN(512, 256, "leakyrelu", True, conv=False)
+        leaky = model == "dgcnn"
+        act = "leakyrelu" if leaky else "relu"
+        self.mlp1 = DenseBN(cin, 512, act, leaky, conv=False)
+        self.mlp2 = DenseBN(512, 256, act, True, conv=False)
         self.mlp3 = nn.Linear(256, num_classes)
         self.p = dropout
 
@@ -214,11 +239,27 @@ class DensityHead(nn.Module):
         return p_vec, (p_vec * self.fc2.weight[0]).sum(-1)
 
 
+class FlaxDenseBN(nn.Module):
+    """Dense -> BatchNorm -> ReLU under the JAX package's module names,
+    `Dense_0` (an nn.Linear) and `BatchNorm_0`: for models with no
+    reference state_dict (PointNet++)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(cin, cout)
+        self.BatchNorm_0 = nn.BatchNorm1d(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(batch_norm(self.BatchNorm_0, self.Dense_0(x)))
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise as the JAX package does: matmul weights from a normal of
     std 1/sqrt(fan_in) (flax's lecun_normal, untruncated), biases 0,
-    BatchNorm gamma 1, beta 0 and running stats (0, 1); density bins fixed.
+    BatchNorm and LayerNorm gamma 1, beta 0, running stats (0, 1); a
+    module's `init_tokens(generator)` for its learned tokens; density bins
+    fixed.
     Draws from `generator`, so a seed gives the same weights on any device
     (initialise on the CPU, then move)."""
     for m in model.modules():
@@ -227,9 +268,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm1d):
+        elif isinstance(m, (nn.BatchNorm1d, nn.LayerNorm)):
             m.reset_parameters()
     for m in model.modules():  # after the loop above, which drew fc2 too
+        if hasattr(m, "init_tokens"):  # learned tokens (PointTransformer)
+            m.init_tokens(generator)
         if isinstance(m, DensityHead):
             n = m.fc2.weight.shape[1]
             m.fc2.weight.copy_(m.pergroup * torch.arange(n)[None, :].float())

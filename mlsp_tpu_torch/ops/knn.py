@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from mlsp_tpu_torch.ops.kernels.knn import knn_cuda
-from mlsp_tpu_torch.ops.pairwise import self_sqdist
+from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -35,34 +35,51 @@ def use_kernel(t: torch.Tensor, backend: str) -> bool:
 
 
 def knn_indices_torch(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain version of the kNN kernel: int64 [B, N, k].
+    """Plain version of the kNN kernel: int64 [B, N, k]."""
+    return knn_indices_cross(x, x, k)
 
-    A stable sort keeps equal distances in index order, as `lax.top_k`
-    does (`torch.topk` leaves the order of ties unspecified).
+
+def knn_indices_cross(x: torch.Tensor, y: torch.Tensor, k: int) -> torch.Tensor:
+    """The k nearest points of `y` per point of `x`: int64 [B, N, k].
+
+    `pairwise_sqdist` (clamped at 0), then a stable sort, which keeps equal
+    distances in index order as `lax.top_k` does (`torch.topk` leaves the
+    order of ties unspecified). The JAX package runs the cross-set case on
+    XLA, never on its Pallas kernel, so this is its port.
     """
-    d = self_sqdist(x)
+    d = pairwise_sqdist(x, y)
     return torch.sort(d, dim=-1, stable=True).indices[..., :k].contiguous()
 
 
-def knn_indices(x: torch.Tensor, k: int, backend: str = "auto") -> torch.Tensor:
-    """Indices of the k nearest points of `x` per point of `x`.
+def knn_indices(x: torch.Tensor, k: int, y: torch.Tensor | None = None,
+                backend: str = "auto") -> torch.Tensor:
+    """Indices of the k nearest points of `y` (default: `x`) per point of `x`.
 
     Self-matches are included, distances are clamped at 0 and ties go to
-    the lower index, as in the JAX package's XLA path.
+    the lower index, as in the JAX package's XLA path. The self-kNN runs
+    the K1 kernel on a CUDA tensor; the cross-set kNN (`y` given) is plain
+    PyTorch on any device, as JAX runs it on XLA.
 
     Args:
-      x: [B, N, C] points or features.
+      x: [B, N, C] query points or features.
       k: number of neighbours.
+      y: optional [B, M, C] database points.
       backend: "auto" | "cuda" | "torch" (see `use_kernel`).
 
     Returns:
-      int64 [B, N, k] neighbour indices, ready for `knn_gather`.
+      int64 [B, N, k] indices into y (or x), ready for `knn_gather`.
     """
-    if x.ndim != 3:
-        raise ValueError(f"knn_indices: expected [B, N, C], got {tuple(x.shape)}")
-    if k > x.shape[1]:
-        raise ValueError(
-            f"knn_indices: k={k} exceeds the {x.shape[1]} database points")
+    if x.ndim != 3 or (y is not None and (y.ndim != 3
+                                          or y.shape[::2] != x.shape[::2])):
+        raise ValueError(f"knn_indices: expected [B, N, C] (and [B, M, C]), "
+                         f"got {tuple(x.shape)}"
+                         + ("" if y is None else f", {tuple(y.shape)}"))
+    m = (x if y is None else y).shape[1]
+    if k > m:
+        raise ValueError(f"knn_indices: k={k} exceeds the {m} database points")
+    if y is not None:
+        use_kernel(x, backend)  # validates the backend name and device
+        return knn_indices_cross(x, y, k)
     if use_kernel(x, backend):
         return knn_cuda(x, k)
     return knn_indices_torch(x, k)

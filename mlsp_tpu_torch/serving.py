@@ -1,8 +1,8 @@
 """Serving bundles (counterpart of `mlsp_tpu/serving.py`).
 
     bundle/
-      weights.pt   the model's state_dict (reference DGCNN layout)
-      meta.json    model, shape and format metadata
+      weights.pt   the model's state_dict (the port's layout)
+      meta.json    model name and config, shape and format metadata
 
 The JAX package freezes its eval program as StableHLO, which cannot be
 read without JAX. This bundle holds only weights: `ServingModel` rebuilds
@@ -18,7 +18,7 @@ import os
 import numpy as np
 import torch
 
-from mlsp_tpu_torch.models import make_model
+from mlsp_tpu_torch.models import SEG_MODELS, make_model
 
 FORMAT = "mlsp_tpu_torch/state_dict-v1"
 _WEIGHTS_FILE = "weights.pt"
@@ -27,12 +27,20 @@ _META_FILE = "meta.json"
 
 def save_serving_bundle(model, path: str, num_points: int = 1024,
                         num_class: int = 10) -> dict:
-    """Write `model` (a port DGCNN) as a serving bundle directory. The
-    bundle serves any batch size; the point count is fixed."""
+    """Write `model` (a port PointDA classifier of any family) as a
+    serving bundle directory: its weights, its name and its constructor
+    config, from which `ServingModel` rebuilds it. The bundle serves any
+    batch size; the point count is fixed. A segmenter raises
+    NotImplementedError (segmentation bundles: ROADMAP.md)."""
+    if model.NAME in SEG_MODELS:
+        raise NotImplementedError(
+            f"serving bundles for the segmenter {model.NAME!r} are not "
+            "ported yet (see ROADMAP.md)")
     os.makedirs(path, exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                os.path.join(path, _WEIGHTS_FILE))
-    meta = {"task": "pointda", "model": "dgcnn", "model_kwargs": model.config,
+    meta = {"task": "pointda", "model": model.NAME,
+            "model_kwargs": model.config,
             "batch_size": None, "num_points": num_points,
             "num_class": num_class, "format": FORMAT}
     with open(os.path.join(path, _META_FILE), "w") as f:

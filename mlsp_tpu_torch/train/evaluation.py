@@ -2,10 +2,13 @@
 `mlsp_tpu/train/evaluation.py`): `run_eval` reports a split's metrics,
 `run_infer` writes per-cloud (PointDA) or per-point (PointSegDA)
 predictions and class probabilities to an .npz. The port serves
-`task="pointda"` with `model="dgcnn"` and `task="pointsegda"` with
-`model="dgcnn_seg"` from its own checkpoints; the other models,
-`from_torch`, `export` and the AOT bundle raise NotImplementedError
-(ROADMAP.md).
+`task="pointda"` with every PointDA family (dgcnn, pointnet, pointnet2,
+point_transformer, hengshuang, and the JAX aliases) and
+`task="pointsegda"` with `dgcnn_seg` and `hengshuang_seg`, from its own
+checkpoints, building each model as `mlsp_tpu/train/evaluation.py::
+_build_model` does (`models.model_kwargs`: `--knn_backend` reaches every
+family that builds a graph or samples points). `vit`, `from_torch`,
+`export` and the AOT bundle raise NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,7 +20,12 @@ import numpy as np
 
 from mlsp_tpu_torch.data.pointda import idx_to_label, load_pointda
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
-from mlsp_tpu_torch.models import make_model
+from mlsp_tpu_torch.models import (
+    SEG_MODELS,
+    canonical_name,
+    make_model,
+    model_kwargs,
+)
 from mlsp_tpu_torch.train.pointda_trainer import (
     eval_batches,
     eval_logits,
@@ -44,13 +52,12 @@ def _setup(cfg: EvalConfig, io: IOStream):
     if cfg.task not in ("pointda", "pointsegda"):
         raise ValueError(f"unknown task {cfg.task!r}")
     seg = cfg.task == "pointsegda"
-    if cfg.model != ("dgcnn_seg" if seg else "dgcnn"):
-        raise _not_ported(f"model={cfg.model!r} for task={cfg.task!r}")
+    if (canonical_name(cfg.model) in SEG_MODELS) != seg:
+        raise ValueError(f"model={cfg.model!r} does not serve "
+                         f"task={cfg.task!r}")
     if cfg.from_torch:
         raise _not_ported("from_torch (reading a reference model.pt)")
     device = resolve_device(cfg.device or None)
-    kw = dict(dropout=cfg.dropout, density_num_cls=cfg.density_num_class,
-              pergroup=cfg.pergroup, knn_backend=cfg.knn_backend)
     if seg:
         ds = load_pointsegda(cfg.dataset, cfg.dataroot, cfg.split,
                              cfg.synthetic, cfg.num_points)
@@ -61,8 +68,8 @@ def _setup(cfg: EvalConfig, io: IOStream):
                           cfg.num_points, cfg.synthetic, cfg.seed,
                           device=device)
         indices = {"train": ds.train_ind, "val": ds.val_ind}.get(cfg.split)
-        kw["head_dtype"] = cfg.head_dtype or "f32"
-    model = make_model(cfg.model, cfg.num_class, device=device, **kw)
+    model = make_model(cfg.model, cfg.num_class, device=device,
+                       **model_kwargs(cfg))
     checkpoint.load_model_weights(model, cfg.model_file)
     io.cprint(f"loaded {cfg.model_file}")
     return model, ds.data, ds.label, indices

@@ -38,7 +38,7 @@ import torch
 
 from mlsp_tpu_torch.data.pipeline import batch_indices
 from mlsp_tpu_torch.data.pointda import idx_to_label, load_pointda
-from mlsp_tpu_torch.models import make_model
+from mlsp_tpu_torch.models import make_model, model_kwargs
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.state import make_optimizer
 from mlsp_tpu_torch.train.steps import check_recipe, pointda_train_step
@@ -173,10 +173,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
                           len(trgt_train.train_ind)) // B
     model = make_model(cfg.model, cfg.num_class, device=device,
                        generator=torch.Generator().manual_seed(cfg.seed),
-                       dropout=cfg.dropout,
-                       density_num_cls=cfg.density_num_class,
-                       pergroup=cfg.pergroup, knn_backend=cfg.knn_backend,
-                       head_dtype=cfg.head_dtype)
+                       **model_kwargs(cfg))
     # Heads no loss reads keep grad None, so the optimizer leaves them as
     # they are.
     io.cprint(f"heads trained: {', '.join(trained)}; frozen: "

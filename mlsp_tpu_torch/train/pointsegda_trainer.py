@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
-from mlsp_tpu_torch.models import make_model
+from mlsp_tpu_torch.models import make_model, model_kwargs
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.pointda_trainer import (
     epoch_generator,
@@ -128,9 +128,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
     steps_per_epoch = min(len(src_train), len(trgt_train)) // B
     model = make_model(cfg.model, cfg.num_class, device=device,
                        generator=torch.Generator().manual_seed(cfg.seed),
-                       dropout=cfg.dropout,
-                       density_num_cls=cfg.density_num_class,
-                       pergroup=cfg.pergroup, knn_backend=cfg.knn_backend)
+                       **model_kwargs(cfg))
     # Heads no loss reads keep grad None, so the optimizer leaves them as
     # they are.
     io.cprint(f"heads trained: {', '.join(trained)}; frozen: "

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from mlsp_tpu_torch import losses as L
+from mlsp_tpu_torch.models import SEG_MODELS, canonical_name
 from mlsp_tpu_torch.ops.density import density_labels
 from mlsp_tpu_torch.ops.normals import estimate_normals
 from mlsp_tpu_torch.train.steps import (
@@ -34,11 +35,11 @@ from mlsp_tpu_torch.train.steps import (
 
 
 def check_seg_recipe(cfg) -> None:
-    """Raise NotImplementedError for a model the port does not run yet."""
-    if cfg.model != "dgcnn_seg":
-        raise NotImplementedError(
-            f"model={cfg.model!r}: not ported to PyTorch yet (see "
-            "ROADMAP.md)")
+    """Raise NotImplementedError for a model the port does not run yet,
+    ValueError for one that is not a segmenter."""
+    if canonical_name(cfg.model) not in SEG_MODELS:
+        raise ValueError(f"model={cfg.model!r} is not a PointSegDA "
+                         f"segmenter (one of {SEG_MODELS})")
 
 
 def seg_cross_entropy(logits: torch.Tensor,
@@ -63,9 +64,9 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
     from given draws.
 
     Args:
-      model: the port `DGCNNSeg`, put in train mode here. Its forwards run
-        in the JAX step's order, so the BN running statistics carry from
-        one to the next.
+      model: a port segmenter (`check_seg_recipe`), put in train mode
+        here. Its forwards run in the JAX step's order, so the BN running
+        statistics carry from one to the next.
       cfg: `utils.config.PointSegDAConfig` (resolved).
       batch: "src_x" [B, N, 3], "src_y" [B, N] and "trgt_x" (the augmented
         clouds).
@@ -150,7 +151,7 @@ def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
     backward, one optimizer step and one scheduler step.
 
     Args:
-      model: the port `DGCNNSeg`, on the data's device.
+      model: a port segmenter, on the data's device.
       opt, sched: from `train.state.make_optimizer`.
       src_x, trgt_x: [B, N, 3] float32 clouds; src_y: [B, N] int64 labels.
       generator: a `torch.Generator` on the data's device.

@@ -36,7 +36,12 @@ import torch
 from mlsp_tpu_torch import losses as L
 from mlsp_tpu_torch.data.pipeline import batch_indices
 from mlsp_tpu_torch.data.pointda import load_pointda
-from mlsp_tpu_torch.models import make_model
+from mlsp_tpu_torch.models import (
+    POINTDA_MODELS,
+    canonical_name,
+    make_model,
+    model_kwargs,
+)
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.pointda_trainer import (
     epoch_generator,
@@ -66,11 +71,13 @@ from mlsp_tpu_torch.utils.logging import IOStream
 
 
 def check_spst(cfg: SPSTConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.model != "dgcnn":
-        raise NotImplementedError(
-            f"SPST with model={cfg.model!r}: not ported to PyTorch yet (see "
-            "ROADMAP.md)")
+    """Raise NotImplementedError for what the port does not run yet (a
+    model family not ported, `from_torch`), ValueError for a model that is
+    not a PointDA classifier. SPST trains the classifier alone, so every
+    PointDA family qualifies, PointNet++ too."""
+    if canonical_name(cfg.model) not in POINTDA_MODELS:
+        raise ValueError(f"SPST with model={cfg.model!r}: not a PointDA "
+                         f"classifier (one of {POINTDA_MODELS})")
     if cfg.from_torch:
         raise NotImplementedError(
             "from_torch: reading the reference's torch model.pt is not "
@@ -129,7 +136,7 @@ def spst_train_step(model, opt, t_x, t_y, s_x, s_y, spl_weight: float,
     optimizer step (the LR is the epoch's, `set_learning_rate`).
 
     Args:
-      model: the port `DGCNN`, on the data's device.
+      model: a port PointDA model, on the data's device.
       opt: from `train.state.make_epoch_lr_optimizer`.
       t_x, s_x: [B, N, 3] float32 clouds (pseudo-labelled target, source);
         t_y, s_y: [B] int64 labels.
@@ -233,10 +240,7 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
     # grad None and the optimizer leaves them as loaded.
     model = make_model(cfg.model, cfg.num_class, device=device,
                        generator=torch.Generator().manual_seed(cfg.seed),
-                       dropout=cfg.dropout,
-                       density_num_cls=cfg.density_num_class,
-                       pergroup=cfg.pergroup, knn_backend=cfg.knn_backend,
-                       head_dtype=cfg.head_dtype)
+                       **model_kwargs(cfg))
     if cfg.model_file:
         # weights only: the pretrain stage's optimizer is not SPST's
         checkpoint.load_model_weights(model, cfg.model_file)

@@ -15,8 +15,8 @@ Randomness comes from one explicit `torch.Generator` (on the data's
 device): the step draws every random number first (`draw_*`, each branch
 in the JAX step's order), and `pointda_losses` takes the transformed
 arrays as inputs, as the JAX step's `debug_aux` returns them, so a test
-can feed it the JAX step's own. Only `model="dgcnn"` runs; the other
-model families raise NotImplementedError (ROADMAP.md).
+can feed it the JAX step's own. Every PointDA family of the port runs
+(`check_recipe`); `vit` raises NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from mlsp_tpu_torch import losses as L
+from mlsp_tpu_torch.models import POINTDA_MODELS, canonical_name
 from mlsp_tpu_torch.ops.chamfer import nearest_index_pair
 from mlsp_tpu_torch.ops.density import density_labels
 from mlsp_tpu_torch.ops.fps import fps, fps_gather
@@ -36,11 +37,17 @@ SSL_HEADS = ("defrec", "normal", "density")
 
 
 def check_recipe(cfg) -> None:
-    """Raise NotImplementedError for a model the port does not run yet."""
-    if cfg.model != "dgcnn":
-        raise NotImplementedError(
-            f"model={cfg.model!r}: not ported to PyTorch yet (see "
-            "ROADMAP.md)")
+    """Raise NotImplementedError for a model the port does not run yet,
+    ValueError for one that is not a PointDA classifier, and ValueError
+    for PointNet++ under a DefRec branch: it has no DefRec head (the JAX
+    step fails mid-trace on the missing output; the port refuses first)."""
+    name = canonical_name(cfg.model)
+    if name not in POINTDA_MODELS:
+        raise ValueError(f"model={cfg.model!r} is not a PointDA classifier "
+                         f"(one of {POINTDA_MODELS})")
+    if name == "pointnet2" and (cfg.DefRec_on_src or cfg.DefRec_on_trgt):
+        raise ValueError("model='pointnet2' has no DefRec head: train it "
+                         "with PCM or the source classifier alone")
 
 
 def augment_batch(x: torch.Tensor, rotation: torch.Tensor,
@@ -227,7 +234,7 @@ def pointda_losses(model, cfg, batch: dict, draws: dict,
     """Total loss and its terms for one iteration, from given draws.
 
     Args:
-      model: the port `DGCNN`; put in train mode (eval-mode BN with
+      model: a port PointDA model (`check_recipe`); put in train mode (eval-mode BN with
         `cfg.debug_bn_eval`). Its forwards run in the JAX step's order, so
         the BN running statistics carry from one to the next.
       cfg: `utils.config.PointDAConfig`.
@@ -379,7 +386,7 @@ def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
     one optimizer step and one scheduler step.
 
     Args:
-      model: the port `DGCNN`, on the data's device.
+      model: a port PointDA model, on the data's device.
       opt, sched: from `train.state.make_optimizer`.
       src_x, trgt_x: [B, N, 3] float32 clouds; src_y: [B] int64 labels.
       generator: a `torch.Generator` on the data's device.

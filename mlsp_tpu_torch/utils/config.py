@@ -165,7 +165,7 @@ class PointSegDAConfig:
     dataroot: str = "./data/PointSegDAdataset"
     src_dataset: str = "adobe"
     trgt_dataset: str = "faust"
-    model: str = "dgcnn_seg"  # "dgcnn_seg" | "hengshuang_seg" (not ported)
+    model: str = "dgcnn_seg"  # "dgcnn_seg" | "hengshuang_seg"
     epochs: int = 200
     seed: int = 1
     num_class: int = 8
@@ -215,9 +215,9 @@ class PointSegDAConfig:
 @dataclass(frozen=True)
 class EvalConfig:
     """Standalone checkpoint evaluation and batch inference (`eval`,
-    `infer`). The port serves `task="pointda"` with `model="dgcnn"` and
-    `task="pointsegda"` with `model="dgcnn_seg"`; the other models and
-    `from_torch` raise NotImplementedError."""
+    `infer`). The port serves `task="pointda"` with every PointDA family
+    and `task="pointsegda"` with `dgcnn_seg` and `hengshuang_seg`; `vit`
+    and `from_torch` raise NotImplementedError."""
 
     exp_name: str = "EVAL"
     out_path: str = "./experiments"

@@ -560,3 +560,68 @@ def test_all_branch_step_matches_the_plain_route(card):
     for n, v in k_loss.items():
         assert p_loss[n] == pytest.approx(v, rel=1e-4, abs=1e-12), n
     assert max(grad_gaps(p_grad, k_grad).values()) <= 1e-4
+
+
+# The other model families. Hengshuang's vector attentions build self-kNN
+# graphs at N = 1024 / 4^i (seg: 2048 / 4^i) with k = min(16, N): below
+# one 32-query block at N <= 32, where k = N makes every point a neighbour.
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("C", [3, 64])
+def test_knn_kernel_below_one_block(card, N, C):
+    k = min(16, N)
+    x = _x(N + C, (32, N, C), card)
+    gap, tol = knn_set_gap(x, knn_cuda(x, k), knn_indices_torch(x, k))
+    assert (gap <= tol).all()
+    xi = _int_cloud(N + C, (32, N, C), card)
+    assert torch.equal(knn_cuda(xi, k), knn_indices_torch(xi, k))
+
+
+# (B, N, npoint) of the families' FPS launches: PointNet++ 512 of 1024 and
+# 128 of 512, PointTransformer 64 of 1024, Hengshuang N/4 per level (seg
+# from 2048), B=32 (seg 16)
+FAMILY_FPS = [(32, 1024, 512), (32, 512, 128), (32, 1024, 64),
+              (32, 1024, 256), (32, 256, 64), (32, 64, 16), (32, 16, 4),
+              (16, 2048, 512), (16, 512, 128), (16, 128, 32), (16, 32, 8)]
+
+
+@pytest.mark.parametrize("B,N,npoint", FAMILY_FPS)
+def test_fps_kernel_at_the_family_shapes(card, B, N, npoint):
+    x = _x(N + npoint, (B, N, 3), card)
+    zero = torch.zeros(B, dtype=torch.int64, device=card)
+    assert torch.equal(fps_cuda(x, npoint, zero), fps_torch(x, npoint, zero))
+    xi = _int_cloud(N, (B, N, 3), card)
+    assert torch.equal(fps_cuda(xi, npoint, zero), fps_torch(xi, npoint, zero))
+
+
+# launches per forward: (K1, K4), the seg and DefRec heads decoding
+FAMILY_FORWARD = {"pointnet": (1024, ("defrec",), 0, 0),
+                  "pointnet2": (1024, (), 0, 2),
+                  "point_transformer": (1024, ("defrec",), 0, 1),
+                  "hengshuang": (1024, (), 5, 4),
+                  "hengshuang_seg": (2048, ("seg",), 10, 4)}
+
+
+@pytest.mark.parametrize("name", list(FAMILY_FORWARD))
+def test_family_forward_matches_plain_and_counts(card, name):
+    """A full-width eval forward at B=8 through the kernels against the
+    same weights on the plain route: K1 and K4 launched as derived, logits
+    within 2e-2 (the serving allowance: a near tie may take another
+    neighbour)."""
+    n, heads, k1, k4 = FAMILY_FORWARD[name]
+    classes = 8 if name == "hengshuang_seg" else 10
+    g = torch.Generator().manual_seed(0)
+    model = make_model(name, classes, device=card, generator=g)
+    ref = make_model(name, classes, device=card,
+                     **({} if name == "pointnet" else {"knn_backend": "torch"}))
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(make_classification(8, n, 10, seed=3)[0]).to(card)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = model(x, heads)
+        launches = kernels.launches()
+        want = ref(x, heads)
+    assert (launches["knn"], launches["fps"]) == (k1, k4)
+    assert kernels.launches() == launches  # the plain route launched none
+    for key in want:
+        assert torch.isfinite(got[key]).all()
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=2e-2)

@@ -192,6 +192,6 @@ class TestPortSegStep:
         assert not torch.equal(labels, torch.from_numpy(y[:2]))
 
     def test_unported_model_raises(self):
-        cfg = PointSegDAConfig(model="hengshuang_seg")
+        cfg = PointSegDAConfig(model="vit")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             seg_steps.pointsegda_losses(None, cfg, {}, {}, None)

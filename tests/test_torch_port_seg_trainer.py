@@ -318,7 +318,7 @@ class TestSegTrainer:
         base = dict(synthetic=True, device="cpu", out_path=str(tmp_path))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pointsegda_trainer.train_pointsegda(PointSegDAConfig(
-                model="hengshuang_seg", **base))
+                model="vit", **base))
         with pytest.raises(ValueError, match="head"):
             pointsegda_trainer.train_pointsegda(PointSegDAConfig(
                 model="hengshuang_seg", Norm_on_trgt=True, **base))
@@ -332,7 +332,7 @@ class TestSegTrainer:
                                model.state_dict()["seg.conv1.weight"])
         assert np.isfinite(res["test"]["loss"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            evaluation.run_eval(EvalConfig(task="pointsegda", model="pointnet",
+            evaluation.run_eval(EvalConfig(task="pointsegda", model="vit",
                                            **base))
 
 

@@ -62,7 +62,7 @@ class TestServingBundle:
 
     def test_other_families_not_ported(self):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_model("pointnet", 10, device="cpu")
+            make_model("vit", 10, device="cpu")
         with pytest.raises(ValueError, match="unknown model"):
             make_model("resnet", 10, device="cpu")
 
@@ -93,7 +93,12 @@ class TestPackageBoundary:
                 "mlsp_tpu_torch.utils.logging",
                 "mlsp_tpu_torch.utils.metrics",
                 "mlsp_tpu_torch.utils.average_meter",
-                "mlsp_tpu_torch.utils.profiling"} <= set(names)
+                "mlsp_tpu_torch.utils.profiling",
+                "mlsp_tpu_torch.ops.grouping",
+                "mlsp_tpu_torch.models.pointnet",
+                "mlsp_tpu_torch.models.pointnet2",
+                "mlsp_tpu_torch.models.transformer",
+                "mlsp_tpu_torch.models.hengshuang"} <= set(names)
         # yaml and h5py load only inside their readers
         assert not {"yaml", "h5py"} & set(loaded)
         assert "mlsp_tpu_torch" in loaded

@@ -277,13 +277,14 @@ def test_degenerate_rounds_advance_weight_decay(tmp_path, small_data, kw):
 
 def test_refusals(tmp_path):
     """A missing file, a foreign (JAX msgpack) checkpoint, from_torch and a
-    model other than DGCNN raise; the last three name ROADMAP.md."""
+    model family not ported yet (vit) raise; the last three name
+    ROADMAP.md."""
     with pytest.raises(FileNotFoundError):
         spst.train_spst(_cfg(tmp_path, model_file=str(tmp_path / "no.ckpt")))
     foreign = tmp_path / "jax.ckpt"
     foreign.write_bytes(b"\x82\xa6params\x80")
     for kw in (dict(model_file=str(foreign)), dict(from_torch=True),
-               dict(model="pointnet")):
+               dict(model="vit")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             spst.train_spst(_cfg(tmp_path, **kw))
 

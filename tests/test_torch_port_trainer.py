@@ -320,10 +320,10 @@ class TestTrainer:
     def test_not_ported_raise(self, tmp_path):
         base = dict(synthetic=True, device="cpu", out_path=str(tmp_path))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pointda_trainer.train_pointda(PointDAConfig(model="pointnet",
+            pointda_trainer.train_pointda(PointDAConfig(model="vit",
                                                         **base))
-        for kw in ({"task": "pointsegda", "model": "hengshuang_seg"},
-                   {"from_torch": True}, {"model": "pointnet"}):
+        for kw in ({"task": "pointsegda", "model": "vit"},
+                   {"from_torch": True}, {"model": "vit"}):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 evaluation.run_eval(EvalConfig(**kw, **base))
         with pytest.raises(ValueError, match="head"):
