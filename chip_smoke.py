@@ -126,6 +126,29 @@ one JSON line each; any failure exits non-zero before the last line:
                K4 4, with its decoder K1 10 and K4 4); then K1 and K4 timed
                per launch at these shapes, each path's epoch time and its
                eval/infer clouds/s
+  vit_interop  Point-ViT and checkpoint interop: K1 on the inputs of a
+               full-width vit forward with the "dgcnn" group embedder
+               (the 64 groups of 32 points folded into the batch:
+               [2048, 32, C], C = 3, 3, 64, 64, 128, k = 20) by sorted
+               distance sets and, on integer coordinates, exact indices;
+               K4 at its [32, 1024] -> 64; K1 and K3 at 65,543 clouds of
+               32 points (above gridDim.y's 65535: one launch each, exact
+               indices); 2 steps of configs/pointda_vit.yaml (PCM, DefRec
+               on the target, B=32, N=1024) with the "relative" and the
+               "dgcnn" embedders (K4 3 and K1 10 + K4 3 a step), p50 and
+               peak memory, each first step against the plain route
+               (eval-mode BN); a full-width vit bundle answering 3
+               requests of 32 clouds (K4 3); the CLI in-process: `trainer
+               --config configs/pointda_vit.yaml` (2 epochs), `eval` and
+               `infer --model vit` on both routes, `spst --model vit` (1
+               round of 1 epoch with PCM); `export` of the `trainer`
+               phase's DGCNN model.ckpt and the `seg_trainer` phase's
+               DGCNNSeg one, and `eval`/`infer --from_torch True` of each
+               model.pt against the same of its .ckpt (DGCNN bit-equal,
+               DGCNNSeg within the seg bounds); exact launch counts on
+               every path; then K1 and K4 per launch at these shapes, the
+               vit epoch, eval/infer clouds/s, and the seconds of `export`
+               and of a `--from_torch` load
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
                kernel's bound, K2-bwd on the repeated-point graph too, K4
@@ -1857,15 +1880,19 @@ def spst(tmp: str, model_file: str, device) -> dict:
 # ---------------------------------------------------------------------------
 
 FAM_CONFIGS = {"point_transformer": "configs/pointda_pointtransformer.yaml",
-               "hengshuang": "configs/pointda_hengshuang.yaml"}
+               "hengshuang": "configs/pointda_hengshuang.yaml",
+               "vit": "configs/pointda_vit.yaml"}
 FAM_SEG_CONFIG = "configs/pointsegda_hengshuang.yaml"
 FAM_FORWARD = {"pointnet": {}, "pointnet2": {"fps": 2},
                "point_transformer": {"fps": 1},
                "hengshuang": {"knn": 5, "fps": 4},
                "hengshuang_defrec": {"knn": 10, "fps": 4},
-               "hengshuang_seg": {"knn": 10, "fps": 4}}
+               "hengshuang_seg": {"knn": 10, "fps": 4},
+               # vit with the "relative" embedder (the default) and the
+               # "dgcnn" one (a self-kNN of each of its 5 graphs)
+               "vit": {"fps": 1}, "vit_dgcnn": {"knn": 5, "fps": 1}}
 FAM_STEPS, FAM_TIMED = 2, 6
-FAM_TRAINER_EPOCHS = {"point_transformer": 2, "hengshuang": 1}
+FAM_TRAINER_EPOCHS = {"point_transformer": 2, "hengshuang": 1, "vit": 2}
 FAM_SEG_EPOCHS = 1
 FAM_REQUESTS = (32, 32, 32)
 
@@ -1881,7 +1908,9 @@ def fam_step_launches(name: str) -> dict:
     defrec = {"pointnet": FAM_FORWARD["pointnet"],
               "pointnet2": None,
               "point_transformer": FAM_FORWARD["point_transformer"],
-              "hengshuang": FAM_FORWARD["hengshuang_defrec"]}[name]
+              "hengshuang": FAM_FORWARD["hengshuang_defrec"],
+              "vit": FAM_FORWARD["vit"],
+              "vit_dgcnn": FAM_FORWARD["vit_dgcnn"]}[name]
     return launch_sum((1, {"fps": 1}), (1, FAM_FORWARD[name]),
                       *([(1, defrec)] if defrec is not None else []))
 
@@ -1895,11 +1924,14 @@ def fam_cfg(name: str) -> PointDAConfig:
 
 
 def fam_model(name: str, cfg, device, knn_backend: str = "auto",
-              classes: int = NUM_CLASS):
+              classes: int = NUM_CLASS, **extra):
+    """Seeded weights and randomised BatchNorm, in train mode; `extra`:
+    constructor-only keywords (vit's `encoder_type`)."""
     g = torch.Generator().manual_seed(SEED + 8)
     kw = model_kwargs(dataclasses.replace(cfg, knn_backend=knn_backend),
                       name)
-    model = make_model(name, classes, device=device, generator=g, **kw)
+    model = make_model(name, classes, device=device, generator=g, **kw,
+                       **extra)
     randomise_batch_norm(model, g)
     return model.train()
 
@@ -1922,6 +1954,51 @@ def kernel_calls():
         yield calls
 
 
+def check_recorded(calls: dict, g: torch.Generator, device, phase: str
+                   ) -> tuple[list, list]:
+    """Each distinct K1 and K4 launch of `calls` (from `kernel_calls`)
+    against its plain version: K1 by equal sorted distance sets and, on
+    integer coordinates of its shape, equal indices; K4 index for index,
+    on the recorded input and on integer coordinates."""
+    knn_res, fps_res, seen = [], [], set()
+    for x, k in calls["knn"]:
+        key = ("knn", tuple(x.shape), k)
+        if key in seen:
+            continue
+        seen.add(key)
+        got, want = knn_cuda(x, k), knn_indices_torch(x, k)
+        xi = integer_cloud(g, x.shape, device)
+        exact = bool(torch.equal(knn_cuda(xi, k), knn_indices_torch(xi, k)))
+        torch.cuda.synchronize()
+        gap, tol = knn_set_gap(x, got, want)
+        r = {"shape": list(x.shape), "k": k,
+             "rows_same_indices": float((got == want).all(-1).float().mean()),
+             "max_dist_gap": float(gap.max()),
+             "max_gap_over_tol": float((gap / tol).max()),
+             "integer_indices_equal": exact}
+        emit(phase, kernel="knn", **r)
+        check(bool((gap <= tol).all()) and exact,
+              f"K1 disagrees with its plain version at a recorded shape: {r}")
+        knn_res.append({**r, "x": x})
+    for xyz, npoint, start in calls["fps"]:
+        key = ("fps", tuple(xyz.shape), npoint)
+        if key in seen:
+            continue
+        seen.add(key)
+        xi = integer_cloud(g, xyz.shape, device)
+        r = {"shape": list(xyz.shape), "npoint": npoint,
+             "unequal_indices": int((fps_cuda(xyz, npoint, start)
+                                     != fps_torch(xyz, npoint, start)).sum()),
+             "integer_unequal_indices": int(
+                 (fps_cuda(xi, npoint, start)
+                  != fps_torch(xi, npoint, start)).sum())}
+        emit(phase, kernel="fps", **r)
+        check(r["unequal_indices"] == 0 and r["integer_unequal_indices"] == 0,
+              f"K4 disagrees with the plain loop at a recorded shape: {r}")
+        fps_res.append({**r, "x": xyz, "start": start})
+    return knn_res, fps_res
+
+
 def fam_kernel_checks(device, g: torch.Generator) -> dict:
     """K1 and K4 at every shape the families give them, on the inputs of
     full-width eval forwards (Hengshuang at [32, 1024, 3], its segmenter
@@ -1942,42 +2019,7 @@ def fam_kernel_checks(device, g: torch.Generator) -> dict:
             fam_model(name, cfg, device,
                       classes=SEG_NUM_CLASS if name == "hengshuang_seg"
                       else NUM_CLASS).eval()(x)
-    knn_res, fps_res, seen = [], [], set()
-    for x, k in calls["knn"]:
-        key = ("knn", tuple(x.shape), k)
-        if key in seen:
-            continue
-        seen.add(key)
-        got, want = knn_cuda(x, k), knn_indices_torch(x, k)
-        xi = integer_cloud(g, x.shape, device)
-        exact = bool(torch.equal(knn_cuda(xi, k), knn_indices_torch(xi, k)))
-        torch.cuda.synchronize()
-        gap, tol = knn_set_gap(x, got, want)
-        r = {"shape": list(x.shape), "k": k,
-             "rows_same_indices": float((got == want).all(-1).float().mean()),
-             "max_dist_gap": float(gap.max()),
-             "max_gap_over_tol": float((gap / tol).max()),
-             "integer_indices_equal": exact}
-        emit("families", kernel="knn", **r)
-        check(bool((gap <= tol).all()) and exact,
-              f"K1 disagrees with its plain version at a family shape: {r}")
-        knn_res.append({**r, "x": x})
-    for xyz, npoint, start in calls["fps"]:
-        key = ("fps", tuple(xyz.shape), npoint)
-        if key in seen:
-            continue
-        seen.add(key)
-        xi = integer_cloud(g, xyz.shape, device)
-        r = {"shape": list(xyz.shape), "npoint": npoint,
-             "unequal_indices": int((fps_cuda(xyz, npoint, start)
-                                     != fps_torch(xyz, npoint, start)).sum()),
-             "integer_unequal_indices": int(
-                 (fps_cuda(xi, npoint, start)
-                  != fps_torch(xi, npoint, start)).sum())}
-        emit("families", kernel="fps", **r)
-        check(r["unequal_indices"] == 0 and r["integer_unequal_indices"] == 0,
-              f"K4 disagrees with the plain loop at a family shape: {r}")
-        fps_res.append({**r, "x": xyz, "start": start})
+    knn_res, fps_res = check_recorded(calls, g, device, "families")
     levels = {max(n // 4 ** i, 1) for n in (N, SEG_N) for i in range(5)}
     check({(r["shape"][1], r["k"]) for r in knn_res}
           == {(n, min(16, n)) for n in levels},
@@ -1992,13 +2034,13 @@ def fam_kernel_checks(device, g: torch.Generator) -> dict:
     return {"knn": knn_res, "fps": fps_res}
 
 
-def fam_first_step(name, cfg, batch, init, device) -> dict:
+def fam_first_step(name, cfg, batch, init, device, **extra) -> dict:
     """The first step with eval-mode BN through the kernels, then through
     the plain versions on the kernel run's kNN graphs and FPS orders."""
     cfg = dataclasses.replace(cfg, debug_bn_eval=True)
 
     def rerun(backend, delta=0.0):
-        m = fam_model(name, cfg, device, backend)
+        m = fam_model(name, cfg, device, backend, **extra)
         m.load_state_dict(init)
         return first_step(m, dataclasses.replace(cfg, knn_backend=backend),
                           batch, device, delta)
@@ -2118,12 +2160,13 @@ def fam_seg_train(device, card: str) -> dict:
     return r
 
 
-def fam_serve(bundle_dir: str, device) -> dict:
-    """A full-width PointTransformer bundle answers FAM_REQUESTS on the
-    card; launches counted over exactly those requests; answers held
-    against the plain path."""
-    cfg = fam_cfg("point_transformer")
-    model = fam_model("point_transformer", cfg, device).eval()
+def fam_serve(bundle_dir: str, device, name: str = "point_transformer",
+              phase: str = "families") -> dict:
+    """A full-width bundle of `name` (PointTransformer; vit) answers
+    FAM_REQUESTS on the card; launches counted over exactly those
+    requests; answers held against the plain path."""
+    cfg = fam_cfg(name)
+    model = fam_model(name, cfg, device).eval()
     clouds, _ = make_classification(sum(FAM_REQUESTS), N, NUM_CLASS,
                                     seed=SEED + 10)
     requests = np.split(clouds, np.cumsum(FAM_REQUESTS)[:-1])
@@ -2132,7 +2175,7 @@ def fam_serve(bundle_dir: str, device) -> dict:
     kernels.reset_launches()
     answers = [served.predict(r) for r in requests]
     launches = kernels.launches()
-    plain = fam_model("point_transformer", cfg, device, "torch").eval()
+    plain = fam_model(name, cfg, device, "torch").eval()
     plain.load_state_dict(model.state_dict())
     with torch.no_grad():
         want = np.concatenate([
@@ -2142,24 +2185,24 @@ def fam_serve(bundle_dir: str, device) -> dict:
     res = {"model": served.meta["model"], "requests": list(FAM_REQUESTS),
            "launches": launches,
            "launches_expected": launch_sum((len(requests),
-                                            FAM_FORWARD["point_transformer"])),
+                                            FAM_FORWARD[name])),
            "finite": bool(np.isfinite(got).all()),
            "class_agreement": float((got.argmax(-1) == want.argmax(-1)).mean()),
            "max_logit_diff": float(np.abs(got - want).max())}
-    emit("families", what="serve", **res)
-    check(res["model"] == "point_transformer" and res["finite"]
+    emit(phase, what="serve", **res)
+    check(res["model"] == name and res["finite"]
           and got.shape == (sum(FAM_REQUESTS), NUM_CLASS),
-          f"the PointTransformer bundle did not serve: {res}")
+          f"the {name} bundle did not serve: {res}")
     check(launches == res["launches_expected"],
-          f"the PointTransformer bundle launched {launches}")
+          f"the {name} bundle launched {launches}")
     check(res["class_agreement"] >= MIN_CLASS_AGREEMENT
           and res["max_logit_diff"] <= MAX_LOGIT_DIFF,
-          f"the PointTransformer bundle disagrees with the plain path: {res}")
+          f"the {name} bundle disagrees with the plain path: {res}")
     return res
 
 
 def fam_eval_infer(tmp: str, tag: str, model_file: str, model: str,
-                   forward: dict, seg: bool) -> dict:
+                   forward: dict, seg: bool, phase: str = "families") -> dict:
     """`eval` and `infer` (`--task pointsegda` with `seg`) from
     `model_file`, through the kernels and with `--knn_backend torch`:
     classes (seg: per-point classes) agree on >= 99%, max |dprob| <= 2e-2,
@@ -2190,7 +2233,7 @@ def fam_eval_infer(tmp: str, tag: str, model_file: str, model: str,
            "max_prob_diff": float(np.abs(k["prob"] - p["prob"]).max()),
            "finite": bool(np.isfinite(k["prob"]).all()),
            "launches_expected": expected}
-    emit("families", what=f"{tag}_eval_infer", **res, compare=cmp)
+    emit(phase, what=f"{tag}_eval_infer", **res, compare=cmp)
     for cmd in ("eval", "infer"):
         check(res[f"{cmd}_kernels"]["launches"] == expected,
               f"{tag} {cmd} launched {res[f'{cmd}_kernels']['launches']}, "
@@ -2211,7 +2254,7 @@ def fam_eval_infer(tmp: str, tag: str, model_file: str, model: str,
     return {**res, "compare": cmp}
 
 
-def fam_main_path(tmp: str, name: str) -> dict:
+def fam_main_path(tmp: str, name: str, phase: str = "families") -> dict:
     """The CLI in-process at full width: `trainer --config` the family's
     YAML on the synthetic data for FAM_TRAINER_EPOCHS[name] epochs, `eval`
     and `infer --model name` from its model.ckpt on both routes, then
@@ -2219,7 +2262,7 @@ def fam_main_path(tmp: str, name: str) -> dict:
     which selects every target cloud); exact launch counts throughout."""
     out = os.path.join(tmp, "runs")
     epochs = FAM_TRAINER_EPOCHS[name]
-    tag = {"point_transformer": "pt", "hengshuang": "hs"}[name]
+    tag = {"point_transformer": "pt", "hengshuang": "hs", "vit": "vit"}[name]
     exp = f"{tag}_trainer"
     argv = ["trainer", "--config", repo_file(FAM_CONFIGS[name]), "--synthetic",
             "True", "--epochs", str(epochs), "--out_path", out, "--exp_name",
@@ -2240,13 +2283,13 @@ def fam_main_path(tmp: str, name: str) -> dict:
           "epoch_seconds": [r["seconds"] for r in records],
           "val": [{k: r[k]["acc"] for k in ("src_val", "trgt_val")}
                   for r in records]}
-    emit("families", what=f"{tag}_trainer", **tr)
+    emit(phase, what=f"{tag}_trainer", **tr)
     check(tr["finite"] and len(records) == epochs
           and os.path.exists(model_file),
           f"the {name} trainer left {len(records)} records: {losses}")
     check(launches == want,
           f"the {name} trainer launched {launches}, not {want}")
-    ei = fam_eval_infer(tmp, tag, model_file, name, fwd, False)
+    ei = fam_eval_infer(tmp, tag, model_file, name, fwd, False, phase)
 
     sp_exp = f"{tag}_spst"
     sp_argv = ["spst", "--model", name, "--synthetic", "True", "--model_file",
@@ -2267,7 +2310,7 @@ def fam_main_path(tmp: str, name: str) -> dict:
           "launches_expected": sp_want, "selections": sels,
           "losses": [r["train"] for r in sp_records],
           "epoch_seconds": [r["seconds"] for r in sp_records]}
-    emit("families", what=f"{tag}_spst", **sp)
+    emit(phase, what=f"{tag}_spst", **sp)
     check(sp_launches == sp_want,
           f"{name} spst launched {sp_launches}, not {sp_want}")
     check(sels == ["256/256"] and all(
@@ -2313,7 +2356,8 @@ def fam_seg_path(tmp: str) -> dict:
     return {"trainer": tr, "eval_infer": ei, "model_file": model_file}
 
 
-def fam_times(device, card: str, kc: dict, paths: dict) -> dict:
+def fam_times(device, card: str, kc: dict, paths: dict,
+              tag: str = "families") -> dict:
     """K1 and K4 per launch at the families' shapes beside their bounds
     (and K4's chain floor); each main path's epoch time and eval/infer
     clouds/s at its test batch on the target train split."""
@@ -2343,7 +2387,7 @@ def fam_times(device, card: str, kc: dict, paths: dict) -> dict:
                             "bound_ms": b_ms, "bound_by": b_by,
                             "chain_floor_ms": step * npoint})
     for kname, per in rows.items():
-        emit("times", what=f"families_{kname}", per_launch=per, card=card)
+        emit("times", what=f"{tag}_{kname}", per_launch=per, card=card)
 
     def timed(fn, reps=3):
         fn()
@@ -2380,7 +2424,7 @@ def fam_times(device, card: str, kc: dict, paths: dict) -> dict:
                           "batch": batch,
                           "eval_clouds_per_s": len(ds.data) / t_eval,
                           "infer_clouds_per_s": len(ds.data) / t_infer}
-    emit("times", what="families_paths", paths=paths_res, card=card)
+    emit("times", what=f"{tag}_paths", paths=paths_res, card=card)
     return {"rows": rows, "paths": paths_res}
 
 
@@ -2415,6 +2459,230 @@ def families(device, card: str, g: torch.Generator, tmp: str) -> dict:
     by_path["hs_seg_infer"] = seg["eval_infer"]["infer_kernels"]["launches"]
     return {"kernel_checks": kc, "by_path": by_path, "times": times,
             "train": ft}
+
+
+VIT_ENCODERS = ("relative", "dgcnn")
+VIT_GROUPS, VIT_GROUP_SIZE, VIT_K = 64, 32, 20  # PointViT's defaults
+VIT_BIG_B = 65_536 + 7  # clouds above gridDim.y's 65535
+
+
+def vit_kernel_checks(device, g: torch.Generator) -> dict:
+    """K1 and K4 on the inputs of a full-width eval forward of the vit
+    with the "dgcnn" embedder at [32, 1024, 3]: K1 at [B·G, 32, C] = [2048,
+    32, C], C in (3, 64, 128), k = 20, by sorted distance sets and, on
+    integer coordinates, exact indices; K4 at [32, 1024] -> 64, index for
+    index. Then K1 and K3 at VIT_BIG_B clouds of 32 points on integer
+    coordinates: one launch each, indices equal to the plain version's."""
+    x = torch.from_numpy(make_classification(B, N, NUM_CLASS,
+                                             seed=SEED + 11)[0]).to(device)
+    with kernel_calls() as calls, torch.no_grad():
+        fam_model("vit", fam_cfg("vit"), device,
+                  encoder_type="dgcnn").eval()(x)
+    check(len(calls["knn"]) == FAM_FORWARD["vit_dgcnn"]["knn"]
+          and len(calls["fps"]) == FAM_FORWARD["vit_dgcnn"]["fps"],
+          f"the vit forward made {len(calls['knn'])} K1 and "
+          f"{len(calls['fps'])} K4 launches")
+    knn_res, fps_res = check_recorded(calls, g, device, "vit_interop")
+    bg = B * VIT_GROUPS
+    check({(tuple(r["shape"]), r["k"]) for r in knn_res}
+          == {((bg, VIT_GROUP_SIZE, c), VIT_K) for c in (3, 64, 128)},
+          f"the vit embedder built graphs at {[r['shape'] for r in knn_res]}")
+    check([(r["shape"], r["npoint"]) for r in fps_res]
+          == [([B, N, 3], VIT_GROUPS)],
+          f"the vit grouping sampled at {fps_res}")
+    xi = integer_cloud(g, (VIT_BIG_B, VIT_GROUP_SIZE, 3), device)
+    want = knn_indices_torch(xi, VIT_K)
+    kernels.reset_launches()
+    got = knn_cuda(xi, VIT_K)
+    got3 = knn_moments_cuda(xi, VIT_K, return_indices=True)[2]
+    torch.cuda.synchronize()
+    big = {"shape": list(xi.shape), "k": VIT_K,
+           "launches": kernels.launches(),
+           "knn_rows_unequal": int((got != want).any(-1).sum()),
+           "knn_moments_rows_unequal": int((got3 != want).any(-1).sum())}
+    emit("vit_interop", kernel="knn", what="batch_above_65535", **big)
+    check(big["knn_rows_unequal"] == 0 and big["knn_moments_rows_unequal"] == 0
+          and big["launches"]["knn"] == big["launches"]["knn_moments"] == 1,
+          f"K1/K3 above 65535 clouds: {big}")
+    return {"knn": knn_res, "fps": fps_res, "big": big}
+
+
+def vit_train(device, card: str) -> dict:
+    """FAM_STEPS steps of the full-width vit under configs/pointda_vit.yaml
+    (PCM, DefRec on the target; B=32, N=1024) with the "relative" and the
+    "dgcnn" embedders: launches exact (a forward K4 1, the "dgcnn" one also
+    K1 5; PCM K4 1 a step), finite losses, p50 and peak memory; the first
+    step again through the plain route on the kernel run's kNN graphs and
+    FPS orders (eval-mode BN; LOSS_RTOL, GRAD_RTOL)."""
+    batches = train_batches(train_cfg(), device)
+    cfg = fam_cfg("vit")
+    total, res = dict.fromkeys(PER_STEP, 0), {}
+    for enc in VIT_ENCODERS:
+        tag = "vit" if enc == "relative" else f"vit_{enc}"
+        model = fam_model("vit", cfg, device, encoder_type=enc)
+        init = copy.deepcopy(model.state_dict())
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                    STEPS_PER_EPOCH)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        steps = [pointda_train_step(model, opt, sched,
+                                    *batches[i % len(batches)], gen, cfg)
+                 for i in range(FAM_STEPS)]
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [{k: float(v) for k, v in m.items()} for m in steps]
+        per_step = fam_step_launches(tag)
+        r = {"model": "vit", "encoder_type": enc,
+             "recipe": {"apply_PCM": cfg.apply_PCM,
+                        "DefRec_on_trgt": cfg.DefRec_on_trgt,
+                        "DefRec_weight": cfg.DefRec_weight},
+             "batch": cfg.batch_size, "points": cfg.num_points,
+             "steps": FAM_STEPS, "launches": launches,
+             "launches_derived": {k: FAM_STEPS * v
+                                  for k, v in per_step.items()},
+             "losses": losses,
+             "finite": all(np.isfinite(v) for m in losses
+                           for v in m.values()),
+             "p50_ms": branch_step_time(model, opt, sched, batches, gen, cfg,
+                                        FAM_TIMED),
+             "steps_timed": FAM_TIMED, "peak_memory_gb": peak_gb,
+             "card": card}
+        c = fam_first_step("vit", cfg, batches[0], init, device,
+                           encoder_type=enc)
+        r["first_step_plain_vs_kernel_eval_bn"] = c
+        emit("vit_interop", what="train", **r)
+        check(r["finite"], f"non-finite vit ({enc}) losses: {losses}")
+        check(launches == r["launches_derived"],
+              f"the vit ({enc}) steps launched {launches}, not "
+              f"{r['launches_derived']}")
+        rep = c["replayed"]
+        check(not any(c["plain_route_launches"].values()),
+              f"the plain route launched kernels: {c['plain_route_launches']}")
+        check((rep["graphs"], rep["fps_orders"])
+              == (per_step["knn"], per_step["fps"])
+              and rep["plain_own_fps_entries_differ"] == 0,
+              f"vit ({enc}) first step: unexpected kNN graphs or FPS orders "
+              f"{rep}")
+        check(c["same_grad_set"] and not c["outside"],
+              f"vit ({enc}) first step: the plain route or a kernel rerun "
+              f"disagrees with the kernel route on {c['outside']}")
+        for k, v in launches.items():
+            total[k] += v
+        res[enc] = r
+    return {"train": res, "launches": total}
+
+
+def interop(tmp: str, dgcnn_ckpt: str, seg_ckpt: str, device) -> dict:
+    """`export` the trainer phase's DGCNN model.ckpt and the seg phase's
+    DGCNNSeg one to reference model.pt files (no launch), then `eval` and
+    `infer` of each model.pt with `--from_torch True` beside the same of
+    its .ckpt, through the kernels: DGCNN predictions equal to the bit
+    (the same tensors through the same kernels), DGCNNSeg per-point
+    classes on >= 99% of points and max |dprob| <= 2e-2 (the pseudo-
+    inverse of the conv pairs is exact only up to rounding); launches
+    exact (DGCNN: 3 forwards of K1 5, K2-fwd 4; DGCNNSeg: 1 forward of K1
+    4). Times `export` and a `--from_torch` load."""
+    out = os.path.join(tmp, "runs")
+    res = {}
+    for tag, ckpt, task, fwd in (
+            ("dgcnn", dgcnn_ckpt, [], launch_sum((EVAL_FORWARDS, {
+                "knn": 5, "edge_moments": 4}))),
+            ("dgcnn_seg", seg_ckpt, ["--task", "pointsegda"], SEG_FORWARD)):
+        exp = f"export_{tag}"
+        t0 = time.perf_counter()
+        ex_launches = run_cli(["export", *task, "--model_file", ckpt,
+                               "--out_path", out, "--exp_name", exp],
+                              os.path.join(tmp, f"{exp}.log"))
+        export_s = time.perf_counter() - t0
+        pt = os.path.join(out, exp, "model.pt")
+        runs, preds = {}, {}
+        for src, argv in (("ckpt", ["--model_file", ckpt]),
+                          ("pt", ["--model_file", pt, "--from_torch",
+                                  "True"])):
+            for cmd in ("eval", "infer"):
+                name = f"interop_{tag}_{cmd}_{src}"
+                launches = run_cli([cmd, *task, *argv, "--synthetic", "True",
+                                    "--out_path", out, "--exp_name", name],
+                                   os.path.join(tmp, f"{name}.log"))
+                with open(os.path.join(out, name, "run.log")) as f:
+                    summary = json.loads(
+                        f.read().splitlines()[-1].split(": ", 1)[1])
+                runs[f"{cmd}_{src}"] = {"launches": launches, **summary}
+                if cmd == "infer":
+                    preds[src] = np.load(summary["output"])
+        model = make_model("dgcnn_seg" if task else "dgcnn",
+                           SEG_NUM_CLASS if task else NUM_CLASS,
+                           device=device)
+        t0 = time.perf_counter()
+        checkpoint.load_model_weights(model, pt, from_torch=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = preds["ckpt"], preds["pt"]
+        r = {"export_seconds": export_s, "export_launches": ex_launches,
+             "from_torch_load_seconds": load_s, "runs": runs,
+             "launches_expected": fwd,
+             "class_agreement": float((a["pred"] == b["pred"]).mean()),
+             "max_prob_diff": float(np.abs(a["prob"] - b["prob"]).max()),
+             "finite": bool(np.isfinite(b["prob"]).all())}
+        emit("vit_interop", what=f"interop_{tag}", **r)
+        check(not any(ex_launches.values()),
+              f"export of {tag} launched {ex_launches}")
+        for k, v in runs.items():
+            check(v["launches"] == fwd,
+                  f"interop {tag} {k} launched {v['launches']}, not {fwd}")
+        check(r["finite"] and np.array_equal(a["index"], b["index"])
+              and runs["eval_ckpt"]["acc"] == runs["infer_ckpt"]["acc"]
+              and runs["eval_pt"]["acc"] == runs["infer_pt"]["acc"],
+              f"interop {tag}: outputs {r}")
+        if tag == "dgcnn":
+            check(r["class_agreement"] == 1.0 and r["max_prob_diff"] == 0.0
+                  and all(runs["eval_pt"][k] == runs["eval_ckpt"][k]
+                          for k in ("acc", "balanced_acc", "loss")),
+                  f"eval --from_torch of the DGCNN model.pt differs from "
+                  f"eval of its .ckpt: {r}, {runs}")
+        else:
+            check(r["class_agreement"] >= MIN_CLASS_AGREEMENT
+                  and r["max_prob_diff"] <= MAX_LOGIT_DIFF,
+                  f"DGCNNSeg from model.pt disagrees with its .ckpt: {r}")
+        res[tag] = r
+    return res
+
+
+def vit_interop(device, card: str, g: torch.Generator, tmp: str,
+                dgcnn_ckpt: str, seg_ckpt: str) -> dict:
+    """The `vit_interop` phase: K1 at the vit embedder's shapes and above
+    65535 clouds, vit train steps with both embedders and their first
+    steps on the plain route, a vit bundle, the vit main path through the
+    CLI (trainer, eval, infer, spst), checkpoint interop, and the times."""
+    kc = vit_kernel_checks(device, g)
+    tr = vit_train(device, card)
+    with tempfile.TemporaryDirectory() as bundle_dir:
+        srv = fam_serve(bundle_dir, device, "vit", "vit_interop")
+    path = fam_main_path(tmp, "vit", "vit_interop")
+    io = interop(tmp, dgcnn_ckpt, seg_ckpt, device)
+    times = fam_times(device, card, kc, {"vit": ("vit", path["model_file"],
+                                                 False)}, "vit")
+    emit("times", what="vit", card=card,
+         epoch_seconds=path["trainer"]["epoch_seconds"],
+         step_p50_ms={e: r["p50_ms"] for e, r in tr["train"].items()},
+         peak_memory_gb={e: r["peak_memory_gb"]
+                         for e, r in tr["train"].items()},
+         export_seconds={t: r["export_seconds"] for t, r in io.items()},
+         from_torch_load_seconds={t: r["from_torch_load_seconds"]
+                                  for t, r in io.items()})
+    by_path = {"vit_train": tr["launches"], "vit_serve": srv["launches"],
+               "vit_trainer": path["trainer"]["launches"],
+               "vit_eval": path["eval_infer"]["eval_kernels"]["launches"],
+               "vit_infer": path["eval_infer"]["infer_kernels"]["launches"],
+               "vit_spst": path["spst"]["launches"]}
+    for tag, r in io.items():
+        for k, v in r["runs"].items():
+            if k.endswith("_pt"):
+                by_path[f"interop_{tag}_{k}"] = v["launches"]
+    return {"kernel_checks": kc, "by_path": by_path, "times": times}
 
 
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
@@ -2507,6 +2775,8 @@ def run(device: torch.device, card: str) -> None:
         seg_trn = seg_trainer(tmp)
         seg_ei = seg_eval_infer(tmp, seg_trn["model_file"])
         fam = families(device, card, g, tmp)
+        vit = vit_interop(device, card, g, tmp, trn["model_file"],
+                          seg_trn["model_file"])
 
         kt = kernel_times(device, card, knn_in, edge_in, g)
         serving_times(srv["served"], srv["plain"], device, card)
@@ -2527,10 +2797,12 @@ def run(device: torch.device, card: str) -> None:
                            seg["knn_moments"]["max_abs_err"]),
         "fps": float(max(c["unequal_indices"]
                          for c in fps_checks + [seg["fps"]]
-                         + fam["kernel_checks"]["fps"])),
+                         + fam["kernel_checks"]["fps"]
+                         + vit["kernel_checks"]["fps"])),
     }
     errs["knn"] = max(errs["knn"], max(
-        c["max_dist_gap"] for c in fam["kernel_checks"]["knn"]))
+        c["max_dist_gap"] for c in fam["kernel_checks"]["knn"]
+        + vit["kernel_checks"]["knn"]))
     rows = kt["rows"]
     # (launches, per-launch row) over one train step's shapes, by kernel
     step_rows = {"knn": [(2, r) for r in rows["knn"]],
@@ -2571,7 +2843,8 @@ def run(device: torch.device, card: str) -> None:
                    "seg_trainer": seg_trn["launches"][kname],
                    "seg_eval": seg_ei["seg_eval_kernels"]["launches"][kname],
                    "seg_infer": seg_ei["seg_infer_kernels"]["launches"][kname],
-                   **{path: n[kname] for path, n in fam["by_path"].items()}}
+                   **{path: n[kname] for path, n in fam["by_path"].items()},
+                   **{path: n[kname] for path, n in vit["by_path"].items()}}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2579,6 +2852,7 @@ def run(device: torch.device, card: str) -> None:
             **main, "library_ms": None, "ms_over": over,
             "per_train_step": total(step_rows[kname]),
             "per_launch_at_family_shapes": fam["times"]["rows"].get(kname),
+            "per_launch_at_vit_shapes": vit["times"]["rows"].get(kname),
             "per_seg_train_step": (total(seg_step_rows[kname])
                                    if kname in seg_step_rows else None),
             "check": "passed",  # a failed check exits before this line

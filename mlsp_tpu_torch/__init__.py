@@ -13,13 +13,14 @@ ops         pairwise distances, the kNN graph (self and cross-set), ball
             normals, density labels, masked Chamfer;
             `ops.kernels` wraps the CUDA kernels
 models      DGCNN and DGCNNSeg with the MLSP heads, PointNet, PointNet++,
-            PointTransformer, the Hengshuang classifier and segmenter
-            (reference state_dict layouts where one exists)
+            PointTransformer, the Hengshuang classifier and segmenter,
+            Point-ViT (reference state_dict layouts where one exists)
 transforms  augmentation and DefRec deformation (draw, then apply)
 losses      the MLSP losses
 train       the PointDA paper-recipe train step, Adam + cosine schedule
 serving     serving bundles: save, load, predict
-utils       device resolution, PointDA config, JAX checkpoint carry-over
+utils       device resolution, configs, checkpoints: the port's, the JAX
+            package's `.ckpt` in, reference `model.pt` in and out
 data        synthetic clouds
 
 Entry points run on the CUDA card unless given device="cpu".

@@ -7,14 +7,17 @@
     python -m mlsp_tpu_torch.cli seg --config configs/pointsegda/adobe2faust.yaml
     python -m mlsp_tpu_torch.cli eval --task pointsegda --model_file \
         experiments/MLSP_adobe2faust_adobe_faust/model.ckpt
+    python -m mlsp_tpu_torch.cli export --model_file experiments/MLSP/model.ckpt
+    python -m mlsp_tpu_torch.cli eval --from_torch True --model_file model.pt
 
 Every config field but the test-only `debug_*` ones is a flag; booleans
 take true/false/1/0/yes/no like the reference's str2bool. `--config FILE`
 (YAML with `_base_` inheritance) composes with the flags: dataclass
 defaults < YAML < flags given on the command line. The entry points run
-on the CUDA card; `--device cpu` runs them on the CPU. Not registered yet
-(ROADMAP.md): `export`, `aot`, `download`, `calibrate` and the mesh
-flags.
+on the CUDA card; `--device cpu` runs them on the CPU. `--model_file`
+takes the port's checkpoints and the JAX package's `.ckpt` files, and with
+`--from_torch True` a reference `model.pt`. Not registered yet
+(ROADMAP.md): `aot`, `download`, `calibrate` and the mesh flags.
 """
 
 from __future__ import annotations
@@ -96,13 +99,20 @@ def build_parser() -> argparse.ArgumentParser:
     p_seg = sub.add_parser("seg", help="PointSegDA segmentation DA")
     _add_config_args(p_seg, PointSegDAConfig)
     _add_profile_arg(p_seg)
-    p_eval = sub.add_parser("eval", help="evaluate a checkpoint on a dataset "
-                                         "split")
+    p_eval = sub.add_parser(
+        "eval", help="evaluate a checkpoint (the port's, a JAX .ckpt, or a "
+                     "reference model.pt via --from_torch) on a dataset "
+                     "split")
     _add_config_args(p_eval, EvalConfig)
     p_infer = sub.add_parser(
         "infer", help="batch inference: per-cloud predictions and class "
                       "probabilities of a dataset split, to .npz")
     _add_config_args(p_infer, EvalConfig)
+    p_export = sub.add_parser(
+        "export", help="export a checkpoint as a reference-loadable torch "
+                       "model.pt (inverse of --from_torch; dgcnn/pointnet/"
+                       "dgcnn_seg/point_transformer/hengshuang)")
+    _add_config_args(p_export, EvalConfig)
     return parser
 
 
@@ -148,9 +158,10 @@ def main(argv=None) -> int:
         with trace:
             train_pointsegda(cfg)
     else:
-        from mlsp_tpu_torch.train.evaluation import run_eval, run_infer
+        from mlsp_tpu_torch.train import evaluation
 
-        (run_eval if args.command == "eval" else run_infer)(cfg)
+        {"eval": evaluation.run_eval, "infer": evaluation.run_infer,
+         "export": evaluation.run_export}[args.command](cfg)
     return 0
 
 

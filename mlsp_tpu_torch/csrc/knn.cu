@@ -13,7 +13,8 @@
 // and comparing each distance. Bytes moved are tiny (x once, the indices
 // once).
 //
-// Design: one block of 8 warps per (cloud, tile of 32 queries); register-
+// Design: one block of 8 warps per (cloud, tile of 32 queries), on one
+// flat grid axis, so any batch launches (2^31 - 1 blocks); register-
 // tiled distances into a shared-memory tile, then a warp per query selects
 // by a threshold, a ballot compaction and warp bitonic sorts on 64-bit
 // (distance bits, index) keys, so a candidate costs a compare rather than
@@ -30,9 +31,14 @@ knn_kernel(const float* __restrict__ x, int64_t* __restrict__ out, int N,
            int C, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
-  const float* xb = x + (size_t)blockIdx.y * N * C;
-  int64_t* ob = out + (size_t)blockIdx.y * N * k;
-  knn_topk::select(xb, N, C, k, blockIdx.x * knn_topk::QB, smem,
+  // one flat grid axis: block = cloud * tiles + query tile (gridDim.x
+  // takes 2^31 - 1 blocks, where gridDim.y would stop at 65535 clouds)
+  const int tiles = (N + knn_topk::QB - 1) / knn_topk::QB;
+  const int64_t b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - (int)b * tiles;
+  const float* xb = x + b * N * C;
+  int64_t* ob = out + b * N * k;
+  knn_topk::select(xb, N, C, k, tile * knn_topk::QB, smem,
                    [&](int q, knn_topk::key_t key) {
                      if (lane < k)
                        ob[(size_t)q * k + lane] = (int64_t)(uint32_t)key;
@@ -56,8 +62,9 @@ int mlsp_knn(const float* x, int64_t* out, int B, int N, int C, int k,
   cudaError_t err = cudaFuncSetAttribute(
       knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + knn_topk::QB - 1) / knn_topk::QB, B);
-  knn_kernel<<<grid, THREADS, smem, stream>>>(x, out, N, C, k);
+  const int64_t blocks = (int64_t)B * ((N + knn_topk::QB - 1) / knn_topk::QB);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  knn_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(x, out, N, C, k);
   return (int)cudaGetLastError();
 }
 

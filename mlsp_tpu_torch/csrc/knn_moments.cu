@@ -37,15 +37,19 @@ knn_moments_kernel(const float* __restrict__ x, float* __restrict__ s1,
                    int N, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
-  const float* xb = x + (size_t)blockIdx.y * N * 3;
+  // one flat grid axis, as in knn.cu: block = cloud * tiles + query tile
+  const int tiles = (N + knn_topk::QB - 1) / knn_topk::QB;
+  const int64_t b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - (int)b * tiles;
+  const float* xb = x + b * N * 3;
   // lane m < 9 sums term m: a0 a1 a2 (sums), then m00 m01 m02 m11 m12 m22
   // (FMAs of coordinates u and v); the other lanes' sums are dropped
   const int u = lane < 3 ? lane : lane < 6 ? 0 : lane < 8 ? 1 : 2;
   const int v = lane < 3 ? lane : lane < 6 ? lane - 3 : lane < 8 ? lane - 5 : 2;
   knn_topk::select(
-      xb, N, 3, k, blockIdx.x * knn_topk::QB, smem,
+      xb, N, 3, k, tile * knn_topk::QB, smem,
       [&](int q, knn_topk::key_t key) {
-        const size_t row = (size_t)blockIdx.y * N + q;
+        const size_t row = (size_t)b * N + q;
         const int j = (int)(uint32_t)key;
         float p[3] = {0.f, 0.f, 0.f};
         if (lane < k) {
@@ -89,9 +93,10 @@ int mlsp_knn_moments(const float* x, float* s1, float* s2, int64_t* idx_out,
       knn_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + knn_topk::QB - 1) / knn_topk::QB, B);
-  knn_moments_kernel<<<grid, THREADS, smem, stream>>>(x, s1, s2, idx_out, N,
-                                                      k);
+  const int64_t blocks = (int64_t)B * ((N + knn_topk::QB - 1) / knn_topk::QB);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  knn_moments_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      x, s1, s2, idx_out, N, k);
   return (int)cudaGetLastError();
 }
 

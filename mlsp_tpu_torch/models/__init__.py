@@ -1,8 +1,9 @@
 """PyTorch models of the port (channels-last, reference state_dict layout).
 
-Ported: DGCNN and DGCNNSeg, PointNet, PointNet++ (SSG), PointTransformer
-and the Hengshuang family (classifier and segmenter), under the names and
-aliases `mlsp_tpu.models.make_model` takes. `vit` is queued in ROADMAP.md.
+Every family of `mlsp_tpu.models.make_model`, under its names and
+aliases: DGCNN and DGCNNSeg, PointNet, PointNet++ (SSG), PointTransformer,
+the Hengshuang family (classifier and segmenter) and Point-ViT (`vit`,
+with its constructor-only `encoder_type` and `use_absolute`).
 """
 
 from __future__ import annotations
@@ -16,31 +17,28 @@ from mlsp_tpu_torch.models.layers import init_parameters
 from mlsp_tpu_torch.models.pointnet import PointNet
 from mlsp_tpu_torch.models.pointnet2 import PointNet2SSG
 from mlsp_tpu_torch.models.transformer import PointTransformer
+from mlsp_tpu_torch.models.vit import PointViT
 from mlsp_tpu_torch.utils.device import resolve_device
 
 __all__ = ["DGCNN", "DGCNNSeg", "HengshuangSeg", "HengshuangTransformer",
-           "PointNet", "PointNet2SSG", "PointTransformer", "canonical_name",
+           "PointNet", "PointNet2SSG", "PointTransformer", "PointViT",
+           "canonical_name",
            "make_model", "model_kwargs"]
 
 _MODELS = {m.NAME: m for m in (DGCNN, DGCNNSeg, PointNet, PointNet2SSG,
                                PointTransformer, HengshuangTransformer,
-                               HengshuangSeg)}
+                               HengshuangSeg, PointViT)}
 _ALIASES = {"pointnet2_ssg": "pointnet2", "transformer": "point_transformer",
             "hengshuang_transformer": "hengshuang"}
-_NOT_PORTED = ("vit",)
 POINTDA_MODELS = ("dgcnn", "pointnet", "pointnet2", "point_transformer",
-                  "hengshuang")
+                  "hengshuang", "vit")
 SEG_MODELS = ("dgcnn_seg", "hengshuang_seg")
 
 
 def canonical_name(name: str) -> str:
     """The model's own name for `name` or a JAX alias of it; raises
-    NotImplementedError for a family not ported yet, ValueError for an
-    unknown name."""
+    ValueError for an unknown name."""
     name = _ALIASES.get(name.lower(), name.lower())
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet: see ROADMAP.md")
     if name not in _MODELS:
         raise ValueError(f"unknown model {name!r}")
     return name

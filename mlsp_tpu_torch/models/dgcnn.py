@@ -22,9 +22,30 @@ from mlsp_tpu_torch.models.layers import (
     check_heads,
 )
 from mlsp_tpu_torch.ops.edge import edge_moments
-from mlsp_tpu_torch.ops.knn import edge_features, knn_indices
+from mlsp_tpu_torch.ops.knn import edge_features, knn_gather, knn_indices
 
 HEADS = ("defrec", "normal", "scan", "density")
+
+
+class EdgeConv(nn.Module):
+    """EdgeConv + BN + LeakyReLU + max over k in the gather form (the JAX
+    `EdgeConv`, which Point-ViT's DGCNN group embedder runs): u = W_d x,
+    v = W_c x, the edge tensor z_ij = u_j + (v - u)_i is built, BatchNorm
+    normalises it over every [B, N, k] position (train mode: its batch
+    statistics), then LeakyReLU 0.2 and the max over k. Plain PyTorch, as
+    JAX runs it outside any Pallas kernel. Flax names: `w_diff`,
+    `w_center` (bias-free nn.Linear) and `BatchNorm_0`."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.w_diff = nn.Linear(cin, cout, bias=False)
+        self.w_center = nn.Linear(cin, cout, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm1d(cout)
+
+    def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        u = self.w_diff(x)
+        z = knn_gather(u, idx) + (self.w_center(x) - u)[:, :, None, :]
+        return F.leaky_relu(batch_norm(self.BatchNorm_0, z), 0.2).amax(-2)
 
 
 class EdgeConvM(nn.Module):

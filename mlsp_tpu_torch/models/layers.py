@@ -240,17 +240,20 @@ class DensityHead(nn.Module):
 
 
 class FlaxDenseBN(nn.Module):
-    """Dense -> BatchNorm -> ReLU under the JAX package's module names,
-    `Dense_0` (an nn.Linear) and `BatchNorm_0`: for models with no
-    reference state_dict (PointNet++)."""
+    """Dense -> BatchNorm -> activation under the JAX package's module
+    names, `Dense_0` (an nn.Linear) and `BatchNorm_0`: for the parts of
+    models with no reference state_dict (PointNet++, Point-ViT's group
+    embedders)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, activation: str = "relu",
+                 bias: bool = True):
         super().__init__()
-        self.Dense_0 = nn.Linear(cin, cout)
+        self.Dense_0 = nn.Linear(cin, cout, bias=bias)
         self.BatchNorm_0 = nn.BatchNorm1d(cout)
+        self.act = act_fn(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(batch_norm(self.BatchNorm_0, self.Dense_0(x)))
+        return self.act(batch_norm(self.BatchNorm_0, self.Dense_0(x)))
 
 
 @torch.no_grad()

@@ -226,24 +226,39 @@ class PointTransformer(nn.Module):
         neigh, centers = group_points_knn(x, self.num_group, self.group_size,
                                           start, self.knn_backend)
         tokens = self.reduce_dim(self.encoder(neigh))  # [B, G, D]
-        pe = self.pos_embed
-        pos = pe[2](gelu(pe[0](centers)))
-        D = tokens.shape[-1]
-        h = torch.cat([self.cls_token.expand(B, 1, D), tokens], dim=1)
-        p = torch.cat([self.cls_pos.expand(B, 1, D), pos], dim=1)
-        taps = []
-        for i, blk in enumerate(self.blocks.blocks):
-            h = blk(h + p)  # the pos embed re-added before every block
-            if i in self.fetch_idx:
-                taps.append(h)
-        h = self.norm(h)
-        feat = torch.cat([h[:, 0], h[:, 1:].amax(1)], dim=-1)
         ch = self.cls_head_finetune
-        out = {"feat": feat,
-               "cls": ch[3](dropout(F.relu(ch[0](feat)), self.p,
-                                    self.training, generator))}
-        if "defrec" in heads:
-            tap_feats = torch.cat([self.norm(t)[:, 1:] for t in taps], dim=-1)
-            per_pt = feature_propagation(x, centers, tap_feats)  # [B, N, 3D]
-            out["defrec"] = self.DefRec((per_pt, feat), generator)
-        return out
+        return token_outputs(
+            self, x, tokens, centers, heads, generator,
+            lambda feat: ch[3](dropout(F.relu(ch[0](feat)), self.p,
+                                       self.training, generator)))
+
+
+def token_outputs(m: nn.Module, x: torch.Tensor, tokens: torch.Tensor,
+                  centers: torch.Tensor, heads: tuple[str, ...],
+                  generator: torch.Generator | None, cls_head
+                  ) -> dict[str, torch.Tensor]:
+    """What PointTransformer and Point-ViT share after the group embedder:
+    [CLS] + tokens [B, G, D] with the pos embed of `centers` re-added
+    before every block of `m.blocks`, the final LayerNorm `m.norm`,
+    "feat" = [cls ; max over tokens], "cls" = cls_head(feat) and, with
+    "defrec" in heads, the DefRec head on the 3-NN propagation of the
+    final-norm taps of blocks `m.fetch_idx` (the same LayerNorm)."""
+    B = x.shape[0]
+    pe = m.pos_embed
+    pos = pe[2](gelu(pe[0](centers)))
+    D = tokens.shape[-1]
+    h = torch.cat([m.cls_token.expand(B, 1, D), tokens], dim=1)
+    p = torch.cat([m.cls_pos.expand(B, 1, D), pos], dim=1)
+    taps = []
+    for i, blk in enumerate(m.blocks.blocks):
+        h = blk(h + p)  # the pos embed re-added before every block
+        if i in m.fetch_idx:
+            taps.append(h)
+    h = m.norm(h)
+    feat = torch.cat([h[:, 0], h[:, 1:].amax(1)], dim=-1)
+    out = {"feat": feat, "cls": cls_head(feat)}
+    if "defrec" in heads:
+        tap_feats = torch.cat([m.norm(t)[:, 1:] for t in taps], dim=-1)
+        per_pt = feature_propagation(x, centers, tap_feats)  # [B, N, 3D]
+        out["defrec"] = m.DefRec((per_pt, feat), generator)
+    return out

@@ -1,14 +1,17 @@
-"""Standalone checkpoint evaluation and batch inference (counterpart of
-`mlsp_tpu/train/evaluation.py`): `run_eval` reports a split's metrics,
-`run_infer` writes per-cloud (PointDA) or per-point (PointSegDA)
-predictions and class probabilities to an .npz. The port serves
+"""Standalone checkpoint evaluation, batch inference and export
+(counterpart of `mlsp_tpu/train/evaluation.py`): `run_eval` reports a
+split's metrics, `run_infer` writes per-cloud (PointDA) or per-point
+(PointSegDA) predictions and class probabilities to an .npz, `run_export`
+writes a reference-loadable `model.pt`. The port serves
 `task="pointda"` with every PointDA family (dgcnn, pointnet, pointnet2,
-point_transformer, hengshuang, and the JAX aliases) and
-`task="pointsegda"` with `dgcnn_seg` and `hengshuang_seg`, from its own
-checkpoints, building each model as `mlsp_tpu/train/evaluation.py::
-_build_model` does (`models.model_kwargs`: `--knn_backend` reaches every
-family that builds a graph or samples points). `vit`, `from_torch`,
-`export` and the AOT bundle raise NotImplementedError (ROADMAP.md).
+point_transformer, hengshuang, vit, and the JAX aliases) and
+`task="pointsegda"` with `dgcnn_seg` and `hengshuang_seg`, building each
+model as `mlsp_tpu/train/evaluation.py::_build_model` does
+(`models.model_kwargs`: `--knn_backend` reaches every family that builds
+a graph or samples points). The weights come from the port's own
+checkpoint, a JAX `.ckpt` or, with `--from_torch`, a reference
+`model.pt` (`utils/checkpoint.py::load_model_weights`). The AOT bundle
+raises NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from mlsp_tpu_torch.train.pointda_trainer import (
     evaluate,
 )
 from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
-from mlsp_tpu_torch.utils import checkpoint, metrics
+from mlsp_tpu_torch.utils import checkpoint, metrics, reference_export
 from mlsp_tpu_torch.utils.config import EvalConfig
 from mlsp_tpu_torch.utils.device import resolve_device
 from mlsp_tpu_torch.utils.logging import IOStream
@@ -55,8 +58,6 @@ def _setup(cfg: EvalConfig, io: IOStream):
     if (canonical_name(cfg.model) in SEG_MODELS) != seg:
         raise ValueError(f"model={cfg.model!r} does not serve "
                          f"task={cfg.task!r}")
-    if cfg.from_torch:
-        raise _not_ported("from_torch (reading a reference model.pt)")
     device = resolve_device(cfg.device or None)
     if seg:
         ds = load_pointsegda(cfg.dataset, cfg.dataroot, cfg.split,
@@ -68,11 +69,19 @@ def _setup(cfg: EvalConfig, io: IOStream):
                           cfg.num_points, cfg.synthetic, cfg.seed,
                           device=device)
         indices = {"train": ds.train_ind, "val": ds.val_ind}.get(cfg.split)
-    model = make_model(cfg.model, cfg.num_class, device=device,
+    return _load_model(cfg, io, device), ds.data, ds.label, indices
+
+
+def _load_model(cfg: EvalConfig, io: IOStream, device=None):
+    """The model with the weights of `cfg.model_file` (the port's format,
+    a JAX `.ckpt`, or with `from_torch` a reference `model.pt`)."""
+    model = make_model(cfg.model, cfg.num_class,
+                       device=device or resolve_device(cfg.device or None),
                        **model_kwargs(cfg))
-    checkpoint.load_model_weights(model, cfg.model_file)
-    io.cprint(f"loaded {cfg.model_file}")
-    return model, ds.data, ds.label, indices
+    checkpoint.load_model_weights(model, cfg.model_file, cfg.from_torch)
+    io.cprint(f"loaded {cfg.model_file}"
+              + (" (reference torch state_dict)" if cfg.from_torch else ""))
+    return model
 
 
 def run_eval(cfg: EvalConfig, io: IOStream | None = None) -> dict:
@@ -135,7 +144,31 @@ def run_infer(cfg: EvalConfig, io: IOStream | None = None) -> dict:
 
 
 def run_export(cfg: EvalConfig, io: IOStream | None = None) -> dict:
-    raise _not_ported("export (a reference-loadable model.pt)")
+    """Export a checkpoint as a reference-loadable torch `model.pt`
+    (`cfg.output`, default `{exp_dir}/model.pt`), the inverse of
+    `--from_torch`: from the port's own checkpoint, a JAX `.ckpt` or, with
+    `--from_torch`, a reference `model.pt` (a normaliser). Every family is
+    strict-loadable by the reference but PointTransformer (backbone and
+    classifier head: the reference loads it with strict=False). Returns
+    {"output", "model", "keys"} (also printed as one JSON line)."""
+    cfg = cfg.resolved()
+    io = io or IOStream(cfg.out_path, cfg.exp_name)
+    if canonical_name(cfg.model) not in reference_export.FAMILIES:
+        raise ValueError(
+            "export supports dgcnn/pointnet/dgcnn_seg/point_transformer/"
+            f"hengshuang/hengshuang_seg, not {cfg.model!r}")
+    if (canonical_name(cfg.model) in SEG_MODELS) != (
+            cfg.task == "pointsegda"):
+        raise ValueError(
+            f"model {cfg.model!r} does not belong to task {cfg.task!r}: "
+            "seg backbones require --task pointsegda; classification "
+            "backbones require --task pointda")
+    sd = reference_export.export_state_dict(_load_model(cfg, io))
+    out_path = cfg.output or os.path.join(io.path, "model.pt")
+    reference_export.save(sd, out_path)
+    summary = {"output": out_path, "model": cfg.model, "keys": len(sd)}
+    io.cprint(json.dumps(summary))
+    return summary
 
 
 def run_aot_export(cfg: EvalConfig, io: IOStream | None = None) -> dict:

@@ -35,8 +35,7 @@ from mlsp_tpu_torch.train.steps import (
 
 
 def check_seg_recipe(cfg) -> None:
-    """Raise NotImplementedError for a model the port does not run yet,
-    ValueError for one that is not a segmenter."""
+    """Raise ValueError for a model that is not a segmenter."""
     if canonical_name(cfg.model) not in SEG_MODELS:
         raise ValueError(f"model={cfg.model!r} is not a PointSegDA "
                          f"segmenter (one of {SEG_MODELS})")

@@ -1,7 +1,8 @@
 """SPST: self-paced self-training on pseudo-labels (counterpart of
 `mlsp_tpu/train/spst.py`, the reference's `PointDA/train_spst.py`).
 
-Load a pretrained PointDA model (a checkpoint of this package), then for
+Load a pretrained PointDA model (a checkpoint of this package, a JAX
+`.ckpt`, or with `from_torch` a reference `model.pt`), then for
 each round select the target clouds the model is confident about (the
 entropy of softmax(softmax(logits)) below `threshold`, the reference's
 double-softmax `select_target_by_conf_v2`, `:239-281`, or the max-prob
@@ -71,17 +72,12 @@ from mlsp_tpu_torch.utils.logging import IOStream
 
 
 def check_spst(cfg: SPSTConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet (a
-    model family not ported, `from_torch`), ValueError for a model that is
-    not a PointDA classifier. SPST trains the classifier alone, so every
-    PointDA family qualifies, PointNet++ too."""
+    """Raise ValueError for a model that is not a PointDA classifier. SPST
+    trains the classifier alone, so every PointDA family qualifies,
+    PointNet++ and Point-ViT too."""
     if canonical_name(cfg.model) not in POINTDA_MODELS:
         raise ValueError(f"SPST with model={cfg.model!r}: not a PointDA "
                          f"classifier (one of {POINTDA_MODELS})")
-    if cfg.from_torch:
-        raise NotImplementedError(
-            "from_torch: reading the reference's torch model.pt is not "
-            "ported yet (see ROADMAP.md)")
 
 
 def draw_spst(generator: torch.Generator, t_x: torch.Tensor,
@@ -243,8 +239,10 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
                        **model_kwargs(cfg))
     if cfg.model_file:
         # weights only: the pretrain stage's optimizer is not SPST's
-        checkpoint.load_model_weights(model, cfg.model_file)
-        io.cprint(f"loaded pretrained model from {cfg.model_file}")
+        checkpoint.load_model_weights(model, cfg.model_file, cfg.from_torch)
+        io.cprint(f"loaded pretrained model from {cfg.model_file}"
+                  + (" (reference torch state_dict)" if cfg.from_torch
+                     else ""))
     opt = make_epoch_lr_optimizer(model, cfg.optimizer, cfg.lr, cfg.wd,
                                   cfg.momentum)
 

@@ -15,8 +15,8 @@ Randomness comes from one explicit `torch.Generator` (on the data's
 device): the step draws every random number first (`draw_*`, each branch
 in the JAX step's order), and `pointda_losses` takes the transformed
 arrays as inputs, as the JAX step's `debug_aux` returns them, so a test
-can feed it the JAX step's own. Every PointDA family of the port runs
-(`check_recipe`); `vit` raises NotImplementedError (ROADMAP.md).
+can feed it the JAX step's own. Every PointDA family runs
+(`check_recipe`).
 """
 
 from __future__ import annotations
@@ -37,8 +37,7 @@ SSL_HEADS = ("defrec", "normal", "density")
 
 
 def check_recipe(cfg) -> None:
-    """Raise NotImplementedError for a model the port does not run yet,
-    ValueError for one that is not a PointDA classifier, and ValueError
+    """Raise ValueError for a model that is not a PointDA classifier, and
     for PointNet++ under a DefRec branch: it has no DefRec head (the JAX
     step fails mid-trace on the missing output; the port refuses first)."""
     name = canonical_name(cfg.model)

@@ -8,10 +8,15 @@ Tensors are saved as CPU copies and loaded with `weights_only=True` and
 `map_location="cpu"`; `load_state_dict` then copies them onto the
 model's device (the optimizer's too, but for Adam's step counts, which
 it keeps on the CPU as a fresh optimizer does). So a checkpoint written
-on the card loads on the CPU and the other way round. The JAX package's
-msgpack `.ckpt` files and reference torch `model.pt` files are not read
-yet (ROADMAP.md, Slice G): a file that is no `torch.save` archive raises
-`ForeignCheckpoint`.
+on the card loads on the CPU and the other way round.
+
+`load_model_weights` also reads the two foreign formats: the JAX
+package's msgpack `.ckpt` (any file that is no `torch.save` archive;
+`utils/jax_checkpoint.py`, its params and batch stats through the
+family's converter of `utils/jax_weights.py`) and, with `from_torch`, a
+reference `model.pt` (`utils/reference_import.py`). Resuming with the
+optimizer (`load_train_state`) takes the port's own format only: a JAX
+`.ckpt` carries optax state, which the port's optimizers cannot take.
 """
 
 from __future__ import annotations
@@ -21,15 +26,10 @@ import zipfile
 
 import torch
 
+from mlsp_tpu_torch.utils import jax_checkpoint, jax_weights, reference_import
 from mlsp_tpu_torch.utils.device import process_index
 
 FORMAT = "mlsp_tpu_torch/train-state-v1"
-
-
-class ForeignCheckpoint(NotImplementedError, ValueError):
-    """A checkpoint in a format the port does not read yet (the JAX
-    package's msgpack `.ckpt`): not implemented, and a bad value for the
-    callers that ask for this package's format."""
 
 
 def _cpu(obj):
@@ -65,19 +65,37 @@ def save_train_state(path: str, model: torch.nn.Module, opt=None, sched=None,
     os.replace(tmp, path)
 
 
-def _read(path: str) -> dict:
+def _exists(path: str) -> None:
     if not path or not os.path.exists(path):
         raise FileNotFoundError(f"model checkpoint not found: {path!r}")
+
+
+def _read(path: str) -> dict:
+    _exists(path)
     # torch.save writes a zip archive; anything else (a JAX msgpack .ckpt)
-    # is refused before the unpickler sees it
+    # never reaches the unpickler
     if not zipfile.is_zipfile(path):
-        raise ForeignCheckpoint(
-            f"checkpoint {path!r} is not a {FORMAT} file (the JAX package's "
-            ".ckpt files are not read yet, see ROADMAP.md)")
+        raise ValueError(
+            f"checkpoint {path!r} is not a {FORMAT} file: a JAX .ckpt does "
+            "not resume here (its optax optimizer state is not carried); "
+            "load_model_weights reads its weights")
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(raw, dict) or raw.get("format") != FORMAT:
         raise ValueError(f"checkpoint {path!r} is not a {FORMAT} file")
     return raw
+
+
+def _jax_state_dict(model: torch.nn.Module, path: str) -> dict:
+    """A JAX `.ckpt`'s params and batch stats as `model`'s state_dict."""
+    raw = jax_checkpoint.read_train_state(path)
+    try:
+        return jax_weights.state_dict_from_jax(
+            model.NAME, {"params": raw["params"],
+                         "batch_stats": raw["batch_stats"]},
+            model.config.get("pergroup"))
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
+        raise ValueError(f"checkpoint {path!r} does not match the model "
+                         f"being restored ({model.NAME}): {e}") from e
 
 
 def _check_model_state(model: torch.nn.Module, state: dict, path: str) -> None:
@@ -95,12 +113,19 @@ def _check_model_state(model: torch.nn.Module, state: dict, path: str) -> None:
             f"(wrong num_class/width/model config?): " + "; ".join(bad))
 
 
-def load_model_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+def load_model_weights(model: torch.nn.Module, path: str,
+                       from_torch: bool = False) -> torch.nn.Module:
     """Load the weights (and BatchNorm statistics) of a checkpoint into
-    `model`, on the model's device; the optimizer state is ignored."""
-    raw = _read(path)
-    _check_model_state(model, raw["model"], path)
-    model.load_state_dict(raw["model"], strict=True)
+    `model`, on the model's device: the port's own format, a JAX `.ckpt`
+    or, with `from_torch`, a reference `model.pt`. Any optimizer state
+    is ignored."""
+    _exists(path)
+    if from_torch:
+        return reference_import.load_reference(model, path)
+    state = (_read(path)["model"] if zipfile.is_zipfile(path)
+             else _jax_state_dict(model, path))
+    _check_model_state(model, state, path)
+    model.load_state_dict(state, strict=True)
     return model
 
 

@@ -117,8 +117,9 @@ class SPSTConfig:
     """Self-paced self-training stage (`train_spst.py:56-100`): fine-tune a
     pretrained PointDA model on confidently pseudo-labelled target clouds.
 
-    `model_file` is a checkpoint of the port (`utils.checkpoint`);
-    `from_torch` (a reference torch model.pt) is not read yet."""
+    `model_file` is a checkpoint of the port or a JAX `.ckpt`
+    (`utils.checkpoint`), or with `from_torch` a reference torch
+    `model.pt`."""
 
     exp_name: str = "SPST"
     out_path: str = "./experiments"
@@ -127,7 +128,7 @@ class SPSTConfig:
     trgt_dataset: str = "scannet"
     model: str = "dgcnn"
     model_file: str = "./experiments/MLSP/model.ckpt"
-    from_torch: bool = False  # a reference torch model.pt (not ported yet)
+    from_torch: bool = False  # model_file is a reference torch model.pt
     seed: int = 1
     num_class: int = 10
     num_points: int = 1024
@@ -214,10 +215,10 @@ class PointSegDAConfig:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    """Standalone checkpoint evaluation and batch inference (`eval`,
-    `infer`). The port serves `task="pointda"` with every PointDA family
-    and `task="pointsegda"` with `dgcnn_seg` and `hengshuang_seg`; `vit`
-    and `from_torch` raise NotImplementedError."""
+    """Standalone checkpoint evaluation, batch inference and export
+    (`eval`, `infer`, `export`). The port serves `task="pointda"` with
+    every PointDA family and `task="pointsegda"` with `dgcnn_seg` and
+    `hengshuang_seg`."""
 
     exp_name: str = "EVAL"
     out_path: str = "./experiments"
@@ -226,8 +227,8 @@ class EvalConfig:
     dataset: str = "scannet"
     split: str = "test"  # "train" | "val" | "test"
     model: str = "dgcnn"
-    model_file: str = ""  # a checkpoint written by `utils.checkpoint`
-    from_torch: bool = False  # a reference torch model.pt (not ported yet)
+    model_file: str = ""  # the port's checkpoint or a JAX .ckpt
+    from_torch: bool = False  # model_file is a reference torch model.pt
     seed: int = 1
     num_class: int = 10
     num_points: int = 1024

@@ -2,13 +2,15 @@
 
 Counterpart of `mlsp_tpu/utils/torch_export.py` (`export_dgcnn`,
 `export_dgcnn_seg`, `export_pointnet`, `export_point_transformer`,
-`export_hengshuang`): flax variables, as nested dicts of arrays (`params`
-and `batch_stats`), become the port's state_dict, which is the reference's
+`export_hengshuang`; Point-ViT has no exporter): flax variables, as
+nested dicts of arrays (`params` and `batch_stats`), become the port's
+state_dict, which is the reference's
 but for what the reference cannot hold: DGCNNSeg's linear edge blocks keep
 the JAX names (`models/dgcnn_seg.py`), PointTransformer adds its q/k/v
 biases and DefRec head, HengshuangSeg its DefRec head, and PointNet++,
 which has no reference layout, keeps the flax module paths
-(`models/pointnet2.py`). Plain dict walking and numpy only: nothing of JAX
+(`models/pointnet2.py`), as do Point-ViT's parts that PointTransformer
+lacks (`models/vit.py`). Plain dict walking and numpy only: nothing of JAX
 is imported.
 
 Layout translations:
@@ -81,14 +83,16 @@ class _Converter:
         self.bn(dst_bn, path + ("BatchNorm_0",))
 
 
-def _transform_net(cv: _Converter, dst: str, src: str) -> None:
-    """A flax `TransformNet` (either mode) -> the reference `transform_net`:
-    2-D 1x1 convs conv2d1-3, then fc1, fc2 (with BN) and fc3."""
+def _transform_net(cv: _Converter, dst: str, src: str | tuple) -> None:
+    """A flax `TransformNet` (either mode; `src` its name or path) -> the
+    reference `transform_net`: 2-D 1x1 convs conv2d1-3, then fc1, fc2
+    (with BN) and fc3."""
+    src = (src,) if isinstance(src, str) else tuple(src)
     for j in range(3):
-        cv.densebn(f"{dst}.conv2d{j + 1}", (src, f"DenseBN_{j}"), 2)
-    cv.densebn(f"{dst}.fc1", (src, "DenseBN_3"), None)
-    cv.densebn(f"{dst}.fc2", (src, "DenseBN_4"), None)
-    cv.dense(f"{dst}.fc3", (src, "Dense_0"), None)
+        cv.densebn(f"{dst}.conv2d{j + 1}", src + (f"DenseBN_{j}",), 2)
+    cv.densebn(f"{dst}.fc1", src + ("DenseBN_3",), None)
+    cv.densebn(f"{dst}.fc2", src + ("DenseBN_4",), None)
+    cv.dense(f"{dst}.fc3", src + ("Dense_0",), None)
 
 
 def _classifier(cv: _Converter, dst: str, src: str) -> None:
@@ -304,8 +308,8 @@ def pointnet2_grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _convert_point_transformer(cv: _Converter) -> dict[str, torch.Tensor]:
-    ge = ("GroupEncoder_0",)
+def _group_encoder(cv: _Converter, ge: tuple[str, ...]) -> None:
+    """A flax `GroupEncoder` -> the reference `Encoder` under `encoder.`."""
     cv.densebn("encoder.first_conv.0", ge + ("DenseBN_0",), 1,
                dst_bn="encoder.first_conv.1")
     cv.dense("encoder.first_conv.3", ge + ("Dense_0",), 1)
@@ -320,11 +324,28 @@ def _convert_point_transformer(cv: _Converter) -> dict[str, torch.Tensor]:
         cv.out[f"encoder.{stage}.0.bias"] = _f32(g["bias"])
         cv.bn(f"encoder.{stage}.1", ge + (bn,))
         cv.dense(f"encoder.{stage}.3", ge + (d_out,), 1)
+
+
+def _convert_point_transformer(cv: _Converter) -> dict[str, torch.Tensor]:
+    _group_encoder(cv, ("GroupEncoder_0",))
+    _token_backbone(cv, ("pos_embed_0",), ("pos_embed_1",), ("norm",))
+    cv.dense("cls_head_finetune.0", ("cls_head_0",), None)
+    cv.dense("cls_head_finetune.3", ("cls_head_1",), None)
+    _point_head(cv, "DefRec", "DefRec")
+    return cv.out
+
+
+def _token_backbone(cv: _Converter, pos0: tuple[str, ...],
+                    pos1: tuple[str, ...], norm: tuple[str, ...]) -> None:
+    """reduce_dim, the tokens, the pos embed (flax paths `pos0` for the
+    3 -> 128 Dense, `pos1` for the 128 -> D one), the blocks and the final
+    LayerNorm (`norm`): PointTransformer's and Point-ViT's, under the
+    reference's names."""
     cv.dense("reduce_dim", ("reduce_dim",), None)
     for name in ("cls_token", "cls_pos"):
         cv.out[name] = _f32(cv.node(cv.params, (name,)))
-    cv.dense("pos_embed.0", ("pos_embed_0",), None)
-    cv.dense("pos_embed.2", ("pos_embed_1",), None)
+    cv.dense("pos_embed.0", pos0, None)
+    cv.dense("pos_embed.2", pos1, None)
     depth = sum(1 for k in cv.params if k.startswith("block"))
     for i in range(depth):
         src, dst = f"block{i}", f"blocks.blocks.{i}"
@@ -345,11 +366,7 @@ def _convert_point_transformer(cv: _Converter) -> dict[str, torch.Tensor]:
         cv.out[f"{dst}.attn.proj.bias"] = _f32(out["bias"])
         cv.dense(f"{dst}.mlp.fc1", (src, "Dense_0"), None)
         cv.dense(f"{dst}.mlp.fc2", (src, "Dense_1"), None)
-    _layer_norm(cv, "norm", ("norm",))
-    cv.dense("cls_head_finetune.0", ("cls_head_0",), None)
-    cv.dense("cls_head_finetune.3", ("cls_head_1",), None)
-    _point_head(cv, "DefRec", "DefRec")
-    return cv.out
+    _layer_norm(cv, "norm", norm)
 
 
 def _layer_norm(cv: _Converter, dst: str, path: tuple[str, ...]) -> None:
@@ -438,3 +455,63 @@ def hengshuang_state_dict_from_jax(variables: Mapping
 def hengshuang_grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
     return _checked(lambda: _convert_hengshuang(_Converter({"params": grads})),
                     "Hengshuang")
+
+
+# ---------------------------------------------------------------------------
+# Point-ViT (no exporter: PointTransformer's names where the modules are
+# shared, flax paths for the rest, `models/vit.py`)
+# ---------------------------------------------------------------------------
+
+_VIT_ENCODERS = {"RelativeGroupEncoder_0", "DgcnnGroupEncoder_0",
+                 "PointnetGroupEncoder_0"}
+
+
+def _convert_vit(cv: _Converter) -> dict[str, torch.Tensor]:
+    if "GroupEncoder_0" in cv.params:  # encoder_type "pointnet"
+        _group_encoder(cv, ("GroupEncoder_0",))
+    for enc in _VIT_ENCODERS & set(cv.params):
+        for name, sub in cv.params[enc].items():
+            if name.startswith("TransformNet_") or name == "trans_net2":
+                _transform_net(cv, f"{enc}.{name}", (enc, name))
+            else:
+                _convert_flax_paths(cv, {name: sub}, (enc,))
+    # flax names the pos embed's Denses by creation order: the outer
+    # (128 -> D) Dense_0 first, then the inner (3 -> 128) Dense_1
+    _token_backbone(cv, ("Dense_1",), ("Dense_0",), ("LayerNorm_0",))
+    cv.dense("head_fc1", ("head_fc1",), None)
+    cv.dense("head_fc2", ("head_fc2",), None)
+    _point_head(cv, "DefRec", "DefRec")
+    return cv.out
+
+
+def vit_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax PointViT variables (any `encoder_type`, initialised with the
+    DefRec head) -> the port's `PointViT` state_dict (`models/vit.py`)."""
+    return _checked(lambda: _convert_vit(_Converter(variables)), "PointViT")
+
+
+def vit_grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
+    return _checked(lambda: _convert_vit(_Converter({"params": grads})),
+                    "PointViT")
+
+
+def state_dict_from_jax(name: str, variables: Mapping,
+                        pergroup: float | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The flax variables of model `name` (the port's own name) -> its
+    state_dict; `pergroup` sets DGCNN's and DGCNNSeg's density bins (their
+    defaults if None)."""
+    bins = {} if pergroup is None else {"pergroup": pergroup}
+    convert = {
+        "dgcnn": lambda v: dgcnn_state_dict_from_jax(v, **bins),
+        "dgcnn_seg": lambda v: dgcnn_seg_state_dict_from_jax(v, **bins),
+        "pointnet": pointnet_state_dict_from_jax,
+        "pointnet2": pointnet2_state_dict_from_jax,
+        "point_transformer": point_transformer_state_dict_from_jax,
+        "hengshuang": hengshuang_state_dict_from_jax,
+        "hengshuang_seg": hengshuang_state_dict_from_jax,
+        "vit": vit_state_dict_from_jax,
+    }
+    if name not in convert:
+        raise ValueError(f"no JAX weight conversion for model {name!r}")
+    return convert[name](variables)

@@ -3,7 +3,8 @@
 # root of a checkout. Six steps:
 #   smoke       python3 chip_smoke.py: every kernel against its plain
 #               version, the serving, train step, data pipeline, trainer
-#               CLI and eval/infer paths, the times
+#               CLI and eval/infer paths, the other families, Point-ViT
+#               and checkpoint interop (`vit_interop`), the times
 #   cuda_tests  the card-only tests (pytest -m cuda; --noconftest, since
 #               tests/conftest.py imports JAX)
 #   profile     scripts/torch_train_profile.py: where a PointDA train

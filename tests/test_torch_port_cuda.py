@@ -625,3 +625,75 @@ def test_family_forward_matches_plain_and_counts(card, name):
     for key in want:
         assert torch.isfinite(got[key]).all()
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=2e-2)
+
+
+# Point-ViT's DGCNN group embedder folds its 64 groups of 32 points into
+# the batch: K1 at [B·G, 32, C] = [2048, 32, C] for B=32, k = 20.
+@pytest.mark.parametrize("C", [3, 64, 128])
+def test_knn_kernel_at_the_vit_embedder_shapes(card, C):
+    x = _x(C, (2048, 32, C), card)
+    gap, tol = knn_set_gap(x, knn_cuda(x, 20), knn_indices_torch(x, 20))
+    assert (gap <= tol).all()
+    xi = _int_cloud(C, (2048, 32, C), card)
+    assert torch.equal(knn_cuda(xi, 20), knn_indices_torch(xi, 20))
+
+
+def test_knn_kernels_launch_above_65535_clouds(card):
+    """One flat grid axis: 65,543 clouds of 32 points (1,024 groups of a
+    folded batch more than gridDim.y takes) launch once and agree index
+    for index on integer coordinates, K1 and K3."""
+    xi = _int_cloud(7, (65_536 + 7, 32, 3), card)
+    want = knn_indices_torch(xi, 20)
+    kernels.reset_launches()
+    assert torch.equal(knn_cuda(xi, 20), want)
+    assert torch.equal(knn_moments_cuda(xi, 20, return_indices=True)[2], want)
+    assert kernels.launches()["knn"] == kernels.launches()["knn_moments"] == 1
+
+
+# launches per vit forward: (K1, K4)
+VIT_FORWARD = {"relative": (0, 1), "pointnet": (0, 1), "dgcnn": (5, 1),
+               "pointnet_tnet": (0, 1)}
+
+
+@pytest.mark.parametrize("enc", list(VIT_FORWARD))
+def test_vit_forward_matches_plain_and_counts(card, enc):
+    """A full-width vit eval forward (with its DefRec head) at B=8 with
+    each group embedder, through the kernels against the same weights on
+    the plain route: K1 and K4 launched as derived; outputs within 2e-2."""
+    g = torch.Generator().manual_seed(0)
+    model = make_model("vit", 10, device=card, generator=g,
+                       encoder_type=enc)
+    ref = make_model("vit", 10, device=card, encoder_type=enc,
+                     knn_backend="torch")
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(make_classification(8, 1024, 10, seed=3)[0]).to(card)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = model(x, ("defrec",))
+        launches = kernels.launches()
+        want = ref(x, ("defrec",))
+    assert (launches["knn"], launches["fps"]) == VIT_FORWARD[enc]
+    assert kernels.launches() == launches
+    for key in want:
+        assert torch.isfinite(got[key]).all()
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=2e-2)
+
+
+def test_from_torch_dgcnn_forward_equals_the_ckpt_forward(card, tmp_path):
+    """A DGCNN checkpoint exported to a reference model.pt and read back
+    with from_torch gives the checkpoint's forward bit for bit."""
+    from mlsp_tpu_torch.utils import checkpoint, reference_export
+
+    g = torch.Generator().manual_seed(1)
+    model = make_model("dgcnn", 10, device=card, generator=g)
+    ckpt = str(tmp_path / "model.ckpt")
+    checkpoint.save_train_state(ckpt, model)
+    pt = str(tmp_path / "model.pt")
+    reference_export.save(reference_export.export_state_dict(model), pt)
+    a = checkpoint.load_model_weights(make_model("dgcnn", 10, device=card),
+                                      ckpt)
+    b = checkpoint.load_model_weights(make_model("dgcnn", 10, device=card),
+                                      pt, from_torch=True)
+    x = torch.from_numpy(make_classification(32, 1024, 10, seed=4)[0]).to(card)
+    with torch.no_grad():
+        assert torch.equal(a(x)["cls"], b(x)["cls"])

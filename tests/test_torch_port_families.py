@@ -521,13 +521,19 @@ class TestStep:
 
 class TestRecipes:
     def test_every_name_and_alias_builds_and_vit_is_queued(self):
+        """Every name and alias builds; `vit` too (ported since: it builds
+        and runs, and an unknown name raises ValueError)."""
         for name, cls in (("pointnet2_ssg", "PointNet2SSG"),
                           ("transformer", "PointTransformer"),
                           ("hengshuang_transformer", "HengshuangTransformer"),
-                          ("HengShuang_Seg", "HengshuangSeg")):
+                          ("HengShuang_Seg", "HengshuangSeg"),
+                          ("ViT", "PointViT")):
             assert type(make_model(name, 10, device="cpu")).__name__ == cls
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_model("vit", 10, device="cpu")
+        vit = make_model("vit", 10, device="cpu", **PT_KW)
+        with torch.no_grad():
+            assert vit(torch.zeros(2, 64, 3))["cls"].shape == (2, 10)
+        with pytest.raises(ValueError, match="unknown model"):
+            make_model("vit_b16", 10, device="cpu")
 
     def test_model_kwargs_follow_the_jax_construction(self):
         cfg = PointDAConfig(knn_backend="torch", dropout=0.3)

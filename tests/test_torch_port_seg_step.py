@@ -192,6 +192,7 @@ class TestPortSegStep:
         assert not torch.equal(labels, torch.from_numpy(y[:2]))
 
     def test_unported_model_raises(self):
+        """`vit` is a classifier (ported): the seg step refuses it."""
         cfg = PointSegDAConfig(model="vit")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="not a PointSegDA segmenter"):
             seg_steps.pointsegda_losses(None, cfg, {}, {}, None)

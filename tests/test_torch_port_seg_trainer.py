@@ -315,8 +315,11 @@ class TestSegTrainer:
             "nonfinite_terms"]
 
     def test_not_ported_raise(self, tmp_path):
+        """`vit` (a classifier) is refused as a segmenter, by the seg
+        trainer and by seg eval; the recipe's head check and SGD as
+        before."""
         base = dict(synthetic=True, device="cpu", out_path=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="not a PointSegDA segmenter"):
             pointsegda_trainer.train_pointsegda(PointSegDAConfig(
                 model="vit", **base))
         with pytest.raises(ValueError, match="head"):
@@ -331,7 +334,7 @@ class TestSegTrainer:
         assert not torch.equal(init.state_dict()["seg.conv1.weight"],
                                model.state_dict()["seg.conv1.weight"])
         assert np.isfinite(res["test"]["loss"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="does not serve"):
             evaluation.run_eval(EvalConfig(task="pointsegda", model="vit",
                                            **base))
 

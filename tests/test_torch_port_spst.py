@@ -276,17 +276,20 @@ def test_degenerate_rounds_advance_weight_decay(tmp_path, small_data, kw):
 
 
 def test_refusals(tmp_path):
-    """A missing file, a foreign (JAX msgpack) checkpoint, from_torch and a
-    model family not ported yet (vit) raise; the last three name
-    ROADMAP.md."""
+    """A missing file raises FileNotFoundError. A malformed (truncated)
+    JAX msgpack `.ckpt` raises ValueError naming it, for `vit` too (ported
+    since); `from_torch` on the port's own checkpoint, which is no
+    reference state_dict, raises the reference's missing-keys report."""
     with pytest.raises(FileNotFoundError):
         spst.train_spst(_cfg(tmp_path, model_file=str(tmp_path / "no.ckpt")))
     foreign = tmp_path / "jax.ckpt"
     foreign.write_bytes(b"\x82\xa6params\x80")
-    for kw in (dict(model_file=str(foreign)), dict(from_torch=True),
-               dict(model="vit")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for kw in (dict(model_file=str(foreign)),
+               dict(model_file=str(foreign), model="vit")):
+        with pytest.raises(ValueError, match="jax.ckpt.*truncated"):
             spst.train_spst(_cfg(tmp_path, **kw))
+    with pytest.raises(ValueError, match="not found in the checkpoint"):
+        spst.train_spst(_cfg(tmp_path, from_torch=True))
 
 
 def test_config_fields_and_defaults_match_jax():

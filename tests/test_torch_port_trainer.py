@@ -9,6 +9,7 @@ CLI in a process that imports no JAX.
 """
 
 import contextlib
+import functools
 import importlib
 import json
 import shutil
@@ -28,7 +29,7 @@ from mlsp_tpu.train.state import create_train_state
 from mlsp_tpu.utils import checkpoint as jcheckpoint
 from mlsp_tpu.utils import metrics as jmetrics
 from mlsp_tpu.utils.config import EvalConfig as JaxEvalConfig
-from mlsp_tpu_torch import cli, make_model
+from mlsp_tpu_torch import cli, make_model, models
 from mlsp_tpu_torch.data.pointda import load_pointda
 from mlsp_tpu_torch.train import evaluation, pointda_trainer
 from mlsp_tpu_torch.utils import checkpoint
@@ -313,19 +314,39 @@ class TestTrainer:
                                                      "port.ckpt"))
         assert "C.mlp3.weight: ckpt (10, 256) != model (8, 256)" in str(e.value)
         assert "C.mlp3.bias" in str(e.value)
-        with pytest.raises(ValueError, match="not a mlsp_tpu_torch"):
+        # the JAX .ckpt of the same weights now loads: the same report
+        with pytest.raises(ValueError) as e:
             checkpoint.load_model_weights(model, str(weights["dir"] /
                                                      "jax.ckpt"))
+        assert "jax.ckpt" in str(e.value)
+        assert "C.mlp3.weight: ckpt (10, 256) != model (8, 256)" in str(e.value)
 
-    def test_not_ported_raise(self, tmp_path):
+    def test_not_ported_raise(self, tmp_path, weights):
+        """What raised NotImplementedError (ported since) runs or raises
+        ValueError: `vit` trains (a narrow one, one epoch at N=32), is
+        refused under `--task pointsegda`, and eval of a malformed `.ckpt`
+        or, with `from_torch`, of a port checkpoint raises naming it; the
+        scan head check as before."""
         base = dict(synthetic=True, device="cpu", out_path=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pointda_trainer.train_pointda(PointDAConfig(model="vit",
-                                                        **base))
-        for kw in ({"task": "pointsegda", "model": "vit"},
-                   {"from_torch": True}, {"model": "vit"}):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                evaluation.run_eval(EvalConfig(**kw, **base))
+        narrow = functools.partial(models.PointViT, trans_dim=32,
+                                   encoder_dims=32, depth=2, heads=2,
+                                   num_group=8, group_size=8,
+                                   fetch_idx=(0, 1))
+        with mock.patch.dict(models._MODELS, vit=narrow):
+            model, _ = pointda_trainer.train_pointda(PointDAConfig(
+                model="vit", epochs=1, num_points=32, batch_size=32,
+                test_batch_size=32, **base))
+        assert model.NAME == "vit"
+        bad = tmp_path / "bad.ckpt"
+        bad.write_bytes(b"\x82\xa6params")
+        for kw, match in (({"task": "pointsegda", "model": "vit"},
+                           "does not serve"),
+                          ({"model_file": str(bad)}, "bad.ckpt"),
+                          ({"model_file": str(weights["dir"] / "port.ckpt"),
+                            "from_torch": True},
+                           "not found in the checkpoint")):
+            with pytest.raises(ValueError, match=match):
+                evaluation.run_eval(EvalConfig(**{**base, **kw}))
         with pytest.raises(ValueError, match="head"):
             pointda_trainer.train_pointda(PointDAConfig(
                 Scan_on_trgt=True, model="pointnet", **base))
