@@ -149,6 +149,44 @@ one JSON line each; any failure exits non-zero before the last line:
                every path; then K1 and K4 per launch at these shapes, the
                vit epoch, eval/infer clouds/s, and the seconds of `export`
                and of a `--from_torch` load
+  serving_g2   a DGCNNSeg and a HengshuangSeg weights bundle (N =
+               2048, 8 classes, seeded random weights and BatchNorm) answer
+               3 requests of 32 clouds on the card with per-point logits
+               (K1 4, and K1 10 + K4 4, a request), held against the plain
+               route (classes >= 99%, max |dprob| <= 2e-2); `aot` (the CLI)
+               of the trainer's DGCNN (N = 1024) and the seg trainer's
+               DGCNNSeg checkpoints: a torch.export program traced on the
+               CPU on the plain route (no kernel, by design: the JAX
+               package forces its XLA kNN into its bundle), moved to the
+               card by ServingModel, its self-check and its answers against
+               the weights bundle's (the kernels); p50 latency and clouds/s
+               of every bundle
+  ddp_ingest   the paper-recipe step at B=32, N=1024, with eval-
+               and with train-mode BN, on 2 gloo ranks sharing the card (16
+               rows each; per rank and step K1 10, K2-fwd 8, K2-bwd 8 on its
+               rows, K3 1 and K4 1 on the global batch), the ranks
+               bit-equal, against one process's step on the plain route
+               replaying the ranks' graphs and FPS orders, float32 heads
+               (eval-mode BN: the rounding bounds; train-mode BN: the
+               train bounds, running statistics too, each plus its own
+               change in the single process under a 1e-6 shift; the same
+               step with BN statistics over each rank's own rows planted
+               must fail them), each rank's K1 graphs at [16, 1024, C]
+               against the plain kNN and K1 index-equal on integer
+               coordinates of those shapes; `torchrun --standalone
+               --nproc_per_node 1` of
+               `trainer --mesh_data 1 --paper_recipe True` (2 epochs, NCCL,
+               the single-process trainer's launches); `standardize_files`
+               over 96 seeded .npy clouds of 1,000-16,384 points through the
+               native C++ ingest (K4 per bucket chunk), bitwise against the
+               same ingest with the plain FPS, its unit cube within 1e-6 of
+               a float64 one, and against the numpy route (the difference,
+               and the clouds whose FPS order flips at a near tie,
+               reported), seconds of both; `calibrate --force` (K2
+               against the gather route at chipcal.SHAPES, K1 138, K2-fwd
+               69, K2-bwd 69 launches), then on its inputs K1 against the
+               plain kNN and K2's statistics and du against the gather
+               route's
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
                kernel's bound, K2-bwd on the repeated-point graph too, K4
@@ -186,9 +224,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mlsp_tpu_torch import ServingModel, cli, make_model, save_serving_bundle
+from mlsp_tpu_torch import (
+    ServingModel,
+    cli,
+    make_model,
+    native,
+    save_serving_bundle,
+)
 from mlsp_tpu_torch.models import model_kwargs
-from mlsp_tpu_torch.data.pipeline import standardize_clouds
+from mlsp_tpu_torch.data import pipeline as pipeline_mod
+from mlsp_tpu_torch.data.pipeline import standardize_clouds, standardize_files
 from mlsp_tpu_torch.data.pointda import load_pointda
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.data.synthetic import (
@@ -218,6 +263,10 @@ from mlsp_tpu_torch.testing import (
     edge_grad_magnitude,
     grad_gaps,
     knn_set_gap,
+    merge_rank_tapes,
+    run_ranks,
+    step_case,
+    step_cases,
 )
 from mlsp_tpu_torch.train import (
     make_optimizer,
@@ -233,7 +282,7 @@ from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
 from mlsp_tpu_torch.train.spst import select_pseudo_labels
 from mlsp_tpu_torch.train.state import torch_cosine_lr
 from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
-from mlsp_tpu_torch.utils import checkpoint
+from mlsp_tpu_torch.utils import checkpoint, chipcal
 from mlsp_tpu_torch.utils.config import (
     PointDAConfig,
     PointSegDAConfig,
@@ -310,6 +359,17 @@ PER_STEP = {"knn": 10, "edge_moments": 8, "edge_moments_bwd": 8,
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-4
 GRAD_RTOL_TRAIN, GRAD_MEDIAN_TRAIN = 2e-2, 2e-3
+# 2 gloo ranks against one process with eval-mode BN (`ddp_ingest`): the
+# ranks' weight gradients sum 16 rows each, the process's 32, in other
+# orders, and these sums cancel heavily in the early layers (rounding
+# reached 3.0e-4 at conv1, median 1.7e-6, on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; the step's own change under a 1e-6 input shift reaches 2.4e-2
+# there)
+DDP_GRAD_RTOL, DDP_GRAD_MEDIAN = 1e-3, 1e-5
+# Their running statistics after the step (relative L2, plus each one's
+# shift floor in train mode): the momentum update carries the BN
+# statistics' rounding, ~1e-7 of a buffer.
+DDP_RUNNING_RTOL = 1e-4
 REPEAT_RTOL = 1e-4
 PERTURB = 1e-6
 GRAPHS_PER_STEP, ORDERS_PER_STEP = 11, 1  # 2 forwards x 5 kNN + K3; PCM
@@ -2685,6 +2745,563 @@ def vit_interop(device, card: str, g: torch.Generator, tmp: str,
     return {"kernel_checks": kc, "by_path": by_path, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# Slice G2: segmentation and AOT serving bundles; data-parallel training,
+# native ingest and calibrate
+# ---------------------------------------------------------------------------
+
+G2_REQUESTS = (32, 32, 32)
+SEG_BUNDLE_FORWARD = {"dgcnn_seg": {"knn": 4},
+                      "hengshuang_seg": {"knn": 10, "fps": 4}}
+INGEST_CLOUDS = 96
+# The native ingest against a float64 unit cube and rotation: float32
+# rounding of coordinates of at most 1.
+INGEST_ATOL = 1e-6
+CAL_REPS = 3 + 20  # chipcal: warm-ups + timed calls, per route and shape
+
+
+def launches_times(forward: dict, n: int) -> dict:
+    return {**dict.fromkeys(PER_STEP, 0),
+            **{k: v * n for k, v in forward.items()}}
+
+
+def prob_gap(a: np.ndarray, b: np.ndarray) -> float:
+    pa, pb = (torch.softmax(torch.from_numpy(t).double(), -1) for t in (a, b))
+    return float((pa - pb).abs().max())
+
+
+def predict_times(predict, x, n: int = 20, warm: int = 3) -> dict:
+    """Host clock around `predict(x)`, which returns host numpy (the card
+    has finished): p50 and clouds/s over `n` calls after `warm`."""
+    for _ in range(warm):
+        predict(x)
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        predict(x)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return {"batch": len(x), "samples": n, "p50_ms": statistics.median(lat),
+            "clouds_per_s": len(x) * n / (sum(lat) / 1e3)}
+
+
+def seg_bundles(device, tmp: str) -> dict:
+    """DGCNNSeg and HengshuangSeg weights bundles (N = 2048, 8 classes) on
+    the card: G2_REQUESTS of 32 clouds each, exact launches, per-point
+    logits against the plain route."""
+    out = {}
+    clouds = make_segmentation(sum(G2_REQUESTS), SEG_N, SEG_NUM_CLASS,
+                               seed=SEED + 30)[0]
+    requests = np.split(clouds, np.cumsum(G2_REQUESTS)[:-1])
+    for i, (name, forward) in enumerate(SEG_BUNDLE_FORWARD.items()):
+        g = torch.Generator().manual_seed(SEED + 31 + i)
+        model = make_model(name, SEG_NUM_CLASS, device=device, generator=g)
+        randomise_batch_norm(model, g)
+        bdir = os.path.join(tmp, f"bundle_{name}")
+        meta = save_serving_bundle(model, bdir, num_points=SEG_N,
+                                   num_class=SEG_NUM_CLASS)
+        served = ServingModel(bdir, device=device)
+        kernels.reset_launches()
+        got = np.concatenate([served.predict(r) for r in requests])
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        plain = make_model(name, SEG_NUM_CLASS, device=device,
+                           knn_backend="torch", **model.config)
+        plain.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            want = np.concatenate([plain(torch.from_numpy(r).to(device),
+                                         ("seg",))["seg"].cpu().numpy()
+                                   for r in requests])
+        res = {"task": meta["task"], "requests": list(G2_REQUESTS),
+               "shape": list(got.shape), "launches": launches,
+               "launches_expected": launches_times(forward,
+                                                   len(G2_REQUESTS)),
+               "finite": bool(np.isfinite(got).all()),
+               "class_agreement": float((got.argmax(-1)
+                                         == want.argmax(-1)).mean()),
+               "max_prob_diff": prob_gap(got, want)}
+        emit("serving_g2", what=f"{name} bundle", **res)
+        check(res["shape"] == [sum(G2_REQUESTS), SEG_N, SEG_NUM_CLASS]
+              and res["finite"] and meta["task"] == "pointsegda",
+              f"the {name} bundle's answers are not per-point logits")
+        check(launches == res["launches_expected"],
+              f"the {name} bundle launched {launches}")
+        check(res["class_agreement"] >= MIN_CLASS_AGREEMENT
+              and res["max_prob_diff"] <= MAX_LOGIT_DIFF,
+              f"the {name} bundle disagrees with the plain route: {res}")
+        out[name] = {**res, "served": served, "x": requests[0]}
+    return out
+
+
+def aot_bundles(device, tmp: str, dgcnn_ckpt: str, seg_ckpt: str) -> dict:
+    """`aot` (the CLI, in-process) of the trainer's DGCNN and the seg
+    trainer's DGCNNSeg checkpoints: the program is traced on the CPU on the
+    plain route, `ServingModel` moves it to the card; its self-check, its
+    answers against the weights bundle's (the kernels) and no launch."""
+    out = {}
+    for name, ckpt, n, nc, extra in (
+            ("dgcnn", dgcnn_ckpt, N, NUM_CLASS, []),
+            ("dgcnn_seg", seg_ckpt, SEG_N, SEG_NUM_CLASS,
+             ["--task", "pointsegda"])):
+        bdir = os.path.join(tmp, f"aot_{name}")
+        log = os.path.join(tmp, f"aot_{name}.log")
+        t0 = time.perf_counter()
+        launches = run_cli(["aot", "--model_file", ckpt, "--output", bdir,
+                            "--out_path", os.path.join(tmp, "runs"),
+                            "--exp_name", f"aot_{name}", *extra], log)
+        seconds = time.perf_counter() - t0
+        with open(log) as f:
+            summary = json.loads(f.read().splitlines()[-1].split(": ", 1)[1])
+        served = ServingModel(bdir, device=device)
+        model = make_model(name, nc, device=device)
+        checkpoint.load_model_weights(model, ckpt)
+        wdir = os.path.join(tmp, f"weights_{name}")
+        save_serving_bundle(model, wdir, num_points=n, num_class=nc)
+        weights = ServingModel(wdir, device=device)
+        x = (make_segmentation(B, n, nc, seed=SEED + 33)[0] if nc == 8
+             else make_classification(B, n, nc, seed=SEED + 33)[0])
+        kernels.reset_launches()
+        got = served.predict(x)
+        torch.cuda.synchronize()
+        aot_launches = kernels.launches()
+        want = weights.predict(x)
+        res = {"format": summary["format"], "task": summary["task"],
+               "export_and_selfcheck_seconds": seconds,
+               "selfcheck_max_diff": summary["selfcheck_max_diff"],
+               "cli_launches": launches, "serving_launches": aot_launches,
+               "shape": list(got.shape),
+               "class_agreement_vs_weights_bundle": float(
+                   (got.argmax(-1) == want.argmax(-1)).mean()),
+               "max_prob_diff_vs_weights_bundle": prob_gap(got, want),
+               "times": predict_times(served.predict, x),
+               "weights_bundle_times": predict_times(weights.predict, x)}
+        emit("serving_g2", what=f"{name} aot", **res)
+        check(not any(launches.values()) and not any(aot_launches.values()),
+              f"the AOT program launched kernels: {launches}, {aot_launches}")
+        check(summary["format"] == "torch.export/pt2-v1"
+              and res["selfcheck_max_diff"] <= MAX_LOGIT_DIFF,
+              f"the {name} AOT bundle failed its self-check: {summary}")
+        check(res["class_agreement_vs_weights_bundle"] >= MIN_CLASS_AGREEMENT
+              and res["max_prob_diff_vs_weights_bundle"] <= MAX_LOGIT_DIFF,
+              f"the {name} AOT bundle disagrees with the kernels: {res}")
+        out[name] = res
+    return out
+
+
+def serving_g2(device, card: str, tmp: str, dgcnn_ckpt: str,
+               seg_ckpt: str) -> dict:
+    seg = seg_bundles(device, tmp)
+    aot = aot_bundles(device, tmp, dgcnn_ckpt, seg_ckpt)
+    times = {name: predict_times(r["served"].predict, r["x"])
+             for name, r in seg.items()}
+    emit("times", what="serving_g2", seg_bundles=times,
+         aot={k: {"aot": r["times"], "weights_bundle":
+                  r["weights_bundle_times"]} for k, r in aot.items()},
+         card=card)
+    launches = {k: sum(r["launches"][k] for r in seg.values())
+                for k in PER_STEP}
+    return {"launches": launches, "aot_launches": dict.fromkeys(PER_STEP, 0),
+            "seg": {k: {kk: v for kk, v in r.items()
+                        if kk not in ("served", "x")}
+                    for k, r in seg.items()}, "aot": aot, "times": times}
+
+
+def _rank_gaps(r0: dict, one: dict) -> dict:
+    """A rank's step against one process's: each loss term's relative gap,
+    each gradient tensor's (`grad_gaps`) and each running statistic's
+    (relative L2)."""
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    return {"loss": {k: abs(r0["metrics"][k] - w) / max(abs(w), 1e-12)
+                     for k, w in one["metrics"].items()},
+            "grad": grad_gaps({k: torch.from_numpy(v)
+                               for k, v in r0["grads"].items()},
+                              {k: torch.from_numpy(v)
+                               for k, v in one["grads"].items()}),
+            "running": {k: rel(r0["state"][k], v)
+                        for k, v in one["state"].items() if "running" in k}}
+
+
+def _ddp_compare(r0: dict, r1: dict, plain: dict, batch: int,
+                 train_bn: bool) -> dict:
+    """Rank 0's step against one process's on the plain route replaying
+    the ranks' kNN graphs and FPS orders, held to the limits of
+    `ddp_gloo_step`. With train-mode BN each loss term, gradient tensor
+    and running statistic has its own floor: its largest change in the
+    single process under input shifts of +-PERTURB. Returns the gaps,
+    the limits and what lies outside."""
+    one = step_case(None, plain, merge_rank_tapes((r0, r1), batch))
+    gaps = _rank_gaps(r0, one)
+    base = ({"loss": LOSS_RTOL, "grad": GRAD_RTOL_TRAIN,
+             "running": DDP_RUNNING_RTOL} if train_bn else
+            {"loss": LOSS_RTOL, "grad": DDP_GRAD_RTOL,
+             "running": DDP_RUNNING_RTOL})
+    floor = {kind: dict.fromkeys(g, 0.0) for kind, g in gaps.items()}
+    if train_bn:
+        for d in (PERTURB, -PERTURB):
+            sh = step_case(None, {**plain, "batch": {
+                k: v + d if v.is_floating_point() else v
+                for k, v in plain["batch"].items()}},
+                merge_rank_tapes((r0, r1), batch))
+            for kind, g in _rank_gaps(sh, one).items():
+                for k, v in g.items():
+                    floor[kind][k] = max(floor[kind][k], v)
+    limit = {kind: {k: base[kind] + 3 * f for k, f in fl.items()}
+             for kind, fl in floor.items()}
+    outside = [(kind, k, gaps[kind][k], lim)
+               for kind, lims in limit.items() for k, lim in lims.items()
+               if gaps[kind][k] > lim]
+    median = statistics.median(gaps["grad"].values())
+    median_limit = ((GRAD_MEDIAN_TRAIN + 3 * statistics.median(
+        floor["grad"].values())) if train_bn else DDP_GRAD_MEDIAN)
+    if median > median_limit:
+        outside.append(("grad", "median over the tensors", median,
+                        median_limit))
+
+    def nearest(kind):  # the entries closest to their limits
+        ratio = {k: gaps[kind][k] / limit[kind][k] for k in gaps[kind]}
+        return [{"name": k, "gap": gaps[kind][k], "limit": limit[kind][k]}
+                for k in sorted(ratio, key=ratio.get)[-3:]]
+
+    return {"one": one,
+            "plain_launches": one["launches"],
+            "same_grad_set": set(r0["grads"]) == set(one["grads"]),
+            "loss_rel_gap": gaps["loss"],
+            "grad_gap": {"max": max(gaps["grad"].values()),
+                         "median": median, "median_limit": median_limit,
+                         "nearest_limit": nearest("grad")},
+            "running_gap": {"max": max(gaps["running"].values()),
+                            "nearest_limit": nearest("running")},
+            "grad_floor_shifted": {
+                "median": statistics.median(floor["grad"].values()),
+                "max": max(floor["grad"].values())} if train_bn else None,
+            "outside_count": len(outside),
+            "outside_kinds": sorted({w for w, *_ in outside}),
+            "outside": [{"what": w, "name": k, "gap": g, "limit": lim}
+                        for w, k, g, lim in sorted(
+                            outside, key=lambda o: -o[2] / o[3])[:8]]}
+
+
+def ddp_gloo_step(device, card: str) -> dict:
+    """The paper-recipe step at B=32, N=1024 on 2 gloo ranks sharing the
+    card (16 rows each, NCCL refuses two ranks on one device), through the
+    kernels, with eval-mode and with train-mode BN, against one process's
+    step on the plain route replaying the ranks' kNN graphs and FPS
+    orders; float32 heads (bf16 matmuls over 16 rows and over 32 round
+    apart by ~1e-3, which no rounding bound of float32 covers).
+    Eval-mode BN: losses within LOSS_RTOL, gradients within DDP_GRAD_RTOL,
+    their median within DDP_GRAD_MEDIAN (rounding alone). Train-mode BN,
+    where the ranks' BN statistics (combined from each rank's own) and
+    matmuls over half the rows round apart from the single process and
+    the step amplifies it through ReLU and max-pool kinks: each loss term
+    within LOSS_RTOL, each gradient tensor within GRAD_RTOL_TRAIN, their
+    median within GRAD_MEDIAN_TRAIN, each running statistic within
+    DDP_RUNNING_RTOL, each plus 3 times its own change in the single
+    process under a +-PERTURB input shift (`_ddp_compare`), as
+    tests/test_torch_port_ddp.py. The control: the same train-mode step
+    with the planted fault of BN statistics over each rank's own rows
+    (`testing.local_batch_norm`) must leave these limits in the gradients
+    and in the running statistics. Each rank also holds every K1 graph of
+    its step ([16, 1024, C], a shape no other phase gives K1) against the
+    plain kNN of the same input (`Tape.knn_against_plain`), and K1 must
+    give the plain version's indices on integer coordinates of each of
+    those shapes."""
+    cfg = dataclasses.replace(train_cfg(), head_dtype="f32")
+    model = train_model(cfg, device)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    src_x, src_y, trgt_x = (t.cpu() for t in train_batches(cfg, device)[0])
+    case = {"kind": "pointda", "model": "dgcnn", "num_class": NUM_CLASS,
+            "kwargs": {**model_kwargs(cfg), "k": K}, "state": state,
+            "cfg": cfg, "seed": SEED, "device": str(device),
+            "batch": {"src_x": src_x, "src_y": src_y, "trgt_x": trgt_x}}
+    cases = {"eval_bn": {**case, "cfg": dataclasses.replace(
+        cfg, debug_bn_eval=True)}, "train_bn": case,
+        "train_bn_local_fault": case}
+    planted = [name.endswith("fault") for name in cases]
+    t0 = time.perf_counter()
+    r0s, r1s = run_ranks(2, step_cases, list(cases.values()), planted,
+                         backend="gloo", device=str(device), timeout_s=300)
+    seconds = time.perf_counter() - t0
+    run = {"ranks": 2, "backend": "gloo", "batch": cfg.batch_size,
+           "rows_per_rank": cfg.batch_size // 2, "points": cfg.num_points,
+           "seconds_spawn_to_results": seconds}
+    out = dict(run)
+    launches = dict.fromkeys(PER_STEP, 0)
+    knn_shapes = set()
+    for (name, c), r0, r1, fault in zip(cases.items(), r0s, r1s, planted):
+        plain = {**c, "cfg": dataclasses.replace(c["cfg"], knn_backend="torch"),
+                 "kwargs": {**c["kwargs"], "knn_backend": "torch"}}
+        res = _ddp_compare(r0, r1, plain, cfg.batch_size,
+                           not c["cfg"].debug_bn_eval)
+        res.pop("one")
+        knn = r0["knn_against_plain"] + r1["knn_against_plain"]
+        knn_shapes |= {(tuple(r["shape"]), r["k"]) for r in knn}
+        res.update(launches_per_rank=[r0["launches"], r1["launches"]],
+                   ranks_bit_equal=r0["metrics"] == r1["metrics"] and all(
+                       np.array_equal(g, r1["grads"][k])
+                       for k, g in r0["grads"].items()),
+                   losses=r0["metrics"],
+                   knn_vs_plain={"launches": len(knn),
+                                 "shapes": sorted({str(r["shape"])
+                                                   for r in knn}),
+                                 "max_gap_over_tol": max(
+                                     r["max_gap_over_tol"] for r in knn),
+                                 "min_rows_same_indices": min(
+                                     r["rows_same_indices"] for r in knn)})
+        emit("ddp_ingest", what=f"2 gloo ranks on the card vs one process, "
+             f"{name}", **run, **res)
+        check(res["ranks_bit_equal"], f"the two ranks disagree ({name})")
+        check(r0["launches"] == PER_STEP and r1["launches"] == PER_STEP,
+              f"a rank's step launched {r0['launches']}, {r1['launches']}")
+        check(len(knn) == 2 * PER_STEP["knn"]
+              and res["knn_vs_plain"]["max_gap_over_tol"] <= 1.0,
+              f"K1 on a rank disagrees with the plain kNN: "
+              f"{res['knn_vs_plain']}")
+        check(not any(res["plain_launches"].values()) and res["same_grad_set"],
+              f"the plain route launched {res['plain_launches']} or another "
+              "gradient set")
+        if fault:
+            check({"grad", "running"} <= set(res["outside_kinds"]),
+                  "the limits do not catch BN statistics over each rank's "
+                  f"own rows: {res['outside']}")
+        else:
+            check(not res["outside_count"],
+                  f"2 ranks differ from one process ({name}): "
+                  f"{res['outside']}")
+            for k in PER_STEP:
+                launches[k] += r0["launches"][k] + r1["launches"][k]
+        out[name] = res
+    g = torch.Generator().manual_seed(SEED + 50)
+    for shape, k in sorted(knn_shapes):
+        xi = integer_cloud(g, shape, device)
+        unequal = int((knn_cuda(xi, k) != knn_indices_torch(xi, k)
+                       ).any(-1).sum())
+        emit("ddp_ingest", kernel="knn", input="integer coordinates at a "
+             "rank's shape", shape=list(shape), k=k, rows_unequal=unequal)
+        check(unequal == 0, f"K1 indices differ on integer coordinates at "
+              f"a rank's shape {shape}")
+    return {"launches": launches, **out}
+
+
+def cli_rank(out: str, argv: list) -> int:
+    """A rank of `torchrun ... chip_smoke.py --cli-rank OUT ARGV`: the CLI
+    in this process, then its return code, kernel launches and process
+    group into OUT (JSON)."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seen = {}
+    destroy = dist.destroy_process_group
+
+    def record_then_destroy(*args, **kwargs):
+        seen.update(backend=dist.get_backend(),
+                    world_size=dist.get_world_size())
+        return destroy(*args, **kwargs)
+
+    kernels.reset_launches()
+    with mock.patch.object(dist, "destroy_process_group",
+                           record_then_destroy):
+        rc = cli.main(argv)
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": kernels.launches(), **seen}, f)
+    return rc
+
+
+def ddp_cli(tmp: str) -> dict:
+    """`torchrun --standalone --nproc_per_node 1` of the trainer CLI with
+    `--mesh_data 1`: a world of one over NCCL, 2 epochs at full width,
+    exact launches (those of the single-process trainer)."""
+    out = os.path.join(tmp, "ddp_cli.json")
+    argv = ["trainer", "--mesh_data", "1", "--paper_recipe", "True",
+            "--synthetic", "True", "--epochs", str(TRAINER_EPOCHS),
+            "--out_path", os.path.join(tmp, "runs"), "--exp_name", "ddp"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "--cli-rank",
+           out, *argv]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(done.returncode == 0,
+          f"torchrun trainer --mesh_data 1 exited {done.returncode}:\n"
+          f"{done.stderr[-4000:]}")
+    with open(out) as f:
+        rank = json.load(f)
+    with open(os.path.join(tmp, "runs", "ddp", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    res = {"argv": argv, "seconds_with_startup": seconds, **rank,
+           "launches_expected": trainer_launches(TRAINER_EPOCHS),
+           "records": len(records),
+           "epoch_seconds": [r["seconds"] for r in records],
+           "finite": all(np.isfinite(v) for r in records
+                         for v in r["train"].values()),
+           "val": [{k: r[k]["acc"] for k in ("src_val", "trgt_val")}
+                   for r in records]}
+    emit("ddp_ingest", what="torchrun trainer --mesh_data 1", **res)
+    check(rank.get("backend") == "nccl" and rank.get("world_size") == 1,
+          f"the trainer ran on {rank}")
+    check(rank["launches"] == res["launches_expected"],
+          f"the data-parallel trainer launched {rank['launches']}")
+    check(res["finite"] and res["records"] == TRAINER_EPOCHS,
+          f"the data-parallel trainer left {res['records']} records")
+    return res
+
+
+def ingest(device, tmp: str) -> dict:
+    """`standardize_files` over INGEST_CLOUDS seeded .npy clouds of 1,000
+    to 16,384 points: the native route (C++ ingest, K4 per bucket chunk)
+    against the same ingest with the plain FPS on the card (bitwise); its
+    unit-cubed, rotated clouds before FPS against a float64 reference
+    (within INGEST_ATOL); against the numpy route, which sums its unit
+    cube in float32 (its difference reported, and the clouds whose FPS
+    order flips at a near tie counted, not failed)."""
+    d = os.path.join(tmp, "npy")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(SEED + 40)
+    files = []
+    for i, n in enumerate(rng.integers(1000, FPS_LIMIT + 1, INGEST_CLOUDS)):
+        pc = (make_classification(1, int(n), NUM_CLASS, seed=SEED + 41 + i
+                                  )[0][0] * rng.uniform(0.5, 2.0)
+              + rng.uniform(-1, 1, 3)).astype(np.float32)
+        path = os.path.join(d, f"{i:03d}.npy")
+        np.save(path, pc)
+        files.append(path)
+    kw = dict(rotate_axis="x", rotate_angle=-np.pi / 2, device=device)
+    native.load()  # the g++ build is set-up
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = standardize_files(files, N, native_ingest=True, **kw)
+    seconds = time.perf_counter() - t0
+    launches = kernels.launches()
+    t0 = time.perf_counter()
+    numpy_route = standardize_files(files, N, native_ingest=False, **kw)
+    numpy_seconds = time.perf_counter() - t0
+    plain_fps = standardize_files(files, N, native_ingest=True,
+                                  backend="torch", **kw)
+    sizes = native.npy_sizes(files)
+    stage_gap = numpy_stage_gap = 0.0
+    c, sn = np.cos(-np.pi / 2), np.sin(-np.pi / 2)
+    rot_x = np.array([[1, 0, 0], [0, c, -sn], [0, sn, c]])
+    for f, n in zip(files, sizes):
+        nat = native.load_npy_clouds([f], int(n), rotate_axis="x",
+                                     rotate_angle=-np.pi / 2)[0][0]
+        x = np.load(f).astype(np.float64)
+        x -= x.mean(0)
+        ref = x / np.linalg.norm(x, axis=1).max() @ rot_x
+        stage_gap = max(stage_gap, float(np.abs(nat - ref).max()))
+        plain = pipeline_mod._rotate(pipeline_mod._unit_cube(np.load(f)),
+                                     "x", -np.pi / 2)
+        numpy_stage_gap = max(numpy_stage_gap,
+                              float(np.abs(nat - plain).max()))
+    buckets: dict[int, int] = {}
+    for n in sizes:
+        b = 1 << (int(n) - 1).bit_length()
+        buckets[b] = buckets.get(b, 0) + 1
+    differ = np.abs(got - numpy_route).max(axis=(1, 2))
+    res = {"clouds": INGEST_CLOUDS, "sizes": [int(sizes.min()),
+                                              int(sizes.max())],
+           "buckets": {str(k): v for k, v in sorted(buckets.items())},
+           "launches": launches,
+           "launches_expected": {**dict.fromkeys(PER_STEP, 0), "fps": sum(
+               -(-c // 64) for c in buckets.values())},
+           "native_seconds": seconds, "numpy_seconds": numpy_seconds,
+           "native_vs_plain_fps_bitwise": bool(np.array_equal(got,
+                                                              plain_fps)),
+           "stage_max_abs_diff_vs_float64": stage_gap,
+           "stage_max_abs_diff_vs_numpy": numpy_stage_gap,
+           "clouds_equal_to_numpy_route_within_2e-6": int(
+               (differ <= 2e-6).sum()),
+           "max_abs_diff_vs_numpy_route": float(differ.max()),
+           "shape": list(got.shape)}
+    emit("ddp_ingest", what="native ingest", **res)
+    check(res["native_vs_plain_fps_bitwise"]
+          and got.shape == (INGEST_CLOUDS, N, 3),
+          "the native ingest's K4 route differs from its plain route")
+    check(stage_gap <= INGEST_ATOL,
+          f"the native ingest's unit cube is off by {stage_gap}")
+    check(launches == res["launches_expected"],
+          f"the native ingest launched {launches}")
+    return res
+
+
+def calibrate_routes(device) -> dict:
+    """At each shape of chipcal.SHAPES, on the seeded inputs `calibrate`
+    times (`chipcal.edge_routes`): K1's graph against the plain kNN
+    (`check_knn`), and K2's route against the gather route, as
+    `check_edge` and `check_edge_bwd` hold them: max and min bit-equal,
+    the sums within 1e-5 of the sums of their terms' magnitudes, du
+    within 1e-5 of the magnitudes of its terms (`edge_grad_magnitude`)."""
+    out = {}
+    for shape in chipcal.SHAPES:
+        xg, u, cot, routes = chipcal.edge_routes(shape, device)
+        knn = check_knn(f"calibrate {shape}", xg, phase="ddp_ingest")
+        (want, want_du), (got, got_du) = (routes["moments"](),
+                                          routes["fused"]())
+        want, got = ([t.detach() for t in s] for s in (want, got))
+        idx = knn_cuda(xg, K)
+        uu = u.detach()
+        torch.cuda.synchronize()
+        res = {"shape": shape, "max_min_bit_equal": bool(
+            torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))}
+        scale = (edge_moments_torch(uu.abs(), idx, True)[2], want[3])
+        for label, gs, ws, sc in zip(("s1", "s2"), got[2:], want[2:], scale):
+            res[f"{label}_max_err_over_tol"] = float(
+                ((gs - ws).abs() / (1e-5 * sc + 1e-30)).max())
+        res["du_max_abs_err"] = float((got_du - want_du).abs().max())
+        res["du_max_err_over_tol"] = float(
+            ((got_du - want_du).abs()
+             / (1e-5 * edge_grad_magnitude(uu, idx, tuple(cot)) + 1e-30)
+             ).max())
+        emit("ddp_ingest", what="calibrate: K2 against the gather route",
+             knn_max_gap_over_tol=knn["max_gap_over_tol"], **res)
+        check(res["max_min_bit_equal"]
+              and max(res["s1_max_err_over_tol"], res["s2_max_err_over_tol"],
+                      res["du_max_err_over_tol"]) <= 1.0,
+              f"K2 disagrees with the gather route at {shape}: {res}")
+        out[shape] = res
+    return out
+
+
+def calibrate(device, tmp: str) -> dict:
+    """`calibrate --force` (the CLI, in-process): both routes' ms at each
+    shape of chipcal.SHAPES; then the two routes held against each other
+    on the same inputs (`calibrate_routes`)."""
+    log = os.path.join(tmp, "calibrate.log")
+    launches = run_cli(["calibrate", "--force"], log)
+    with open(log) as f:
+        records = json.load(f)
+    n = len(chipcal.SHAPES)
+    expected = {**dict.fromkeys(PER_STEP, 0), "knn": 2 * CAL_REPS * n,
+                "edge_moments": CAL_REPS * n,
+                "edge_moments_bwd": CAL_REPS * n}
+    res = {"records": records, "launches": launches,
+           "launches_expected": expected,
+           "speedup": {k: r["moments_ms"] / r["fused_ms"]
+                       for k, r in records.items()}}
+    emit("ddp_ingest", what="calibrate --force", **res)
+    check(set(records) == set(chipcal.SHAPES) and all(
+        r["moments_ms"] > 0 and r["fused_ms"] > 0 for r in records.values()),
+        f"calibrate returned {records}")
+    check(launches == expected, f"calibrate launched {launches}")
+    return {**res, "routes": calibrate_routes(device)}
+
+
+def ddp_ingest(device, card: str, tmp: str) -> dict:
+    dd = ddp_gloo_step(device, card)
+    dc = ddp_cli(tmp)
+    ing = ingest(device, tmp)
+    cal = calibrate(device, tmp)
+    emit("times", what="ddp_ingest", card=card,
+         ingest_seconds={"native": ing["native_seconds"],
+                         "numpy": ing["numpy_seconds"],
+                         "clouds": INGEST_CLOUDS},
+         ddp_cli_epoch_seconds=dc["epoch_seconds"],
+         calibrate_ms=cal["records"])
+    return {"by_path": {
+        "ddp": {k: dd["launches"][k] + dc["launches"][k] for k in PER_STEP},
+        "ingest": ing["launches"], "calibrate": cal["launches"]}}
+
+
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
 # one B=32 serving forward, the train-only kernels over one B=32 train step.
 KERNELS = {
@@ -2777,6 +3394,9 @@ def run(device: torch.device, card: str) -> None:
         fam = families(device, card, g, tmp)
         vit = vit_interop(device, card, g, tmp, trn["model_file"],
                           seg_trn["model_file"])
+        g2 = serving_g2(device, card, tmp, trn["model_file"],
+                        seg_trn["model_file"])
+        ddp = ddp_ingest(device, card, tmp)
 
         kt = kernel_times(device, card, knn_in, edge_in, g)
         serving_times(srv["served"], srv["plain"], device, card)
@@ -2844,7 +3464,10 @@ def run(device: torch.device, card: str) -> None:
                    "seg_eval": seg_ei["seg_eval_kernels"]["launches"][kname],
                    "seg_infer": seg_ei["seg_infer_kernels"]["launches"][kname],
                    **{path: n[kname] for path, n in fam["by_path"].items()},
-                   **{path: n[kname] for path, n in vit["by_path"].items()}}
+                   **{path: n[kname] for path, n in vit["by_path"].items()},
+                   "seg_bundle": g2["launches"][kname],
+                   "aot": g2["aot_launches"][kname],
+                   **{path: n[kname] for path, n in ddp["by_path"].items()}}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2861,6 +3484,8 @@ def run(device: torch.device, card: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cli-rank"]:  # a torchrun rank of `ddp_cli`
+        return cli_rank(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1

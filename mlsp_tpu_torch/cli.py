@@ -9,6 +9,9 @@
         experiments/MLSP_adobe2faust_adobe_faust/model.ckpt
     python -m mlsp_tpu_torch.cli export --model_file experiments/MLSP/model.ckpt
     python -m mlsp_tpu_torch.cli eval --from_torch True --model_file model.pt
+    python -m mlsp_tpu_torch.cli aot --model_file experiments/MLSP/model.ckpt
+    python -m mlsp_tpu_torch.cli calibrate
+    torchrun --nproc_per_node 2 -m mlsp_tpu_torch.cli trainer --mesh_data 2
 
 Every config field but the test-only `debug_*` ones is a flag; booleans
 take true/false/1/0/yes/no like the reference's str2bool. `--config FILE`
@@ -16,8 +19,12 @@ take true/false/1/0/yes/no like the reference's str2bool. `--config FILE`
 defaults < YAML < flags given on the command line. The entry points run
 on the CUDA card; `--device cpu` runs them on the CPU. `--model_file`
 takes the port's checkpoints and the JAX package's `.ckpt` files, and with
-`--from_torch True` a reference `model.pt`. Not registered yet
-(ROADMAP.md): `aot`, `download`, `calibrate` and the mesh flags.
+`--from_torch True` a reference `model.pt`. `--mesh_data R` trains
+data-parallel on R processes started by torchrun (NCCL between cards,
+gloo with `--device cpu`; R = 1 without torchrun starts a world of one);
+each rank runs on cuda:LOCAL_RANK unless `--device` says otherwise. Not
+ported (ROADMAP.md): `download` (it fetches over the network) and
+`--mesh_points > 1`.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import json
+import os
 import sys
 
 # Sentinel default: the flag was not given. Not a str, which argparse
@@ -74,6 +83,46 @@ def _add_profile_arg(parser: argparse.ArgumentParser) -> None:
                              "--epochs run)")
 
 
+def _add_mesh_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--mesh_data", type=int, default=0,
+                        help="data-parallel mesh axis size (0 = no mesh; "
+                             "replaces the reference's nn.DataParallel)")
+    parser.add_argument("--mesh_points", type=int, default=1,
+                        help="points-sharding mesh axis size (the JAX "
+                             "package shards the O(N^2) distance "
+                             "intermediates over it; not ported: values "
+                             "above 1 raise)")
+
+
+def _mesh_from_args(args: argparse.Namespace, device):
+    """The data-parallel mesh the flags ask for, or None. `--mesh_data R`
+    joins the world torchrun describes (WORLD_SIZE must be R) or, with
+    R = 1 and no torchrun, starts a world of one."""
+    from mlsp_tpu_torch import parallel
+
+    if not (args.mesh_data or args.mesh_points > 1):
+        return None
+    if args.mesh_points > 1:
+        return parallel.make_mesh(points=args.mesh_points)  # raises
+    world = os.environ.get("WORLD_SIZE")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if world is None and args.mesh_data != 1:
+        raise ValueError(
+            f"--mesh_data {args.mesh_data} needs {args.mesh_data} processes: "
+            f"launch with torchrun --nproc_per_node {args.mesh_data} -m "
+            "mlsp_tpu_torch.cli ...")
+    if world is not None and int(world) != args.mesh_data:
+        raise ValueError(f"--mesh_data {args.mesh_data} but torchrun started "
+                         f"WORLD_SIZE={world} processes")
+    if world is None:
+        parallel.init_local_world(backend)
+    else:
+        parallel.init_distributed(backend)
+    if device.type == "cuda" and device.index is None:
+        device = None  # cuda:LOCAL_RANK
+    return parallel.make_mesh(args.mesh_data, device=device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     from mlsp_tpu_torch.utils.config import (
         EvalConfig,
@@ -90,15 +139,15 @@ def build_parser() -> argparse.ArgumentParser:
     _add_config_args(p_train, PointDAConfig)
     p_train.add_argument("--paper_recipe", type=_str2bool, default=False,
                          help="apply the train.sh headline flag set")
-    _add_profile_arg(p_train)
     p_spst = sub.add_parser(
         "spst", help="self-paced self-training of a pretrained PointDA model "
                      "on pseudo-labelled target clouds")
     _add_config_args(p_spst, SPSTConfig)
-    _add_profile_arg(p_spst)
     p_seg = sub.add_parser("seg", help="PointSegDA segmentation DA")
     _add_config_args(p_seg, PointSegDAConfig)
-    _add_profile_arg(p_seg)
+    for p in (p_train, p_spst, p_seg):
+        _add_mesh_args(p)
+        _add_profile_arg(p)
     p_eval = sub.add_parser(
         "eval", help="evaluate a checkpoint (the port's, a JAX .ckpt, or a "
                      "reference model.pt via --from_torch) on a dataset "
@@ -113,6 +162,18 @@ def build_parser() -> argparse.ArgumentParser:
                        "model.pt (inverse of --from_torch; dgcnn/pointnet/"
                        "dgcnn_seg/point_transformer/hengshuang)")
     _add_config_args(p_export, EvalConfig)
+    p_aot = sub.add_parser(
+        "aot", help="freeze a checkpoint into an AOT serving bundle "
+                    "(a torch.export eval program with its weights; loads "
+                    "and runs with NO model code)")
+    _add_config_args(p_aot, EvalConfig)
+    p_cal = sub.add_parser(
+        "calibrate", help="time this card's EdgeConv neighbourhood "
+                          "statistics, the gather route against the kernels, "
+                          "over the shape grid and cache the per-shape "
+                          "records")
+    p_cal.add_argument("--force", action="store_true",
+                       help="re-measure even if a cached record exists")
     return parser
 
 
@@ -126,15 +187,36 @@ def main(argv=None) -> int:
     from mlsp_tpu_torch.utils.device import resolve_device
 
     args = build_parser().parse_args(argv)
+    if args.command == "calibrate":
+        from mlsp_tpu_torch.utils import chipcal
+
+        records = chipcal.edge_calibration(force=args.force)
+        if not records:
+            print("calibration unavailable (no CUDA device and no cache)")
+            return 1
+        print(json.dumps(records, indent=1))
+        return 0
     cls = {"trainer": PointDAConfig, "spst": SPSTConfig,
            "seg": PointSegDAConfig}.get(args.command, EvalConfig)
     cfg = _to_config(cls, args)
     try:
-        resolve_device(cfg.device or None)
+        device = resolve_device(cfg.device or None)
     except RuntimeError as e:
         print(f"mlsp_tpu_torch: {e} (--device cpu)", file=sys.stderr)
         return 1
+    mesh = (_mesh_from_args(args, device)
+            if args.command in ("trainer", "spst", "seg") else None)
+    try:
+        _run(args, cfg, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+    return 0
+
+
+def _run(args: argparse.Namespace, cfg, mesh) -> None:
     trace = contextlib.nullcontext()
     if getattr(args, "profile_dir", ""):
         from mlsp_tpu_torch.utils.profiling import device_trace
@@ -146,23 +228,23 @@ def main(argv=None) -> int:
         if args.paper_recipe:
             cfg = cfg.paper_recipe
         with trace:
-            train_pointda(cfg)
+            train_pointda(cfg, mesh=mesh)
     elif args.command == "spst":
         from mlsp_tpu_torch.train.spst import train_spst
 
         with trace:
-            train_spst(cfg)
+            train_spst(cfg, mesh=mesh)
     elif args.command == "seg":
         from mlsp_tpu_torch.train.pointsegda_trainer import train_pointsegda
 
         with trace:
-            train_pointsegda(cfg)
+            train_pointsegda(cfg, mesh=mesh)
     else:
         from mlsp_tpu_torch.train import evaluation
 
         {"eval": evaluation.run_eval, "infer": evaluation.run_infer,
-         "export": evaluation.run_export}[args.command](cfg)
-    return 0
+         "export": evaluation.run_export,
+         "aot": evaluation.run_aot_export}[args.command](cfg)
 
 
 if __name__ == "__main__":

@@ -5,14 +5,15 @@ Decoded clouds live as one [M, N, 3] numpy array. Preprocessing (unit
 cube, alignment rotation, FPS down to a fixed N) runs once, up front: the
 unit cube and the rotation in numpy on the host, FPS on the device it is
 given, chunk by chunk, through `ops.fps` (on the card the K4 kernel). The
-per-epoch train augmentation runs inside the train step. The native C++
-ingest of the JAX package (`mlsp_tpu/native.py`) is not ported yet
-(ROADMAP.md): `standardize_files` takes its numpy route.
+per-epoch train augmentation runs inside the train step.
+`standardize_files` reads `.npy` files through the native C++ ingest
+(`native.py`) or, with `native_ingest=False`, with numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections.abc import Iterator
 
 import numpy as np
@@ -172,9 +173,47 @@ def standardize_files(files: list[str], num_points: int,
                       rotate_axis: str | None = None,
                       rotate_angle: float = 0.0,
                       rotate_mask: np.ndarray | None = None,
-                      device: str | torch.device | None = None) -> np.ndarray:
-    """`standardize_clouds` on .npy files, read with numpy."""
-    return standardize_clouds([np.load(f) for f in files], num_points,
-                              rotate_axis=rotate_axis,
-                              rotate_angle=rotate_angle,
-                              rotate_mask=rotate_mask, device=device)
+                      native_ingest: bool | None = None,
+                      device: str | torch.device | None = None,
+                      backend: str = "auto") -> np.ndarray:
+    """`standardize_clouds` straight from .npy files
+    (`mlsp_tpu/data/pipeline.py::standardize_files`).
+
+    With `native_ingest` (None: unless MLSP_NATIVE_INGEST=0) the C++
+    thread pool (`native.load_npy_clouds`) parses the files, decodes xyz
+    to float32, scales to the unit cube, rotates and tile-pads them into
+    the same buckets as `standardize_clouds` (`num_points` for small
+    clouds, the next power of two for large ones, chunks of 64); the
+    large buckets then go through FPS on `device` (K4 on the card). A
+    failed g++ build raises (`native.NativeBuildError`); with
+    `native_ingest=False` the files are read with numpy. The two routes
+    agree to float32 rounding: the native unit cube sums in double."""
+    if native_ingest is None:
+        native_ingest = os.environ.get("MLSP_NATIVE_INGEST", "1") != "0"
+    if not native_ingest:
+        return standardize_clouds([np.load(f) for f in files], num_points,
+                                  rotate_axis=rotate_axis,
+                                  rotate_angle=rotate_angle,
+                                  rotate_mask=rotate_mask, device=device,
+                                  backend=backend)
+    from mlsp_tpu_torch import native
+
+    sizes = native.npy_sizes(files)
+    out = np.empty((len(files), num_points, 3), np.float32)
+    buckets: dict[int, list[int]] = {}
+    for i, p in enumerate(sizes):
+        padded = (num_points if p <= num_points
+                  else 1 << (int(p) - 1).bit_length())
+        buckets.setdefault(padded, []).append(i)
+    if any(padded != num_points for padded in buckets):
+        device = resolve_device(device)
+    for padded, ids in buckets.items():
+        for s in range(0, len(ids), _PAD_CHUNK):
+            sel = np.asarray(ids[s:s + _PAD_CHUNK])
+            chunk, _ = native.load_npy_clouds(
+                [files[i] for i in sel], padded, unit_cube=True,
+                rotate_axis=rotate_axis, rotate_angle=rotate_angle,
+                rotate_mask=None if rotate_mask is None else rotate_mask[sel])
+            out[sel] = (chunk if padded == num_points
+                        else _fps_chunk(chunk, num_points, device, backend))
+    return out

@@ -1,6 +1,11 @@
 """MLSP loss functions (counterpart of `mlsp_tpu/losses/losses.py`;
 channels-last, masks [B, N]). Weights and normalisation follow the
 reference; `p_vec` density predictions are post-softmax probabilities.
+
+A loss normalised by a count (the masked terms) divides by the batch-wide
+count through `parallel.global_count`, so inside `data_parallel` each
+rank's loss is its share of the global one (see `parallel.mesh`); means
+over rows need nothing, as the ranks' rows are equal in number.
 """
 
 from __future__ import annotations
@@ -9,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from mlsp_tpu_torch.ops.chamfer import reconstruction_loss
+from mlsp_tpu_torch.parallel.mesh import global_count
 
 DEFREC_SCALER = 20.0  # MLSP/mlsp.py:7
 _KL_EPS = 1e-10
@@ -53,7 +59,8 @@ def region_weights(mask: torch.Tensor, defpart: bool,
 def masked_normal_loss(pred, gt, weights, weight: float) -> torch.Tensor:
     """`PointDA/trainer.py:441-448`: -sum(|cos| w) / sum(w) over the batch."""
     cos = (_unit(pred) * _unit(gt)).sum(-1).abs()  # [B, N]
-    return -weight * (cos * weights).sum() / weights.sum().clamp_min(1e-12)
+    return -weight * (cos * weights).sum() / global_count(weights.sum(),
+                                                          1e-12)
 
 
 def density_loss(p_vec, p_val, target_vec, target_val, density_weight: float,
@@ -78,7 +85,7 @@ def density_loss(p_vec, p_val, target_vec, target_val, density_weight: float,
         kl = -density_weight * ll.mean() * _KL_LAMBDA
         mae = density_weight * ae.mean() * _L1_LAMBDA
     else:
-        denom = mask.sum().clamp_min(1e-12)
+        denom = global_count(mask.sum(), 1e-12)
         kl = -density_weight * (ll * mask).sum() / denom * _KL_LAMBDA
         mae = density_weight * (ae * mask).sum() / denom * _L1_LAMBDA
     return kl, mae

@@ -23,6 +23,7 @@ from mlsp_tpu_torch.models.layers import (
 )
 from mlsp_tpu_torch.ops.edge import edge_moments
 from mlsp_tpu_torch.ops.knn import edge_features, knn_gather, knn_indices
+from mlsp_tpu_torch.parallel.mesh import active_mesh, global_sum
 
 HEADS = ("defrec", "normal", "scan", "density")
 
@@ -68,7 +69,8 @@ class EdgeConvM(nn.Module):
     z_ij = u_j + c_i (c = v - u) come from the neighbourhood sums s1 and
     s2 (means over k): mean = E[s1 + c], E[z²] = E[s2 + 2 c s1 + c²],
     var = max(E[z²] - mean², 0); the running statistics take torch's
-    momentum and the unbiased variance over n = B·N·k.
+    momentum and the unbiased variance over n = B·N·k. Inside
+    `parallel.data_parallel` the means are over every rank's rows.
     """
 
     def __init__(self, cin: int, cout: int, k: int, knn_backend: str):
@@ -88,11 +90,19 @@ class EdgeConvM(nn.Module):
             mx, mn, s1, s2 = edge_moments(x, u, self.k, True,
                                           backend=self.knn_backend)
             s1, s2 = s1 / self.k, s2 / self.k
-            mu = (s1 + c).mean((0, 1))
-            ez2 = (s2 + 2.0 * c * s1 + c * c).mean((0, 1))
+            mesh = active_mesh()
+            if mesh is None:
+                mu = (s1 + c).mean((0, 1))
+                ez2 = (s2 + 2.0 * c * s1 + c * c).mean((0, 1))
+                rows = x.shape[0] * x.shape[1]
+            else:  # every rank's rows (`parallel.data_parallel`)
+                rows = x.shape[0] * x.shape[1] * mesh.size
+                mu, ez2 = global_sum(torch.stack([
+                    (s1 + c).sum((0, 1)),
+                    (s2 + 2.0 * c * s1 + c * c).sum((0, 1))])) / rows
             var = torch.clamp_min(ez2 - mu * mu, 0.0)
             with torch.no_grad():
-                n = x.shape[0] * x.shape[1] * self.k
+                n = rows * self.k
                 m = bn.momentum
                 bn.running_mean.mul_(1.0 - m).add_(m * mu)
                 bn.running_var.mul_(1.0 - m).add_(m * var * (n / max(n - 1, 1)))

@@ -16,13 +16,21 @@ head, as the JAX package's does.
 Dropout draws its masks from the `torch.Generator` the caller passes to
 `forward` (`dropout` below), never from the global RNG; in train mode a
 layer with dropout > 0 needs one.
+
+Inside `parallel.data_parallel` (a rank of a data-parallel run) both take
+the global batch's view: BatchNorm's statistics are over every rank's
+rows, and dropout keeps the rank's rows of the global batch's mask, so R
+ranks compute what one process computes on the whole batch.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from mlsp_tpu_torch.parallel.mesh import active_mesh, shard_batch
 
 
 def act_fn(name: str):
@@ -71,23 +79,104 @@ def linear_in(layer: nn.Module, x) -> torch.Tensor:
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm over every axis but the last (channels-last), in at least
-    float32; the result keeps x's dtype."""
+    float32; the result keeps x's dtype. In train mode inside
+    `data_parallel`, over the rows of every rank (`global_batch_norm`)."""
     wide = torch.promote_types(x.dtype, torch.float32)
-    y = bn(x.reshape(-1, x.shape[-1]).to(wide)).reshape(x.shape)
-    return y.to(x.dtype)
+    rows = x.reshape(-1, x.shape[-1]).to(wide)
+    if bn.training and active_mesh() is not None:
+        y = global_batch_norm(bn, rows)
+    else:
+        y = bn(rows)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def global_batch_norm(bn: nn.BatchNorm1d, rows: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm of rows [M, C] with the statistics of every
+    rank's rows (`_GlobalBatchNorm`: one all-reduce forward, one
+    backward). The running statistics move as `nn.BatchNorm1d` moves them:
+    momentum, the unbiased variance over the global count."""
+    mesh = active_mesh()
+    y, mean, var = _GlobalBatchNorm.apply(rows, bn.weight, bn.bias, bn.eps,
+                                          mesh)
+    n = mesh.size * rows.shape[0]  # the ranks hold equal rows
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var * (n / max(n - 1.0, 1.0)), bn.momentum)
+        bn.num_batches_tracked.add_(1)
+    return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """BatchNorm over the rows of every rank of `mesh`, differentiated by
+    hand so that each direction takes one all-reduce and the large
+    tensors go through fused kernels.
+
+    Forward: each rank's count, mean and sum of squared deviations from
+    its own mean (`torch.var_mean`, which sums no squares of raw values,
+    as `nn.BatchNorm1d` does not), summed into rank slots by one
+    all-reduce and combined
+    by the parallel-variance rule, M2 = sum_r M2_r + sum_r n_r (mean_r -
+    mean)^2 (Chan, Golub and LeVeque), so no sum of squares cancels; then
+    the eval-mode `F.batch_norm` with the global mean and variance.
+    Backward: the eval-mode BatchNorm backward gives dy * weight * invstd
+    and this rank's sums of dy and dy * xhat (the parameters' gradients,
+    averaged over the ranks later as every gradient is); one all-reduce
+    of those sums gives the global ones, and dx subtracts the terms of
+    the global mean and variance, (weight * invstd / n) (sum dy + xhat sum
+    dy xhat). Returns (y, mean, var); only y has a gradient."""
+
+    @staticmethod
+    def forward(ctx, rows, weight, bias, eps, mesh):
+        c = rows.shape[1]
+        var_r, mean_r = torch.var_mean(rows, 0, correction=0)
+        slots = rows.new_zeros(mesh.size, 2 * c + 1)
+        slots[mesh.rank] = torch.cat([mean_r, var_r * rows.shape[0],
+                                      rows.new_full((1,), rows.shape[0])])
+        dist.all_reduce(slots)
+        means, m2s, counts = slots[:, :c], slots[:, c:2 * c], slots[:, -1:]
+        n = float(mesh.size * rows.shape[0])
+        mean = (counts * means).sum(0) / n
+        var = (m2s.sum(0) + (counts * (means - mean).square()).sum(0)) / n
+        y = F.batch_norm(rows, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(rows, weight, mean, var)
+        ctx.eps, ctx.n = eps, n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        rows, weight, mean, var = ctx.saved_tensors
+        invstd = torch.rsqrt(var + ctx.eps)
+        # eval mode (train=False): the statistics are constants here, and
+        # the CUDA kernel reads them from save_mean/save_invstd
+        dx, dw, db = torch.ops.aten.native_batch_norm_backward(
+            dy.contiguous(), rows, weight, mean, var, mean, invstd, False,
+            ctx.eps, [True, True, True])
+        sums = torch.cat([db, dw])
+        dist.all_reduce(sums)
+        c = rows.shape[1]
+        scale = weight * invstd / ctx.n
+        dx = dx.sub_(scale * sums[:c]).addcmul_(
+            rows - mean, scale * invstd * sums[c:], value=-1.0)
+        return dx, dw, db, None, None
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout (flax `nn.Dropout`: keep with probability 1 - p,
     scale kept values by 1 / (1 - p)) with the mask drawn from `generator`,
-    which must live on x's device."""
+    which must live on x's device. Inside `data_parallel` the mask is the
+    global batch's ([rows x ranks, ...]) and x takes its rank's rows."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator "
                          "(pass generator= to the model's forward)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    mesh = active_mesh()
+    shape = x.shape if mesh is None else (x.shape[0] * mesh.size,
+                                          *x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    keep = shard_batch(mesh, keep)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

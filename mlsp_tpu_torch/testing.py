@@ -10,8 +10,14 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import os
+import queue
+import socket
+import time
+import traceback
 from unittest import mock
 
+import numpy as np
 import torch
 
 from mlsp_tpu_torch.ops.knn import knn_gather
@@ -90,6 +96,7 @@ class Tape:
     def __init__(self, graphs=(), orders=()):
         self.graphs, self.orders = list(graphs), list(orders)
         self.own_graph_rows_differ = self.own_order_entries_differ = 0
+        self.knn_launches = []  # (x, k, K1's graph) of each recorded K1 call
 
     @contextlib.contextmanager
     def record(self):
@@ -100,6 +107,14 @@ class Tape:
                 return out
             return wrapped
 
+        knn_cuda = _knn.knn_cuda
+
+        def knn(x, k):
+            idx = knn_cuda(x, k)
+            self.graphs.append(idx)
+            self.knn_launches.append((x, k, idx))
+            return idx
+
         moments_cuda = _normals.knn_moments_cuda
 
         def moments(x, k):
@@ -107,8 +122,7 @@ class Tape:
             self.graphs.append(idx)
             return s1, s2
 
-        with mock.patch.object(_knn, "knn_cuda",
-                               keep(_knn.knn_cuda, self.graphs)), \
+        with mock.patch.object(_knn, "knn_cuda", knn), \
                 mock.patch.object(_knn, "knn_indices_torch",
                                   keep(_knn.knn_indices_torch, self.graphs)), \
                 mock.patch.object(_normals, "knn_moments_cuda", moments), \
@@ -117,6 +131,21 @@ class Tape:
                 mock.patch.object(_fps, "fps_torch",
                                   keep(_fps.fps_torch, self.orders)):
             yield self
+
+    def knn_against_plain(self) -> list[dict]:
+        """Each recorded K1 graph against the plain kNN of the same input
+        (`knn_set_gap`): its shape, k, the share of rows with equal
+        indices and the largest distance gap over its rounding bound (a
+        correct graph stays at or under 1)."""
+        out = []
+        for x, k, idx in self.knn_launches:
+            plain = _knn.knn_indices_torch(x, k)
+            gap, tol = knn_set_gap(x, idx, plain)
+            out.append({"shape": list(x.shape), "k": k,
+                        "rows_same_indices": float(
+                            (idx == plain).all(-1).float().mean()),
+                        "max_gap_over_tol": float((gap / tol).max())})
+        return out
 
     @contextlib.contextmanager
     def replay(self):
@@ -149,3 +178,202 @@ class Tape:
             yield self
         if next(graphs, None) is not None or next(orders, None) is not None:
             raise RuntimeError("replay: the run left recorded choices unused")
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel runs: ranks in processes of their own, and one train step
+# that a rank and a single process take alike.
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, backend, device, timeout_s, fn, args, q):
+    from mlsp_tpu_torch import parallel
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    try:
+        torch.set_num_threads(1)
+        parallel.init_distributed(backend, timeout_s=timeout_s)
+        mesh = parallel.make_mesh(world, device=device)
+        q.put((rank, True, fn(mesh, *args)))
+    except BaseException:  # reported to the parent, which raises
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_ranks(world: int, fn, *args, backend: str = "gloo",
+              device: str = "cpu", timeout_s: int = 60) -> list:
+    """`fn(mesh, *args)` on `world` spawned processes joined in one process
+    group (`backend`, each on `device`); their results (picklable, no
+    tensors) by rank. A rank that raises makes this raise with its
+    traceback; every process is joined or killed before returning."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world, port, backend, device, timeout_s, fn, args, q))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    results, failed = {}, []
+    deadline = time.monotonic() + 4 * timeout_s
+    try:
+        while len(results) < world and not failed:
+            try:
+                rank, ok, val = q.get(timeout=1)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    failed.append("ranks exited without a result (exit "
+                                  f"codes {[p.exitcode for p in procs]})")
+                elif time.monotonic() > deadline:
+                    failed.append(f"no result within {4 * timeout_s} s")
+                continue
+            if ok:
+                results[rank] = val
+            else:
+                failed.append(f"rank {rank}:\n{val}")
+    finally:
+        for p in procs:
+            p.join(timeout=10 if failed else 60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [results[r] for r in range(world)]
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def step_case(mesh, case: dict, tape: "Tape | None" = None) -> dict:
+    """One train step of `case["kind"]` ("pointda", "seg" or "spst") from
+    `case`'s model ("model", "num_class", "kwargs", "state": a CPU
+    state_dict), config ("cfg"), global batch ("batch": CPU tensors) and
+    generator seed ("seed"), on `case["device"]`, as a rank of `mesh` or,
+    with None, as one process. With `tape` the run replays its kNN graphs
+    and FPS orders; without, a rank records its own and returns them.
+
+    Returns numpy: "metrics" (the loss terms), "grads" (the gradients the
+    update used, by parameter), "state" (the state_dict after it),
+    "launches" (this process's kernel launches in the step) and with
+    recording "graphs", "orders" and "knn_against_plain" (each K1 launch
+    of the step against the plain kNN of its input, `Tape.knn_against_plain`;
+    empty without a card)."""
+    from mlsp_tpu_torch.models import make_model
+    from mlsp_tpu_torch.ops import kernels
+    from mlsp_tpu_torch.train import make_optimizer
+    from mlsp_tpu_torch.train.seg_steps import pointsegda_train_step
+    from mlsp_tpu_torch.train.spst import spst_train_step
+    from mlsp_tpu_torch.train.state import make_epoch_lr_optimizer
+    from mlsp_tpu_torch.train.steps import pointda_train_step
+
+    dev = torch.device(case["device"])
+    model = make_model(case["model"], case["num_class"], device=dev,
+                       **case["kwargs"])
+    model.load_state_dict(case["state"])
+    cfg = case["cfg"]
+    b = {k: v.to(dev) for k, v in case["batch"].items()}
+    gen = torch.Generator(device=dev).manual_seed(case["seed"])
+    record = Tape() if tape is None else None
+    kernels.reset_launches()
+    with (record.record() if record is not None else tape.replay()):
+        if case["kind"] == "spst":
+            opt = make_epoch_lr_optimizer(model, cfg.optimizer, cfg.lr,
+                                          cfg.wd, cfg.momentum)
+            m = spst_train_step(model, opt, b["t_x"], b["t_y"], b["s_x"],
+                                b["s_y"], case["spl_weight"],
+                                case["cls_weight"], gen, cfg, mesh)
+        else:
+            opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                        10, cfg.optimizer, cfg.momentum)
+            step = (pointsegda_train_step if case["kind"] == "seg"
+                    else pointda_train_step)
+            m = step(model, opt, sched, b["src_x"], b["src_y"], b["trgt_x"],
+                     gen, cfg, mesh)
+            if case["kind"] == "seg":
+                m = m[0]
+    out = {"metrics": {k: float(v) for k, v in m.items()},
+           "grads": {n: _numpy(p.grad) for n, p in model.named_parameters()
+                     if p.grad is not None},
+           "state": {k: _numpy(v) for k, v in model.state_dict().items()},
+           "launches": kernels.launches()}
+    if record is not None:
+        out["graphs"] = [g.cpu().numpy() for g in record.graphs]
+        out["orders"] = [o.cpu().numpy() for o in record.orders]
+        out["knn_against_plain"] = record.knn_against_plain()
+    return out
+
+
+def step_cases(mesh, cases: list, planted: list | None = None) -> list:
+    """`step_case` of each case in turn (one spawn for several). A case
+    whose entry of `planted` is true runs under `local_batch_norm`."""
+    planted = planted or [False] * len(cases)
+    out = []
+    for case, fault in zip(cases, planted):
+        with (local_batch_norm(mesh) if fault else contextlib.nullcontext()):
+            out.append(step_case(mesh, case))
+    return out
+
+
+@contextlib.contextmanager
+def local_batch_norm(mesh):
+    """A planted fault: every BatchNorm of a rank of `mesh` takes its
+    statistics over the rank's own rows, as a data-parallel run without
+    global statistics would. The comparisons with one process must fail
+    on it."""
+    dgcnn = importlib.import_module("mlsp_tpu_torch.models.dgcnn")
+    layers = importlib.import_module("mlsp_tpu_torch.models.layers")
+    with mock.patch.object(layers, "global_batch_norm",
+                           lambda bn, rows: bn(rows)), \
+            mock.patch.object(dgcnn, "global_sum",
+                              lambda t: t * mesh.size):
+        yield
+
+
+def losses_case(mesh, case: dict) -> dict:
+    """`train.steps.pointda_losses` on given global draws (`case["draws"]`,
+    e.g. the JAX step's own) and the backward, as a rank of `mesh` or one
+    process, the gradients averaged over the ranks. Returns numpy
+    "metrics" (the ranks' average) and "grads"."""
+    from mlsp_tpu_torch import parallel
+    from mlsp_tpu_torch.models import make_model
+    from mlsp_tpu_torch.train.steps import pointda_losses
+
+    dev = torch.device(case["device"])
+    model = make_model(case["model"], case["num_class"], device=dev,
+                       **case["kwargs"])
+    model.load_state_dict(case["state"])
+    with parallel.data_parallel(mesh):
+        total, m = pointda_losses(model, case["cfg"], case["batch"],
+                                  case["draws"], None)
+        total.backward()
+    parallel.all_reduce_grads(model, mesh)
+    m = parallel.average_metrics({k: v.detach() for k, v in m.items()}, mesh)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": {n: _numpy(p.grad) for n, p in model.named_parameters()
+                      if p.grad is not None}}
+
+
+def merge_rank_tapes(results: list, batch: int) -> "Tape":
+    """The single-process Tape of a data-parallel run's recorded choices:
+    a graph the ranks built on the global batch (`batch` clouds: the
+    normal labels) is taken from rank 0, one built on each rank's rows
+    (the forwards) is the ranks' graphs concatenated in rank order; the
+    FPS orders (PCM, on the global batch) are rank 0's."""
+    graphs = []
+    for parts in zip(*(r["graphs"] for r in results)):
+        g = (parts[0] if parts[0].shape[0] == batch
+             else np.concatenate(parts))
+        graphs.append(torch.from_numpy(g))
+    return Tape(graphs, [torch.from_numpy(o) for o in results[0]["orders"]])
+

@@ -10,17 +10,20 @@ model as `mlsp_tpu/train/evaluation.py::_build_model` does
 (`models.model_kwargs`: `--knn_backend` reaches every family that builds
 a graph or samples points). The weights come from the port's own
 checkpoint, a JAX `.ckpt` or, with `--from_torch`, a reference
-`model.pt` (`utils/checkpoint.py::load_model_weights`). The AOT bundle
-raises NotImplementedError (ROADMAP.md).
+`model.pt` (`utils/checkpoint.py::load_model_weights`). `run_aot_export`
+freezes the eval forward into an AOT serving bundle (`serving`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
 import numpy as np
+import torch
 
+from mlsp_tpu_torch import serving
 from mlsp_tpu_torch.data.pointda import idx_to_label, load_pointda
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.models import (
@@ -39,11 +42,6 @@ from mlsp_tpu_torch.utils import checkpoint, metrics, reference_export
 from mlsp_tpu_torch.utils.config import EvalConfig
 from mlsp_tpu_torch.utils.device import resolve_device
 from mlsp_tpu_torch.utils.logging import IOStream
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: not ported to PyTorch yet (see ROADMAP.md)")
 
 
 def _setup(cfg: EvalConfig, io: IOStream):
@@ -172,5 +170,42 @@ def run_export(cfg: EvalConfig, io: IOStream | None = None) -> dict:
 
 
 def run_aot_export(cfg: EvalConfig, io: IOStream | None = None) -> dict:
-    raise _not_ported("aot (a frozen serving program; `serving` saves "
-                      "weight bundles)")
+    """Freeze a checkpoint into an AOT serving bundle (`aot`), as
+    `mlsp_tpu/train/evaluation.py::run_aot_export` does.
+
+    Writes `cfg.output` (a directory; default `{exp_dir}/serving_bundle`)
+    with the `torch.export` eval program and its metadata
+    (`serving.save_aot_bundle`), then checks it: the bundle, reloaded,
+    against the live model on a seeded batch of `test_batch_size`. The
+    model is built with `knn_backend="torch"` whatever `cfg` says: the
+    program holds the plain kNN and FPS, so one artifact serves on the
+    CPU and on the card, as the JAX package forces its XLA kNN into its
+    bundle. Returns the summary (also printed as one JSON line), with
+    `selfcheck_max_diff`."""
+    cfg = dataclasses.replace(cfg.resolved(), knn_backend="torch")
+    io = io or IOStream(cfg.out_path, cfg.exp_name)
+    model = _load_model(cfg, io)
+    out_dir = cfg.output or os.path.join(io.path, "serving_bundle")
+    meta = serving.save_aot_bundle(model, out_dir, num_points=cfg.num_points,
+                                   num_class=cfg.num_class)
+
+    # self-check: the frozen program must reproduce the live model
+    device = next(model.parameters()).device
+    bundle = serving.load_serving_bundle(out_dir, device=device)
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(
+        (cfg.test_batch_size, cfg.num_points, 3)) * 0.5).astype(np.float32)
+    frozen = bundle.predict(x)
+    with torch.inference_mode():
+        live = serving.EvalForward(model, cfg.task)(
+            torch.from_numpy(x).to(device)).float().cpu().numpy()
+    max_diff = float(np.abs(frozen - live).max())
+    summary = {"output": out_dir, "model": cfg.model, "task": cfg.task,
+               **meta, "selfcheck_max_diff": max_diff}
+    # The two programs may round distances apart and flip a near-tie kNN
+    # edge (the JAX package's allowance); a broken bundle is far off.
+    if max_diff > 2e-2:
+        raise RuntimeError(
+            f"AOT bundle self-check failed: max diff {max_diff}")
+    io.cprint(json.dumps(summary))
+    return summary

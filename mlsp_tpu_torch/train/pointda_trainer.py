@@ -39,6 +39,12 @@ import torch
 from mlsp_tpu_torch.data.pipeline import batch_indices
 from mlsp_tpu_torch.data.pointda import idx_to_label, load_pointda
 from mlsp_tpu_torch.models import make_model, model_kwargs
+from mlsp_tpu_torch.parallel.mesh import (
+    Mesh,
+    fetch_global,
+    replicate_for_mesh,
+    shard_batch,
+)
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.state import make_optimizer
 from mlsp_tpu_torch.train.steps import check_recipe, pointda_train_step
@@ -69,15 +75,22 @@ def eval_batches(n_examples: int, batch_size: int,
 
 
 def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
-                output: str = "cls") -> np.ndarray:
+                output: str = "cls", mesh: Mesh | None = None) -> np.ndarray:
     """Logits [S, B, ...] of the batches `data[sels[i]]` (the model's
     `output`: "cls" [B, C] of DGCNN, "seg" [B, N, C] of DGCNNSeg),
     forwarded in eval mode (running BN statistics, no dropout) on the
     model's device; one copy of the indices in, one of the logits out. The
-    model's mode is restored afterwards."""
+    model's mode is restored afterwards. With a mesh each rank forwards its
+    rows of every batch (padded with the batch's last index to a multiple
+    of the ranks) and every rank gets all the logits (`fetch_global`)."""
     device = next(model.parameters()).device
     x = torch.as_tensor(data, device=device)
     idx = torch.from_numpy(np.stack(sels)).to(device)
+    B = idx.shape[1]
+    if mesh is not None:
+        pad = -B % mesh.size
+        idx = torch.cat([idx, idx[:, -1:].expand(-1, pad)], 1)
+        idx = shard_batch(mesh, idx.T).T
     was_training = model.training
     model.eval()
     try:
@@ -85,21 +98,26 @@ def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
             out = torch.stack([model(x[i])[output] for i in idx])
     finally:
         model.train(was_training)
+    if mesh is not None:
+        out = fetch_global(out.transpose(0, 1), mesh).transpose(0, 1)[:, :B]
     return out.float().cpu().numpy()
 
 
 def evaluate(model: torch.nn.Module, data, label: np.ndarray,
              batch_size: int, num_classes: int,
-             indices: np.ndarray | None = None) -> dict:
+             indices: np.ndarray | None = None,
+             mesh: Mesh | None = None) -> dict:
     """Accuracy, balanced accuracy, mean cross-entropy and the confusion
     matrix over a split. `data` [M, N, 3] is a numpy array or a tensor
     (staged on the model's device, it is not copied); `label` [M] numpy.
-    The metrics are computed in numpy as the JAX `evaluate` does."""
+    The metrics are computed in numpy as the JAX `evaluate` does. With a
+    mesh the forwards are split over the ranks (`eval_logits`) and every
+    rank gets the same metrics."""
     label = np.asarray(label)
     sels, counts = eval_batches(label.shape[0], batch_size, indices)
     if not sels:
         raise ValueError("evaluate: empty evaluation split")
-    all_logits = eval_logits(model, data, sels)
+    all_logits = eval_logits(model, data, sels, mesh=mesh)
     preds, trues, losses = [], [], []
     for logits, sel, n in zip(all_logits, sels, counts):
         logits, by = logits[:n], label[sel][:n]
@@ -146,9 +164,16 @@ def fetch_metrics(steps: list[dict]) -> list[dict]:
     return [dict(zip(names, row)) for row in vals]
 
 
-def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
+def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
+                  mesh: Mesh | None = None):
     """Run the DA training; returns (model with the best epoch's weights,
-    results dict with "best" and "test")."""
+    results dict with "best" and "test").
+
+    With `mesh` (`parallel.make_mesh`, one process per rank): the model is
+    replicated from rank 0, each step takes the global batch and forwards
+    the rank's rows with the gradients averaged over the ranks, evaluation
+    is split over the ranks and gathered on each, and only rank 0 writes
+    files."""
     cfg = cfg.resolved()
     device = resolve_device(cfg.device or None)
     all_heads = validate_heads(cfg)
@@ -194,6 +219,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
         best["weights"] = copy.deepcopy(model.state_dict())
         io.cprint(f"resumed from {cfg.resume} at epoch {saved_epoch} "
                   f"(best src val acc {best['src_val_acc']:.4f})")
+    replicate_for_mesh(mesh, model, B)
     io.trim_metrics(start_epoch)  # drop records the loop will write again
 
     for epoch in range(start_epoch, cfg.epochs):
@@ -207,7 +233,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
                 for s, t in sel:
                     steps.append(pointda_train_step(
                         model, opt, sched, src_x[s], src_y[s], trgt_x[t], gen,
-                        cfg))
+                        cfg, mesh))
             meters = MeterDict()
             for m in fetch_metrics(steps):
                 meters.update(m, n=B)
@@ -218,10 +244,10 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
 
             src_val = evaluate(model, src_x, src_train.label,
                                cfg.test_batch_size, cfg.num_class,
-                               src_train.val_ind)
+                               src_train.val_ind, mesh)
             trgt_val = evaluate(model, trgt_x, trgt_train.label,
                                 cfg.test_batch_size, cfg.num_class,
-                                trgt_train.val_ind)
+                                trgt_train.val_ind, mesh)
         seconds = {"train": t_train, "epoch": time.perf_counter() - t0}
         io.cprint(
             f"Val - epoch {epoch}: src acc {src_val['acc']:.4f} "
@@ -257,7 +283,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None):
                   + str(best["conf_mat"]))
     model.load_state_dict(best.pop("weights"))
     final = evaluate(model, test_x, trgt_test.label, cfg.test_batch_size,
-                     cfg.num_class)
+                     cfg.num_class, mesh=mesh)
     io.cprint(f"target test accuracy: {final['acc']:.4f}, "
               f"target test loss: {final['loss']:.4f}")
     io.cprint("Test confusion matrix:\n" + str(final["conf_mat"]))

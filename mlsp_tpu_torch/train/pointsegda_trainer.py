@@ -34,6 +34,7 @@ import torch
 
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.models import make_model, model_kwargs
+from mlsp_tpu_torch.parallel.mesh import Mesh, replicate_for_mesh
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.pointda_trainer import (
     epoch_generator,
@@ -62,17 +63,19 @@ MAX_LOSS = 9e9
 
 
 def evaluate_seg(model: torch.nn.Module, data, label: np.ndarray,
-                 batch_size: int) -> tuple[float, float, float]:
+                 batch_size: int, mesh: Mesh | None = None
+                 ) -> tuple[float, float, float]:
     """(seg loss, mIoU, accuracy) over a split, each averaged per sample
     as the reference does; the trailing batch is repetition-padded and
     only its real clouds count. `data` [M, N, 3] is a numpy array or a
     tensor (staged on the model's device, it is not copied); `label`
-    [M, N] numpy."""
+    [M, N] numpy. With a mesh the forwards are split over the ranks and
+    every rank gets the same metrics (`eval_logits`)."""
     label = np.asarray(label)
     sels, counts = eval_batches(label.shape[0], batch_size)
     if not sels:
         raise ValueError("evaluate_seg: empty evaluation split")
-    all_logits = eval_logits(model, data, sels, "seg")  # [S, B, N, C]
+    all_logits = eval_logits(model, data, sels, "seg", mesh)  # [S, B, N, C]
     seg_loss = miou = acc = 0.0
     for logits, sel, n in zip(all_logits, sels, counts):
         logits, by = logits[:n], label[sel][:n]
@@ -95,9 +98,13 @@ def _fetch_preds(steps: list) -> list[tuple[np.ndarray, np.ndarray]]:
     return [(p, y) for p, y in both]
 
 
-def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
+def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
+                     mesh: Mesh | None = None):
     """Run the seg DA training; returns (model with the best epoch's
-    weights, results dict with "best" and "test")."""
+    weights, results dict with "best" and "test"). With `mesh`, data-
+    parallel as `pointda_trainer.train_pointda`: the train predictions of
+    each step are the global batch's, so the train mIoU is the single
+    process's."""
     cfg = cfg.resolved()
     device = resolve_device(cfg.device or None)
     all_heads = validate_seg_heads(cfg)
@@ -134,6 +141,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
     io.cprint(f"heads trained: {', '.join(trained)}; frozen: "
               f"{', '.join(h for h in all_heads if h not in trained)}")
     io.cprint("\n" + model_summary(model))
+    replicate_for_mesh(mesh, model, B)
     opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
                                 steps_per_epoch, cfg.optimizer, cfg.momentum)
 
@@ -144,7 +152,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
     io.trim_metrics(0)  # a fresh run: drop any earlier metrics.jsonl
 
     def val(name):
-        return evaluate_seg(model, *staged[name], cfg.test_batch_size)
+        return evaluate_seg(model, *staged[name], cfg.test_batch_size, mesh)
 
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
@@ -157,7 +165,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
                 for s, t in sel:
                     steps.append(pointsegda_train_step(
                         model, opt, sched, src_x[s], src_y[s], trgt_x[t], gen,
-                        cfg))
+                        cfg, mesh))
             meters = MeterDict()
             for m, (p, y) in zip(fetch_metrics([m for m, _ in steps]),
                                  _fetch_preds([p for _, p in steps])):
@@ -198,7 +206,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None):
     io.cprint(f"Best model was found at epoch {best['epoch']}")
     model.load_state_dict(best.pop("weights"))
     test_loss, test_miou, test_acc = evaluate_seg(
-        model, *staged["trgt_test"], cfg.test_batch_size)
+        model, *staged["trgt_test"], cfg.test_batch_size, mesh)
     io.cprint(f"target test seg loss: {test_loss:.4f}, target test seg "
               f"mIOU: {test_miou:.4f}, target test seg accuracy: "
               f"{test_acc:.4f}")

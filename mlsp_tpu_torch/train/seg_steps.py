@@ -12,6 +12,10 @@ part classes, the deformed points' weight is mask + 1 (not mask·26 + 1,
 pergroup 5. As in `train.steps`, every random number is drawn first
 (`pointsegda_train_step`) and `pointsegda_losses` takes the transformed
 clouds as inputs, so a test can feed it the JAX step's own.
+
+Data-parallel (`mesh=`) as `train.steps`: the draws, PCM and the labels on
+the global batch, the forwards and losses on the rank's rows, the
+gradients and loss terms averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +27,14 @@ from mlsp_tpu_torch import losses as L
 from mlsp_tpu_torch.models import SEG_MODELS, canonical_name
 from mlsp_tpu_torch.ops.density import density_labels
 from mlsp_tpu_torch.ops.normals import estimate_normals
+from mlsp_tpu_torch.parallel.mesh import (
+    active_mesh,
+    all_reduce_grads,
+    average_metrics,
+    data_parallel,
+    fetch_global,
+    shard_batch,
+)
 from mlsp_tpu_torch.train.steps import (
     augment_batch,
     check_generator,
@@ -49,12 +61,16 @@ def seg_cross_entropy(logits: torch.Tensor,
 
 
 def _normals(cfg, x):
-    return estimate_normals(x, cfg.near, backend=cfg.knn_backend)
+    """The normal labels of the global clouds x, this rank's rows."""
+    return shard_batch(active_mesh(), estimate_normals(
+        x, cfg.near, backend=cfg.knn_backend))
 
 
 def _density(cfg, x):
-    return density_labels(x, cfg.density_radius, cfg.density_num_class,
-                          cfg.pergroup, cfg.shift)
+    """The density labels of the global clouds x, this rank's rows."""
+    return shard_batch(active_mesh(), density_labels(
+        x, cfg.density_radius, cfg.density_num_class, cfg.pergroup,
+        cfg.shift))
 
 
 def pointsegda_losses(model, cfg, batch: dict, draws: dict,
@@ -74,6 +90,10 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
         "dmask_via" (that of the combined branch).
       generator: for the dropout masks.
 
+    Inside `parallel.data_parallel` the batch and draws are the global
+    batch's; the labels are computed on it, the forwards, losses and
+    predictions take this rank's rows.
+
     Returns:
       (total, metrics, (preds, labels)): the scalar loss, its terms named
       as the JAX step's metrics, and the source forward's per-point argmax
@@ -83,6 +103,8 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
     check_seg_recipe(cfg)
     model.train()
     m = {}
+    trgt_g = batch["trgt_x"]  # the labels come from the global clouds
+    batch, draws = shard_batch(active_mesh(), (batch, draws))
     sx, sy = batch["src_x"], batch["src_y"]
     if cfg.apply_PCM:
         sx, sy = draws["mixed"], draws["mixed_y"]
@@ -104,14 +126,14 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
         total = total + l
 
     if cfg.Norm_on_trgt:
-        n_gt = _normals(cfg, trgt)
+        n_gt = _normals(cfg, trgt_g)
         out = model(trgt, ("normal",), generator)
         l = L.normal_loss(out["normal"], n_gt, cfg.normal_pred_weight)
         m["trgt_Normal"] = l
         total = total + l
 
     if cfg.Density_on_trgt:
-        dvec, dval = _density(cfg, trgt)
+        dvec, dval = _density(cfg, trgt_g)
         out = model(trgt, ("density",), generator)
         kl, mae = L.density_loss(
             out["density"].reshape(-1, C), out["density_mse"].reshape(-1),
@@ -120,7 +142,7 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
         total = total + kl + mae
 
     if cfg.Density_normal_viainput:
-        n_gt, (dvec, dval) = _normals(cfg, trgt), _density(cfg, trgt)
+        n_gt, (dvec, dval) = _normals(cfg, trgt_g), _density(cfg, trgt_g)
         mask = draws["dmask_via"]
         out = model(draws["dx_via"], ("defrec", "normal", "density"),
                     generator)
@@ -145,7 +167,7 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
 
 
 def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
-                          generator: torch.Generator, cfg):
+                          generator: torch.Generator, cfg, mesh=None):
     """One PointSegDA train iteration: draw, transform, forward, one
     backward, one optimizer step and one scheduler step.
 
@@ -155,11 +177,14 @@ def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
       src_x, trgt_x: [B, N, 3] float32 clouds; src_y: [B, N] int64 labels.
       generator: a `torch.Generator` on the data's device.
       cfg: `utils.config.PointSegDAConfig` (resolved).
+      mesh: a `parallel.Mesh` to take the step as one of its ranks (the
+        batch is the global one, the same on every rank).
 
     Returns:
       (losses, (preds, labels)): the loss terms as detached 0-d tensors
       and the source forward's predictions with their labels [B, N], all
-      still on the device.
+      still on the device; with a mesh, the ranks' average terms and the
+      global batch's predictions.
     """
     check_seg_recipe(cfg)
     check_generator(generator, src_x)
@@ -179,9 +204,13 @@ def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
             trgt, draw_deform_dispatch(g, trgt, cfg), cfg)
 
     opt.zero_grad(set_to_none=True)
-    total, m, preds = pointsegda_losses(
-        model, cfg, {"src_x": src, "src_y": src_y, "trgt_x": trgt}, draws, g)
-    total.backward()
+    with data_parallel(mesh):
+        total, m, preds = pointsegda_losses(
+            model, cfg, {"src_x": src, "src_y": src_y, "trgt_x": trgt}, draws,
+            g)
+        total.backward()
+    all_reduce_grads(model, mesh)
     opt.step()
     sched.step()
-    return {name: t.detach() for name, t in m.items()}, preds
+    m = average_metrics({name: t.detach() for name, t in m.items()}, mesh)
+    return m, tuple(fetch_global(t, mesh) for t in preds)

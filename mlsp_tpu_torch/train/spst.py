@@ -43,6 +43,15 @@ from mlsp_tpu_torch.models import (
     make_model,
     model_kwargs,
 )
+from mlsp_tpu_torch.parallel.mesh import (
+    Mesh,
+    active_mesh,
+    all_reduce_grads,
+    average_metrics,
+    data_parallel,
+    replicate_for_mesh,
+    shard_batch,
+)
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.pointda_trainer import (
     epoch_generator,
@@ -107,9 +116,12 @@ def spst_losses(model, cfg, draws: dict, t_y: torch.Tensor,
     1 - DefRec_weight and NOT by `cls_weight`, as the reference and the
     JAX package have it) or `cls_weight` times the CE. Train-mode BN; the
     running statistics carry from the target forward to the source one.
-    Only the classifier is read: the SSL heads keep grad None."""
+    Only the classifier is read: the SSL heads keep grad None. Inside
+    `parallel.data_parallel` the draws and labels are the global batch's
+    and the forwards take this rank's rows."""
     model.train()
     m = {}
+    draws, t_y, s_y = shard_batch(active_mesh(), (draws, t_y, s_y))
     logits = model(draws["t_x"], (), generator)["cls"]
     m["trgt_cls"] = spl_weight * L.cross_entropy(logits, t_y)
     if cfg.apply_PCM:
@@ -127,7 +139,7 @@ def spst_losses(model, cfg, draws: dict, t_y: torch.Tensor,
 
 def spst_train_step(model, opt, t_x, t_y, s_x, s_y, spl_weight: float,
                     cls_weight: float, generator: torch.Generator,
-                    cfg) -> dict:
+                    cfg, mesh=None) -> dict:
     """One SPST iteration: draw, transform, forward, one backward and one
     optimizer step (the LR is the epoch's, `set_learning_rate`).
 
@@ -139,24 +151,31 @@ def spst_train_step(model, opt, t_x, t_y, s_x, s_y, spl_weight: float,
       spl_weight, cls_weight: the epoch's loss weights.
       generator: a `torch.Generator` on the data's device.
       cfg: `utils.config.SPSTConfig`.
+      mesh: a `parallel.Mesh` to take the step as one of its ranks (the
+        batch is the global one, the same on every rank; the draws and
+        PCM run on it, the forwards on the rank's rows).
 
     Returns:
-      The loss terms (detached 0-d tensors, still on the device).
+      The loss terms (detached 0-d tensors, still on the device; with a
+      mesh, the ranks' average).
     """
     check_generator(generator, t_x)
     draws = draw_spst(generator, t_x, s_x, s_y, cfg)
     opt.zero_grad(set_to_none=True)
-    total, m = spst_losses(model, cfg, draws, t_y, s_y, spl_weight,
-                           cls_weight, generator)
-    total.backward()
+    with data_parallel(mesh):
+        total, m = spst_losses(model, cfg, draws, t_y, s_y, spl_weight,
+                               cls_weight, generator)
+        total.backward()
+    all_reduce_grads(model, mesh)
     opt.step()
-    return {name: t.detach() for name, t in m.items()}
+    return average_metrics({name: t.detach() for name, t in m.items()}, mesh)
 
 
 def select_pseudo_labels(model, data, label: np.ndarray,
                          indices: np.ndarray, batch_size: int,
                          threshold: float, use_entropy: bool, io: IOStream,
-                         epoch: int) -> tuple[torch.Tensor, torch.Tensor]:
+                         epoch: int, mesh: Mesh | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Confidence-gated target selection (`train_spst.py:239-313`).
 
     Eval-mode forwards of `data[indices]` at `batch_size`, the trailing
@@ -164,7 +183,8 @@ def select_pseudo_labels(model, data, label: np.ndarray,
     softmax(softmax(logits)) is below `threshold` (the reference's double
     softmax, `:258`), or with `use_entropy=False` where the max-prob is
     above it. The gate runs in numpy on the fetched logits, as the JAX
-    package's does.
+    package's does. With a mesh the forwards are split over the ranks and
+    every rank selects the same clouds (`eval_logits`).
 
     Returns (the kept clouds as they are in `data`, unaugmented, on the
     data's device [M, N, 3]; their predicted labels, int64 [M] on the same
@@ -174,8 +194,8 @@ def select_pseudo_labels(model, data, label: np.ndarray,
     sels, counts = eval_batches(label.shape[0], batch_size, indices)
     keep_idx, plabels, tlabels = [], [], []
     if sels:
-        for logits, sel, n in zip(eval_logits(model, data, sels), sels,
-                                  counts):
+        for logits, sel, n in zip(eval_logits(model, data, sels, mesh=mesh),
+                                  sels, counts):
             conf = metrics.softmax_np(logits[:n])
             pred = conf.argmax(-1)
             if use_entropy:
@@ -210,10 +230,12 @@ def epoch_pairs(n_selected: int, src, batch_size: int,
                       shuffle=True, drop_last=True, rng=rng)))
 
 
-def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
+def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
+               mesh: Mesh | None = None):
     """SPST fine-tuning; returns (model with the best epoch's weights,
     results dict with "initial", "final", "spl_weight", "cls_weight" and
-    "best")."""
+    "best"). With `mesh`, data-parallel as `pointda_trainer.train_pointda`;
+    the selection is the same on every rank."""
     check_spst(cfg)
     device = resolve_device(cfg.device or None)
     io = io or IOStream(cfg.out_path, cfg.exp_name)
@@ -243,11 +265,15 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
         io.cprint(f"loaded pretrained model from {cfg.model_file}"
                   + (" (reference torch state_dict)" if cfg.from_torch
                      else ""))
+    replicate_for_mesh(mesh, model, cfg.batch_size)
     opt = make_epoch_lr_optimizer(model, cfg.optimizer, cfg.lr, cfg.wd,
                                   cfg.momentum)
 
-    initial = evaluate(model, test_x, trgt_test.label, cfg.test_batch_size,
-                       cfg.num_class)
+    def evaluate_on(x, label, indices=None):
+        return evaluate(model, x, label, cfg.test_batch_size, cfg.num_class,
+                        indices, mesh)
+
+    initial = evaluate_on(test_x, trgt_test.label)
     io.cprint(f"initial target test accuracy: {initial['acc']:.4f}")
 
     B = cfg.batch_size
@@ -263,7 +289,7 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
         pcs, plabels = select_pseudo_labels(
             model, trgt_x, trgt_train.label, trgt_train.train_ind,
             cfg.test_batch_size, cfg.threshold, cfg.use_entropy_selection,
-            io, rnd)
+            io, rnd, mesh)
         if len(pcs) < B:
             # A degenerate round: fewer confident clouds than one batch.
             # The reference would step its epoch loop with no batch and
@@ -294,7 +320,8 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
                     for t, s in sel:  # [S, 2, B]
                         steps.append(spst_train_step(
                             model, opt, pcs[t], plabels[t], src_x[s],
-                            src_y[s], spl_weight, cls_weight, gen, cfg))
+                            src_y[s], spl_weight, cls_weight, gen, cfg,
+                            mesh))
                 meters = MeterDict()
                 for m in fetch_metrics(steps):
                     meters.update(m, n=B)
@@ -305,14 +332,10 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
             check_finite_losses(meters.averages(), model, opt, None,
                                 global_epoch, io)
 
-            src_val = evaluate(model, src_x, src_train.label,
-                               cfg.test_batch_size, cfg.num_class,
-                               src_train.val_ind)
-            trgt_val = evaluate(model, trgt_x, trgt_train.label,
-                                cfg.test_batch_size, cfg.num_class,
-                                trgt_train.val_ind)
-            trgt_tst = evaluate(model, test_x, trgt_test.label,
-                                cfg.test_batch_size, cfg.num_class)
+            src_val = evaluate_on(src_x, src_train.label, src_train.val_ind)
+            trgt_val = evaluate_on(trgt_x, trgt_train.label,
+                                   trgt_train.val_ind)
+            trgt_tst = evaluate_on(test_x, trgt_test.label)
             for name, v in (("src_val_acc", src_val["acc"]),
                             ("src_val_loss", src_val["loss"]),
                             ("trgt_val_acc", trgt_val["acc"]),
@@ -352,8 +375,7 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None):
                         {"trgt_test_acc": trgt_tst["acc"]})
 
     model.load_state_dict(best.pop("weights"))
-    final = evaluate(model, test_x, trgt_test.label, cfg.test_batch_size,
-                     cfg.num_class)
+    final = evaluate_on(test_x, trgt_test.label)
     io.cprint(f"target test accuracy: {final['acc']:.4f}")
     return model, {"initial": initial, "final": final,
                    "spl_weight": spl_weight, "cls_weight": cls_weight,

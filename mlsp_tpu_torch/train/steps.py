@@ -17,6 +17,14 @@ in the JAX step's order), and `pointda_losses` takes the transformed
 arrays as inputs, as the JAX step's `debug_aux` returns them, so a test
 can feed it the JAX step's own. Every PointDA family runs
 (`check_recipe`).
+
+Data-parallel (`mesh=`, see `parallel.mesh`): every rank takes the global
+batch and the same generator, so the draws, augmentation, PCM (one FPS on
+[2B, N]: a cloud's partner may be another rank's row), the deformations
+and the normal and density labels are the single process's; each forward
+then takes the rank's rows, the gradients are averaged over the ranks in
+one all-reduce before the update, and the returned loss terms are the
+ranks' average.
 """
 
 from __future__ import annotations
@@ -30,6 +38,14 @@ from mlsp_tpu_torch.ops.chamfer import nearest_index_pair
 from mlsp_tpu_torch.ops.density import density_labels
 from mlsp_tpu_torch.ops.fps import fps, fps_gather
 from mlsp_tpu_torch.ops.normals import estimate_normals
+from mlsp_tpu_torch.parallel.mesh import (
+    active_mesh,
+    all_reduce_grads,
+    average_metrics,
+    data_parallel,
+    global_count,
+    shard_batch,
+)
 from mlsp_tpu_torch.transforms import augment, deform
 from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
 
@@ -222,7 +238,7 @@ def spl_loss(cls: torch.Tensor, cfg, m) -> torch.Tensor:
         keep = (conf.amax(-1) > cfg.gamma).float()
     logp = torch.log_softmax(cls.float(), -1)
     nll = -torch.gather(logp, -1, pseudo[:, None])[:, 0]
-    loss = (nll * keep).sum() / keep.sum().clamp_min(1.0)
+    loss = (nll * keep).sum() / global_count(keep.sum(), 1.0)
     m["trgt_SPL"] = loss
     m["trgt_SPL_selected"] = keep.mean()
     return loss
@@ -247,6 +263,10 @@ def pointda_losses(model, cfg, batch: dict, draws: dict,
         Density_normal_viainput or _viachamfer).
       generator: for the dropout masks.
 
+    Inside `parallel.data_parallel` the batch and draws are the global
+    batch's: the labels are computed on it, and the forwards and losses
+    take this rank's rows.
+
     Returns:
       (total, metrics): the scalar loss and a dict of its terms, named as
       the JAX step's metrics.
@@ -254,15 +274,26 @@ def pointda_losses(model, cfg, batch: dict, draws: dict,
     check_recipe(cfg)
     model.train(not cfg.debug_bn_eval)
     m = {}
+    mesh = active_mesh()
+    # the labels come from the global clouds, the forwards take the rank's
+    src_g, trgt_g = batch["src_x"], batch["trgt_x"]
+    batch, draws = shard_batch(mesh, (batch, draws))
     src, trgt = batch["src_x"], batch["trgt_x"]
     C = cfg.density_num_class
 
     def forward(x, heads=()):
         return model(x, heads, generator)
 
+    def normals(x):
+        return shard_batch(mesh, estimate_normals(x, cfg.near,
+                                                  backend=cfg.knn_backend))
+
+    def densities(x):
+        return shard_batch(mesh, density_labels(x, cfg.radius, C,
+                                                cfg.pergroup))
+
     def labels(x):
-        return (estimate_normals(x, cfg.near, backend=cfg.knn_backend),
-                *density_labels(x, cfg.radius, C, cfg.pergroup))
+        return normals(x), *densities(x)
 
     total = 0.0
     # ---- source supervised ----
@@ -285,7 +316,7 @@ def pointda_losses(model, cfg, batch: dict, draws: dict,
         total = total + m["src_cls"]
 
     if cfg.Density_normal_viainput_onsrc:
-        n_gt, dvec, dval = labels(src)
+        n_gt, dvec, dval = labels(src_g)
         out = forward(draws["src_dx_via"], SSL_HEADS)
         total = total + _ssl_recipe_losses(cfg, out, src,
                                            draws["src_dmask_via"], n_gt,
@@ -300,7 +331,7 @@ def pointda_losses(model, cfg, batch: dict, draws: dict,
         total = total + m["trgt_DefRec"]
 
     if cfg.Norm_on_trgt:
-        n_gt = estimate_normals(trgt, cfg.near, backend=cfg.knn_backend)
+        n_gt = normals(trgt_g)
         out = forward(trgt, ("normal",))
         m["trgt_Normal"] = L.normal_loss(out["normal"], n_gt,
                                          cfg.normal_pred_weight)
@@ -313,7 +344,7 @@ def pointda_losses(model, cfg, batch: dict, draws: dict,
         total = total + m["trgt_Rec_scan"]
 
     if cfg.Density_on_trgt:
-        dvec, dval = density_labels(trgt, cfg.radius, C, cfg.pergroup)
+        dvec, dval = densities(trgt_g)
         out = forward(trgt, ("density",))
         kl, mae = L.density_loss(
             out["density"].reshape(-1, C), out["density_mse"].reshape(-1),
@@ -324,7 +355,7 @@ def pointda_losses(model, cfg, batch: dict, draws: dict,
     # The Chamfer-transported labels are an alternative to the input ones,
     # as in the JAX step (an elif): the first flag set wins.
     if cfg.Density_normal_viainput or cfg.Density_normal_viachamfer:
-        n_gt, dvec, dval = labels(trgt)
+        n_gt, dvec, dval = labels(trgt_g)
         out = forward(draws["dx"], SSL_HEADS)
         if cfg.Density_normal_viainput:
             total = total + _ssl_recipe_losses(cfg, out, trgt, draws["dmask"],
@@ -380,7 +411,7 @@ def check_generator(generator: torch.Generator, x: torch.Tensor) -> None:
 
 
 def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
-                       generator: torch.Generator, cfg) -> dict:
+                       generator: torch.Generator, cfg, mesh=None) -> dict:
     """One PointDA train iteration: draw, transform, forward, one backward,
     one optimizer step and one scheduler step.
 
@@ -390,9 +421,12 @@ def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
       src_x, trgt_x: [B, N, 3] float32 clouds; src_y: [B] int64 labels.
       generator: a `torch.Generator` on the data's device.
       cfg: `utils.config.PointDAConfig` (e.g. `PointDAConfig().paper_recipe`).
+      mesh: a `parallel.Mesh` to take the step as one of its ranks: the
+        batch is the global one, the same on every rank.
 
     Returns:
-      The loss terms (detached 0-d tensors, still on the device).
+      The loss terms (detached 0-d tensors, still on the device; with a
+      mesh, the ranks' average).
     """
     check_recipe(cfg)
     check_generator(generator, src_x)
@@ -402,9 +436,12 @@ def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
     draws = draw_step(g, src, src_y, trgt, cfg)
 
     opt.zero_grad(set_to_none=True)
-    total, m = pointda_losses(
-        model, cfg, {"src_x": src, "src_y": src_y, "trgt_x": trgt}, draws, g)
-    total.backward()
+    with data_parallel(mesh):
+        total, m = pointda_losses(
+            model, cfg, {"src_x": src, "src_y": src_y, "trgt_x": trgt}, draws,
+            g)
+        total.backward()
+    all_reduce_grads(model, mesh)
     opt.step()
     sched.step()
-    return {name: t.detach() for name, t in m.items()}
+    return average_metrics({name: t.detach() for name, t in m.items()}, mesh)

@@ -216,7 +216,7 @@ class PointSegDAConfig:
 @dataclass(frozen=True)
 class EvalConfig:
     """Standalone checkpoint evaluation, batch inference and export
-    (`eval`, `infer`, `export`). The port serves `task="pointda"` with
+    (`eval`, `infer`, `export`, `aot`). The port serves `task="pointda"` with
     every PointDA family and `task="pointsegda"` with `dgcnn_seg` and
     `hengshuang_seg`."""
 
@@ -239,7 +239,7 @@ class EvalConfig:
     knn_backend: str = "auto"
     head_dtype: str = ""  # "" = float32 heads
     synthetic: bool = False
-    output: str = ""  # `infer` predictions .npz (default {exp_dir}/predictions.npz)
+    output: str = ""  # `infer` .npz, `export` model.pt or `aot` bundle directory
     device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
 
     # Fields whose PointDA defaults are wrong for the seg task, with the

@@ -1,17 +1,22 @@
 #!/bin/bash
 # Check the PyTorch/CUDA port (mlsp_tpu_torch) on one CUDA card, from the
-# root of a checkout. Six steps:
+# root of a checkout. Seven steps:
 #   smoke       python3 chip_smoke.py: every kernel against its plain
 #               version, the serving, train step, data pipeline, trainer
 #               CLI and eval/infer paths, the other families, Point-ViT
-#               and checkpoint interop (`vit_interop`), the times
+#               and checkpoint interop (`vit_interop`), segmentation and
+#               AOT bundles (`serving_g2`), data-parallel training, native
+#               ingest and calibrate (`ddp_ingest`), the times
 #   cuda_tests  the card-only tests (pytest -m cuda; --noconftest, since
-#               tests/conftest.py imports JAX)
+#               tests/conftest.py imports JAX), among them the AOT bundle
+#               moved to the card and two gloo ranks sharing it
 #   profile     scripts/torch_train_profile.py: where a PointDA train
 #               step's device time goes
 #   seg_profile the same for a PointSegDA train step (--seg)
 #   all_profile the same for a PointDA step with every recipe flag
 #               (--all_branches)
+#   mesh_profile the PointDA step as the rank of an NCCL world of one
+#               beside the same step without a mesh (--mesh_data 1)
 #   alone       chip_smoke.py copied alone into an empty directory: it
 #               must exit non-zero, since it cannot run without the package
 #
@@ -20,7 +25,7 @@
 # Each step's output goes to LOG_DIR/<step>.log; stdout gets one
 # "<step> rc=<exit code> seconds=<s>" line per step and the last lines of
 # the smoke and test logs. Exits 0 only when smoke, cuda_tests and the
-# three profiles exit 0 and alone does not.
+# four profiles exit 0 and alone does not.
 set -u
 out=$(mkdir -p "${1:?usage: bash scripts/torch_chip_check.sh LOG_DIR}" \
       && cd "$1" && pwd) || exit 2
@@ -46,6 +51,8 @@ step seg_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py --seg \
   || status=1
 step all_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py \
   --all_branches || status=1
+step mesh_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py \
+  --mesh_data 1 || status=1
 
 alone=$(mktemp -d)
 cp chip_smoke.py "$alone/"

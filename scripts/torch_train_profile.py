@@ -1,7 +1,8 @@
 """Where the port's train time goes: a torch.profiler trace of a train step
 (`mlsp_tpu_torch`) on one NVIDIA card.
 
-Usage: PYTHONPATH=. python scripts/torch_train_profile.py [--seg | --all_branches]
+Usage: PYTHONPATH=. python scripts/torch_train_profile.py
+           [--seg | --all_branches] [--mesh_data 1]
 
 Builds the full-width model `chip_smoke.py` trains, with seeded random
 weights: without `--seg` the PointDA paper-recipe step (DGCNN k=20, N=1024,
@@ -15,6 +16,14 @@ profiler, and prints one JSON line: wall time per step, the device's busy
 share of that window, device time per step grouped by kernel name (largest
 first), the hand-written kernels' share, and the card's name and power
 limit.
+
+With `--mesh_data 1` the step runs as the one rank of an NCCL world of one
+(`parallel.init_local_world`, the step's `mesh=`), as `trainer
+--mesh_data 1` runs it, and the same step without a mesh is profiled in
+the same process for comparison: the line gains, for both, the wall time
+per step (interleaved, outside the profiler) and host time per step
+grouped by operator (self CPU time, largest first), and the number of
+collectives a step calls.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mlsp_tpu_torch import make_model
+from mlsp_tpu_torch import make_model, parallel
 from mlsp_tpu_torch.data.synthetic import (
     make_classification,
     make_segmentation,
@@ -94,16 +103,47 @@ def main() -> int:
     y = torch.from_numpy(labels).to(device)
     batch = (x[:cfg.batch_size], y[:cfg.batch_size], x[cfg.batch_size:])
     gen = torch.Generator(device=device).manual_seed(0)
+    mesh = None
+    if "--mesh_data" in sys.argv[1:]:
+        if sys.argv[sys.argv.index("--mesh_data") + 1] != "1":
+            print("torch_train_profile: only --mesh_data 1 runs on one card",
+                  file=sys.stderr)
+            return 1
+        parallel.init_local_world("nccl")
+        mesh = parallel.make_mesh(1, device=device)
     for _ in range(WARMUP):
         step(model, opt, sched, *batch, gen, cfg)
+        if mesh is not None:
+            step(model, opt, sched, *batch, gen, cfg, mesh)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run(m):
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            step(model, opt, sched, *batch, gen, cfg)
+            step(model, opt, sched, *batch, gen, cfg, m)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    extra = {}
+    if mesh is not None:
+        walls = {"no_mesh": [], "mesh": []}
+        for _ in range(3):
+            for label, m in (("no_mesh", None), ("mesh", mesh)):
+                walls[label].append(run(m) / ITERS)
+        extra["wall_ms_per_step_interleaved"] = walls
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as host:
+            run(None)
+        extra["no_mesh_host_ms_per_step_by_op"] = host_ops(host)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = run(mesh)
+    if mesh is not None:
+        extra["mesh_host_ms_per_step_by_op"] = host_ops(prof)
+        extra["collectives_per_step"] = sum(
+            ev.count for ev in prof.key_averages()
+            if ev.key.startswith("c10d::")) / ITERS
+        torch.distributed.destroy_process_group()
 
     # Device-side kernels only: a CPU op's self device time repeats the
     # time of the kernels it launched, and a range such as the optimizer's
@@ -127,8 +167,16 @@ def main() -> int:
         "port_kernels_ms_per_step": port,
         "device_ms_per_step_by_kernel": [
             [name[:90], us / 1e3 / ITERS] for name, us in top[:30]],
+        "mesh_data": 1 if mesh is not None else None, **extra,
     }))
     return 0
+
+
+def host_ops(prof) -> list:
+    """Host time per step by operator (self CPU time), the 20 largest."""
+    ops = sorted(((ev.key, ev.self_cpu_time_total / 1e3 / ITERS, ev.count / ITERS)
+                  for ev in prof.key_averages()), key=lambda t: -t[1])
+    return [[name[:60], ms, calls] for name, ms, calls in ops[:20]]
 
 
 if __name__ == "__main__":

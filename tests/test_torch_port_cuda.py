@@ -697,3 +697,114 @@ def test_from_torch_dgcnn_forward_equals_the_ckpt_forward(card, tmp_path):
     x = torch.from_numpy(make_classification(32, 1024, 10, seed=4)[0]).to(card)
     with torch.no_grad():
         assert torch.equal(a(x)["cls"], b(x)["cls"])
+
+
+@pytest.mark.parametrize("name,N", [("dgcnn", 1024), ("dgcnn_seg", 2048)])
+def test_aot_bundle_saved_on_the_cpu_serves_on_the_card(card, tmp_path, name,
+                                                        N):
+    """A `.pt2` bundle written on the CPU, moved to the card by
+    `ServingModel` (`move_to_device_pass`): the plain route on the card,
+    no kernel launched, its logits those of the CPU bundle (classes agree
+    on >= 99%, max |dprob| <= 2e-2: the serving bounds, near-tie kNN
+    edges may differ between the devices' rounding)."""
+    from mlsp_tpu_torch import ServingModel, save_aot_bundle
+
+    nc = 8 if name == "dgcnn_seg" else 10
+    model = make_model(name, nc, device="cpu", knn_backend="torch",
+                       generator=torch.Generator().manual_seed(2))
+    save_aot_bundle(model, str(tmp_path / "b"), N, nc)
+    x = make_classification(3, N, 10, seed=4)[0]
+    want = ServingModel(str(tmp_path / "b"), device="cpu").predict(x)
+    served = ServingModel(str(tmp_path / "b"), device=card)
+    kernels.reset_launches()
+    got = served.predict(x)
+    torch.cuda.synchronize()
+    assert sum(kernels.launches().values()) == 0
+    assert got.shape == want.shape
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.99
+    prob = [torch.softmax(torch.from_numpy(a), -1) for a in (got, want)]
+    assert float((prob[0] - prob[1]).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("dgcnn_seg", {"knn": 4}), ("hengshuang_seg", {"knn": 10, "fps": 4})])
+def test_seg_bundle_on_the_card_counts_its_kernels(card, tmp_path, name,
+                                                   launches):
+    """A seg weights bundle on the card: K1 4 launches a DGCNNSeg forward,
+    K1 10 and K4 4 a HengshuangSeg one; per-point logits those of the
+    plain route (classes >= 99%, max |dprob| <= 2e-2)."""
+    from mlsp_tpu_torch import ServingModel, save_serving_bundle
+
+    model = make_model(name, 8, device=card,
+                       generator=torch.Generator().manual_seed(2))
+    save_serving_bundle(model, str(tmp_path / "b"), 2048, 8)
+    served = ServingModel(str(tmp_path / "b"), device=card)
+    x = make_segmentation(4, 2048, 8, seed=3)[0]
+    kernels.reset_launches()
+    got = served.predict(x)
+    want_launches = dict.fromkeys(kernels.launches(), 0)
+    want_launches.update(launches)
+    assert kernels.launches() == want_launches
+    plain = make_model(name, 8, device=card, knn_backend="torch")
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = plain(torch.from_numpy(x).to(card), ("seg",))["seg"]
+    want = want.cpu().numpy()
+    assert got.shape == (4, 2048, 8)
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.99
+    prob = [torch.softmax(torch.from_numpy(a), -1) for a in (got, want)]
+    assert float((prob[0] - prob[1]).abs().max()) <= 2e-2
+
+
+def test_two_gloo_ranks_share_the_card(card):
+    """A paper-recipe step at B=8, N=512 on 2 gloo ranks on the one card
+    (NCCL refuses two ranks on one device), through the kernels: the ranks
+    bit-equal to each other, each with the launches of a step on its 4
+    rows (K1 10, K2-fwd 8, K2-bwd 8) and of the global batch's labels and
+    PCM (K3 1, K4 1); one process on the plain route, replaying the ranks'
+    graphs and FPS orders, with eval-mode BN and float32 heads, where
+    rounding alone separates the runs: losses within 1e-4, gradients
+    within 1e-3 (`chip_smoke.DDP_GRAD_RTOL`: weight gradients summed over
+    each rank's rows and over all, in other orders, cancel in the early
+    layers). Each K1 graph of a rank's rows is held against the plain kNN
+    of its input (`Tape.knn_against_plain`). `chip_smoke.py`'s
+    `ddp_ingest` holds the train-mode step."""
+    from mlsp_tpu_torch.testing import (
+        merge_rank_tapes,
+        run_ranks,
+        step_case,
+    )
+
+    cfg = dataclasses.replace(
+        PointDAConfig(batch_size=8, num_points=512).paper_recipe,
+        debug_bn_eval=True, head_dtype="f32")
+    x, y = make_classification(16, 512, 10, seed=1)
+    model = make_model("dgcnn", 10, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    case = {"kind": "pointda", "model": "dgcnn", "num_class": 10,
+            "kwargs": {"head_dtype": "f32"}, "state": model.state_dict(),
+            "cfg": cfg, "seed": 5, "device": "cuda:0",
+            "batch": {"src_x": torch.from_numpy(x[:8]),
+                      "src_y": torch.from_numpy(y[:8]),
+                      "trgt_x": torch.from_numpy(x[8:])}}
+    r0, r1 = run_ranks(2, step_case, case, backend="gloo", device="cuda:0",
+                       timeout_s=120)
+    assert r0["metrics"] == r1["metrics"]
+    for k, g in r0["grads"].items():
+        np.testing.assert_array_equal(g, r1["grads"][k])
+    assert r0["launches"] == {"knn": 10, "edge_moments": 8,
+                              "edge_moments_bwd": 8, "knn_moments": 1,
+                              "fps": 1}
+    for r in (r0, r1):  # each K1 graph of a rank's 4 rows against plain kNN
+        assert len(r["knn_against_plain"]) == 10
+        assert max(c["max_gap_over_tol"] for c in r["knn_against_plain"]
+                   ) <= 1.0, r["knn_against_plain"]
+    plain = {**case, "kwargs": {"head_dtype": "f32", "knn_backend": "torch"},
+             "cfg": dataclasses.replace(cfg, knn_backend="torch")}
+    one = step_case(None, plain, merge_rank_tapes((r0, r1), 8))
+    assert sum(one["launches"].values()) == 0
+    gaps = grad_gaps({k: torch.from_numpy(v) for k, v in r0["grads"].items()},
+                     {k: torch.from_numpy(v) for k, v in one["grads"].items()})
+    assert max(gaps.values()) <= 1e-3, max(gaps.items(), key=lambda kv: kv[1])
+    for k, want in one["metrics"].items():
+        assert abs(r0["metrics"][k] - want) <= 1e-4 * max(abs(want), 1e-3), k

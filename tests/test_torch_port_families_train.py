@@ -196,6 +196,20 @@ def test_serving_bundle_rebuilds_the_family(tmp_path, name, kw):
 
 
 def test_segmenter_bundle_is_queued(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        save_serving_bundle(make_model("hengshuang_seg", 8, device="cpu"),
-                            str(tmp_path / "b"))
+    """Segmentation bundles are ported: a HengshuangSeg bundle records
+    task "pointsegda" and serves the model's own per-point logits
+    [B, N, 8] (`model(x, ("seg",))["seg"]`), for a batch of any size."""
+    model = make_model("hengshuang_seg", 8, device="cpu", dropout=0.0,
+                       generator=torch.Generator().manual_seed(3),
+                       nblocks=2, d_model=16)
+    meta = save_serving_bundle(model, str(tmp_path / "b"), num_points=64,
+                               num_class=8)
+    assert meta["task"] == "pointsegda" and meta["model"] == "hengshuang_seg"
+    served = ServingModel(str(tmp_path / "b"), device="cpu")
+    for b in (3, 5):
+        x, _ = make_classification(b, 64, seed=b)
+        with torch.no_grad():
+            want = model(torch.from_numpy(x), ("seg",))["seg"].numpy()
+        got = served.predict(x)
+        assert got.shape == (b, 64, 8)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
