@@ -187,6 +187,31 @@ one JSON line each; any failure exits non-zero before the last line:
                69, K2-bwd 69 launches), then on its inputs K1 against the
                plain kNN and K2's statistics and du against the gather
                route's
+  step_graphs  fused step dispatch (`scan_steps`): one replay of the
+               captured paper step (`pointda_train_scan` on a chunk of one
+               step: warm-up, restore, capture, replay) against one eager
+               step from the same weights, fresh Adam and generator seed:
+               the augmented clouds and every draw bit-equal, the
+               generators' states equal, losses within 1e-4, gradients
+               within the train-mode bounds (2e-2, median 2e-3), BN
+               statistics within 1e-4, the same parameters moved and within
+               2.5 lr, launches K1 10, K2-fwd 8, K2-bwd 8, K3 1, K4 1 all
+               inside the graph; K1 at a forward's five inputs and on
+               integer coordinates (K3 too), K2-fwd and K2-bwd at the four
+               EdgeConv shapes, K3 at [32, 1024, 3] and K4 at [64, 1024,
+               3] (random and integer points), each launched from inside a
+               CUDA graph on fresh inputs copied into its static ones, by
+               the kernel phases' checks; the CLIs `trainer --scan_steps 3`
+               (2 epochs: 2 chunks and 2 single steps an epoch), `seg
+               --scan_steps 2` and `spst --scan_steps 2` with the exact
+               launches of their eager runs, counted through the replays,
+               finite losses and "step_graphs" true in every record; the
+               trainer's epoch at `--scan_steps` 1 and 8, interleaved, and
+               a profiled epoch at 8 (the device's busy share); the scanned
+               eval against the eager forwards; step p50 of replayed
+               chunks of 8 against eager steps, interleaved, for the
+               paper, all-branch and seg recipes, with peak memory
+               allocated and reserved (the graph's pool)
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
                kernel's bound, K2-bwd on the repeated-point graph too, K4
@@ -273,6 +298,10 @@ from mlsp_tpu_torch.train import (
     pointda_train_step,
     pointsegda_train_step,
 )
+from mlsp_tpu_torch.train import steps as steps_mod
+from mlsp_tpu_torch.train.graphs import Graphs, capture
+from mlsp_tpu_torch.train.seg_steps import pointsegda_train_scan
+from mlsp_tpu_torch.train.steps import pointda_train_scan
 from mlsp_tpu_torch.train.pointda_trainer import (
     eval_batches,
     eval_logits,
@@ -1241,8 +1270,10 @@ def trainer_times(tr: dict, model_file: str, step_p50_ms: float, device,
         return statistics.median(out)
 
     busy_ms = tr["resume"]["profiled_epoch"].get("busy_ms")
-    t_eval = timed(lambda: evaluate(model, x, ds.label, B, NUM_CLASS))
-    t_infer = timed(lambda: eval_logits(model, x, sels))
+    graphs = Graphs()  # the eval graph is captured in the untimed call
+    t_eval = timed(lambda: evaluate(model, x, ds.label, B, NUM_CLASS,
+                                    graphs=graphs))
+    t_infer = timed(lambda: eval_logits(model, x, sels, graphs=graphs))
     res = {"epochs_timed": len(secs),
            "epoch_wall_s_median": statistics.median(s["epoch"] for s in secs),
            "train_wall_s_median": statistics.median(s["train"] for s in secs),
@@ -1631,8 +1662,11 @@ def seg_trainer_times(tr: dict, step_p50_ms: float, device,
             out.append(time.perf_counter() - t0)
         return statistics.median(out)
 
-    t_eval = timed(lambda: evaluate_seg(model, x, labels, SEG_TEST_B))
-    t_infer = timed(lambda: eval_logits(model, x, sels, "seg"))
+    graphs = Graphs()  # the eval graph is captured in the untimed call
+    t_eval = timed(lambda: evaluate_seg(model, x, labels, SEG_TEST_B,
+                                        graphs=graphs))
+    t_infer = timed(lambda: eval_logits(model, x, sels, "seg",
+                                        graphs=graphs))
     steps = 3  # 48 synthetic train clouds a domain at B=16
     res = {"epochs_timed": len(secs),
            "epoch_wall_s_median": statistics.median(s["epoch"] for s in secs),
@@ -2473,13 +2507,17 @@ def fam_times(device, card: str, kc: dict, paths: dict,
             batch = B
         x = torch.from_numpy(ds.data).to(device)
         sels, _ = eval_batches(len(ds.data), batch)
+        graphs = Graphs()  # the eval graph is captured in the untimed call
         if seg:
-            t_eval = timed(lambda: evaluate_seg(model, x, ds.label, batch))
-            t_infer = timed(lambda: eval_logits(model, x, sels, "seg"))
+            t_eval = timed(lambda: evaluate_seg(model, x, ds.label, batch,
+                                                graphs=graphs))
+            t_infer = timed(lambda: eval_logits(model, x, sels, "seg",
+                                                graphs=graphs))
         else:
             t_eval = timed(lambda: evaluate(model, x, ds.label, batch,
-                                            NUM_CLASS))
-            t_infer = timed(lambda: eval_logits(model, x, sels))
+                                            NUM_CLASS, graphs=graphs))
+            t_infer = timed(lambda: eval_logits(model, x, sels,
+                                                graphs=graphs))
         paths_res[tag] = {"model": name, "clouds": len(ds.data),
                           "batch": batch,
                           "eval_clouds_per_s": len(ds.data) / t_eval,
@@ -3302,6 +3340,564 @@ def ddp_ingest(device, card: str, tmp: str) -> dict:
         "ingest": ing["launches"], "calibrate": cal["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# The `step_graphs` phase: fused step dispatch (`scan_steps`). On the card a
+# chunk of S train steps is S replays of one captured CUDA graph of the step
+# (`train.graphs.StepGraph`), and the eval forward runs as a captured graph
+# (`EvalGraph`). Launches made inside a replay are counted by the graph
+# module (the wrappers are not called there), so the exact launch checks
+# hold through the replays.
+# ---------------------------------------------------------------------------
+
+GRAPH_TRAINER_SCAN = 3  # 8 steps an epoch: 2 chunks of 3, then 2 single steps
+GRAPH_SEG_SCAN = 2  # 3 seg steps an epoch: 1 chunk of 2, then 1 single step
+GRAPH_SPST_SCAN = 2  # 8 SPST steps an epoch: 4 chunks of 2
+GRAPH_EPOCH = 8  # scan_steps of one chunk an epoch (8 synthetic steps)
+GRAPH_TIMED_EPOCHS = 3  # the interleaved trainer runs' epochs
+GRAPH_CHUNKS, GRAPH_STEPS = 4, 16  # timed chunks of GRAPH_EPOCH, eager steps
+# A replay against an eager step from the same state: Adam's first update
+# moves each element by at most lr (1 + eps); a gradient element of
+# rounding size may flip its sign, so the parameters may differ by 2 lr.
+GRAPH_PARAM_SLACK = 2.5
+# Chunks held to eager steps at a nonzero LR (`graph_chunks_vs_eager`): 2
+# chunks of 3, one an epoch. DGCNN's steps at a nonzero LR part at the
+# rounding level even eager against eager (K2-bwd's atomics add in no fixed
+# order, then near-tied kNN in feature space flip), so the check runs
+# PointNet under PCM (K4) and DefRec, whose step has no atomic add: two runs
+# of its steps are bit-equal, and so must a chunk's replays be to eager
+# steps, within LOSS_RTOL.
+GRAPH_CHUNK_CHECK = 3
+# The paper trainer's epoch-0 mean losses, any scan_steps against any
+# other: two eager runs part by ~1.4% there (the chaos above; on an H100
+# 80GB HBM3 at 700 W, totals 8.260 and 8.324 at scan_steps 1, 8.279 and
+# 8.379 at 3).
+EPOCH0_LOSS_RTOL = 5e-2
+
+
+class Graphed:
+    """`fn` launched from inside a CUDA graph: one graph per signature of
+    the arguments, captured on static copies (`train.graphs.capture`:
+    warm-up, capture, launch counts put back); each call copies the tensor
+    arguments in, replays and returns copies of the outputs. The replays
+    add no launches: they compare kernels with their plain versions."""
+
+    def __init__(self, fn):
+        self.fn, self.graphs, self.replays = fn, {}, 0
+
+    def __call__(self, *args, **kwargs):
+        key = tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
+                    for a in args) + tuple(sorted(kwargs.items()))
+        if key not in self.graphs:
+            static = [a.clone() if torch.is_tensor(a) else a for a in args]
+            device = next(a.device for a in static if torch.is_tensor(a))
+            graph, out, _ = capture(lambda: self.fn(*static, **kwargs),
+                                    device)
+            self.graphs[key] = (graph, static, out)
+        graph, static, out = self.graphs[key]
+        for buf, a in zip(static, args):
+            if torch.is_tensor(a):
+                buf.copy_(a)
+        graph.replay()
+        self.replays += 1
+        if isinstance(out, tuple):
+            return tuple(o.clone() for o in out)
+        return out.clone()
+
+
+def graph_vs_eager(device) -> dict:
+    """One replay of the paper step's graph (`pointda_train_scan` on a
+    chunk of one step: warm-up, restore, capture, replay) against one
+    eager step, each from the same seeded weights, a fresh optimizer and
+    the same generator seed. The augmented clouds and every draw of the
+    step must be bit-equal and the generators must end in the same state;
+    losses within LOSS_RTOL, gradients within the train-mode bounds, BN
+    running statistics within DDP_RUNNING_RTOL, the parameters that move
+    the same and within GRAPH_PARAM_SLACK x lr."""
+    cfg = train_cfg()
+    batch = train_batches(cfg, device)[0]
+    runs = {}
+    for route in ("graph", "eager"):
+        model = train_model(cfg, device)
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                    STEPS_PER_EPOCH)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        before = {n: t.detach().clone()
+                  for n, t in model.state_dict().items()}
+        seen = {}
+
+        def recorded(name, fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                seen.setdefault(name, []).append(out)
+                return out
+            return call
+
+        kernels.reset_launches()
+        with mock.patch.object(steps_mod, "augment_batch", recorded(
+                "augmented", steps_mod.augment_batch)), \
+                mock.patch.object(steps_mod, "draw_step", recorded(
+                    "draws", steps_mod.draw_step)):
+            if route == "graph":
+                m = {k: v[0] for k, v in pointda_train_scan(
+                    model, opt, sched, *(t[None] for t in batch), gen,
+                    cfg).items()}
+            else:
+                m = pointda_train_step(model, opt, sched, *batch, gen, cfg)
+        torch.cuda.synchronize()
+        # the last step's: the graph's capture (its tensors hold what the
+        # replay wrote), or the eager step
+        draws = {**dict(zip(("src", "trgt"), seen["augmented"][-2:])),
+                 **seen["draws"][-1]}
+        runs[route] = {
+            "losses": {k: float(v) for k, v in m.items()},
+            "grads": {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "after": {n: t.detach().clone()
+                      for n, t in model.state_dict().items()},
+            "before": before, "draws": {k: v.clone() for k, v in draws.items()},
+            "gen": gen.get_state(), "launches": kernels.launches(),
+            "in_graphs": kernels.launches_in_graphs(),
+            "lr": float(opt.param_groups[0]["lr"]),
+            "sched_steps": sched.last_epoch}
+    g, e = runs["graph"], runs["eager"]
+    loss_gap = {k: abs(g["losses"][k] - w) / max(abs(w), 1e-12)
+                for k, w in e["losses"].items()}
+    grad_gap = grad_gaps(g["grads"], e["grads"])
+    moved = {r: {n for n, t in runs[r]["after"].items()
+                 if "running" not in n and "num_batches" not in n
+                 and not torch.equal(t, runs[r]["before"][n])}
+             for r in runs}
+    param_gap = max(float((g["after"][n] - e["after"][n]).abs().max())
+                    for n in moved["eager"] | moved["graph"])
+    running = {n: float((g["after"][n] - e["after"][n]).norm()
+                        / max(float(e["after"][n].norm()), 1e-30))
+               for n in e["after"] if "running" in n}
+    res = {
+        "config": "PointDAConfig().paper_recipe", "batch": cfg.batch_size,
+        "draws_bit_equal": {k: bool(torch.equal(g["draws"][k],
+                                                e["draws"][k]))
+                            for k in e["draws"]},
+        "generator_state_equal": bool(torch.equal(g["gen"], e["gen"])),
+        "loss_rel_gap": loss_gap, "losses_graph": g["losses"],
+        "losses_eager": e["losses"],
+        "grad_gap": {"max": max(grad_gap.values()),
+                     "median": statistics.median(grad_gap.values()),
+                     "worst": max(grad_gap, key=grad_gap.get)},
+        "same_grad_set": set(g["grads"]) == set(e["grads"]),
+        "params_moved": len(moved["eager"]),
+        "same_params_moved": moved["graph"] == moved["eager"],
+        "param_max_abs_gap": param_gap, "param_slack": GRAPH_PARAM_SLACK * cfg.lr,
+        "running_rel_gap_max": max(running.values()),
+        "lr_and_schedule_equal": (g["lr"], g["sched_steps"])
+        == (e["lr"], e["sched_steps"]),
+        "launches_graph": g["launches"], "launches_in_graph": g["in_graphs"],
+        "launches_eager": e["launches"]}
+    emit("step_graphs", what="replay_vs_eager", **res)
+    check(all(res["draws_bit_equal"].values())
+          and res["generator_state_equal"],
+          f"a replay draws other numbers than the eager step: {res}")
+    check(max(loss_gap.values()) <= LOSS_RTOL, f"losses differ: {loss_gap}")
+    check(res["same_grad_set"] and res["grad_gap"]["max"] <= GRAD_RTOL_TRAIN
+          and res["grad_gap"]["median"] <= GRAD_MEDIAN_TRAIN,
+          f"gradients differ: {res['grad_gap']}")
+    check(res["same_params_moved"] and param_gap <= res["param_slack"]
+          and res["running_rel_gap_max"] <= DDP_RUNNING_RTOL
+          and res["lr_and_schedule_equal"],
+          f"the replay's update differs from the eager step's: {res}")
+    check(g["launches"] == PER_STEP and g["in_graphs"] == PER_STEP
+          and e["launches"] == PER_STEP,
+          f"launches: graph {g['launches']} (in the graph "
+          f"{g['in_graphs']}), eager {e['launches']}")
+    return res
+
+
+def chunk_cfg() -> PointDAConfig:
+    """The recipe of the chunk checks: PointNet, PCM and DefRec on the
+    target (see GRAPH_CHUNK_CHECK)."""
+    return dataclasses.replace(PointDAConfig(model="pointnet").resolved(),
+                               DefRec_on_trgt=True)
+
+
+def train_state(model, opt, sched, gen) -> dict:
+    """A train run's state: weights, BN statistics, the optimizer's
+    state tensors, its LR, the schedule's count, the generator."""
+    state = {f"model.{k}": v for k, v in model.state_dict().items()}
+    for i, st in enumerate(opt.state.values()):
+        state.update({f"opt.{i}.{k}": v for k, v in st.items()
+                      if torch.is_tensor(v)})
+    return {**state, "lr": torch.as_tensor(opt.param_groups[0]["lr"]).cpu(),
+            "sched": torch.tensor(sched.last_epoch), "gen": gen.get_state()}
+
+
+def graph_chunks_vs_eager(device) -> dict:
+    """Two chunks of GRAPH_CHUNK_CHECK replays of the step graph, one an
+    epoch of the cosine (the LR halves between them), against as many
+    eager steps from the same weights and generator seed, Adam at the
+    recipe's LR, B=32, N=1024 (`chunk_cfg`): losses within LOSS_RTOL;
+    every weight, BN statistic, Adam moment and step count within
+    LOSS_RTOL of the tensor's largest magnitude; the LR, the schedule's
+    count and the generator equal; K4's launches counted through the
+    replays. Whether it is all bit-equal is reported."""
+    cfg, S = chunk_cfg(), GRAPH_CHUNK_CHECK
+    clouds, labels = make_classification(2 * S * cfg.batch_size,
+                                         cfg.num_points, cfg.num_class,
+                                         seed=SEED + 13)
+    x = torch.from_numpy(clouds).to(device).view(2 * S, cfg.batch_size,
+                                                 cfg.num_points, 3)
+    y = torch.from_numpy(labels).to(device).view(2 * S, cfg.batch_size)
+    runs = {}
+    for route in ("graph", "eager"):
+        model = make_model("pointnet", cfg.num_class, device=device,
+                           generator=torch.Generator().manual_seed(SEED + 4),
+                           dropout=cfg.dropout).train()
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, 2, S)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        kernels.reset_launches()
+        if route == "graph":
+            graphs = Graphs()
+            out = [pointda_train_scan(model, opt, sched, x[c:c + S],
+                                      y[c:c + S], x[c:c + S].flip(1), gen,
+                                      cfg, graphs) for c in (0, S)]
+            m = {k: torch.cat([o[k] for o in out]) for k in out[0]}
+        else:
+            out = [pointda_train_step(model, opt, sched, x[i], y[i],
+                                      x[i].flip(0), gen, cfg)
+                   for i in range(2 * S)]
+            m = {k: torch.stack([o[k] for o in out]) for k in out[0]}
+        torch.cuda.synchronize()
+        runs[route] = {"losses": m,
+                       "state": train_state(model, opt, sched, gen),
+                       "launches": kernels.launches(),
+                       "in_graphs": kernels.launches_in_graphs()}
+    g, e = runs["graph"], runs["eager"]
+    loss_gap = max(float(((g["losses"][k] - w).abs()
+                          / w.abs().clamp_min(1e-12)).max())
+                   for k, w in e["losses"].items())
+    state_gap = {k: float((g["state"][k].double() - v.double()).abs().max()
+                          / max(float(v.double().abs().max()), 1e-30))
+                 for k, v in e["state"].items()
+                 if k not in ("lr", "sched", "gen")}
+    exact = ("lr", "sched", "gen")
+    res = {"config": "pointnet, PCM + DefRec_on_trgt, ADAM",
+           "chunks": 2, "chunk": S, "batch": cfg.batch_size,
+           "points": cfg.num_points, "loss_rel_gap_max": loss_gap,
+           "state_rel_gap_max": max(state_gap.values()),
+           "state_worst": max(state_gap, key=state_gap.get),
+           "state_tensors": len(state_gap),
+           "same_state_keys": g["state"].keys() == e["state"].keys(),
+           "lr_schedule_generator_equal": all(
+               torch.equal(g["state"][k], e["state"][k]) for k in exact),
+           "bit_equal": all(torch.equal(g["losses"][k], v)
+                            for k, v in e["losses"].items())
+           and all(torch.equal(g["state"][k], v)
+                   for k, v in e["state"].items()),
+           "lr_end": float(e["state"]["lr"]),
+           "sched_steps": int(e["state"]["sched"]),
+           "launches_graph": g["launches"], "launches_in_graphs": g["in_graphs"],
+           "launches_eager": e["launches"]}
+    emit("step_graphs", what="chunks_vs_eager", **res)
+    check(res["same_state_keys"] and res["lr_schedule_generator_equal"]
+          and res["sched_steps"] == 2 * S and loss_gap <= LOSS_RTOL
+          and res["state_rel_gap_max"] <= LOSS_RTOL,
+          f"chunks of replays part from the eager steps: {res}")
+    check(g["launches"]["fps"] == e["launches"]["fps"]
+          == g["in_graphs"]["fps"] == 2 * S,
+          f"K4 launches through the chunks: {res}")
+    return res
+
+
+def graph_kernels(device, g: torch.Generator) -> dict:
+    """Each kernel launched from inside a CUDA graph (`Graphed`, in place
+    of every wrapper the checks and the ops reach), fresh seeded inputs
+    copied into its static inputs, held against its plain version by the
+    checks of the kernel phases: K1 at a B=32 forward's five inputs (C = 3,
+    3, 64, 64, 128) and on integer coordinates (K3 too), K2-fwd and K2-bwd
+    at the four EdgeConv shapes, K3 at [32, 1024, 3], K4 at PCM's
+    [64, 1024, 3] on random and on integer points."""
+    wrap = {name: Graphed(fn) for name, fn in (
+        ("knn_cuda", knn_cuda), ("edge_moments_cuda", edge_moments_cuda),
+        ("edge_moments_bwd_cuda", edge_moments_bwd_cuda),
+        ("knn_moments_cuda", knn_moments_cuda), ("fps_cuda", fps_cuda))}
+    model = make_model("dgcnn", NUM_CLASS, device=device, generator=g, k=K)
+    randomise_batch_norm(model, g)
+    x = torch.from_numpy(make_classification(B, N, NUM_CLASS,
+                                             seed=SEED + 11)[0]).to(device)
+    knn_in, edge_in = kernel_inputs(model, x)
+    edge_mod = importlib.import_module("mlsp_tpu_torch.ops.edge")
+    normals_mod = importlib.import_module("mlsp_tpu_torch.ops.normals")
+    targets = [(sys.modules[__name__], n) for n in wrap] + [
+        (_knn_mod, "knn_cuda"), (edge_mod, "edge_moments_cuda"),
+        (edge_mod, "edge_moments_bwd_cuda"), (normals_mod, "knn_moments_cuda"),
+        (_fps_mod, "fps_cuda")]
+    with contextlib.ExitStack() as stack:
+        for mod, name in targets:
+            stack.enter_context(mock.patch.object(mod, name, wrap[name]))
+        res = {"knn": [check_knn(f"graph {n}", t, phase="step_graphs")
+                       for n, t in knn_in]}
+        check_knn_exact(g, device)
+        res["edge"] = [check_edge(f"graph {n}", xg, u)
+                       for n, xg, u in edge_in]
+        # capture K2-bwd's graphs here, not inside autograd's backward
+        for _, xg, u in edge_in:
+            idx = knn_cuda(xg, K)
+            mx, mn = edge_moments_cuda(u, idx, False)
+            wrap["edge_moments_bwd_cuda"](u, idx, mx, mn, *[u] * 4)
+        res["edge_bwd"] = [check_edge_bwd(f"graph {n}", xg, u, g)
+                           for n, xg, u in edge_in]
+        res["knn_moments"] = check_knn_moments(x, phase="step_graphs")
+        xf = torch.from_numpy(make_classification(2 * B, N, NUM_CLASS,
+                                                  seed=SEED + 12)[0]).to(device)
+        start = torch.randint(0, N, (2 * B,), generator=g).to(device)
+        res["fps"] = [check_fps(xf, start, phase="step_graphs"),
+                      check_fps(integer_cloud(g, (2 * B, N, 3), device),
+                                start, what="integer points",
+                                phase="step_graphs")]
+    res["replays"] = {n: w.replays for n, w in wrap.items()}
+    res["graphs"] = {n: len(w.graphs) for n, w in wrap.items()}
+    emit("step_graphs", what="kernels_in_graphs", replays=res["replays"],
+         graphs=res["graphs"])
+    check(all(res["replays"].values()),
+          f"a kernel was not replayed from a graph: {res['replays']}")
+    return res
+
+
+def graph_cli(tmp: str, argv: list, name: str) -> dict:
+    """A CLI run in-process; its launches, those inside graph replays, its
+    metrics.jsonl records and log."""
+    launches = run_cli(argv, os.path.join(tmp, f"{name}.log"))
+    in_graphs = kernels.launches_in_graphs()
+    exp = os.path.join(argv[argv.index("--out_path") + 1],
+                       argv[argv.index("--exp_name") + 1])
+    if argv[0] == "seg":
+        exp += "_adobe_faust"
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(exp, "run.log")) as f:
+        log = f.read()
+    return {"launches": launches, "in_graphs": in_graphs,
+            "records": records, "log": log, "exp": exp}
+
+
+def graph_trainers(tmp: str, model_file: str) -> dict:
+    """The trainer CLI with scan_steps GRAPH_TRAINER_SCAN (2 epochs: 2
+    chunks and 2 single steps an epoch), the seg CLI with GRAPH_SEG_SCAN
+    and the SPST CLI with GRAPH_SPST_SCAN: exact launches through the
+    replays, finite losses, "step_graphs" true in every record; then the
+    trainer's epoch wall time with scan_steps 1 and GRAPH_EPOCH,
+    interleaved, and a profiled run."""
+    out = os.path.join(tmp, "graph_runs")
+    common = ["--synthetic", "True", "--out_path", out]
+    runs = {}
+    runs["trainer"] = graph_cli(tmp, [
+        "trainer", "--paper_recipe", "True", "--epochs",
+        str(TRAINER_EPOCHS), "--scan_steps", str(GRAPH_TRAINER_SCAN),
+        "--exp_name", "graph_trainer", *common], "graph_trainer")
+    runs["seg"] = graph_cli(tmp, [
+        "seg", "--config", repo_file(SEG_CONFIG), "--apply_PCM", "True",
+        "--epochs", str(SEG_TRAINER_EPOCHS), "--scan_steps",
+        str(GRAPH_SEG_SCAN), "--exp_name", "graph_seg", *common], "graph_seg")
+    runs["spst"] = graph_cli(tmp, [
+        "spst", "--model_file", model_file, "--rounds", str(SPST_ROUNDS),
+        "--epochs", "1", "--threshold", str(SPST_THRESHOLD), "--apply_PCM",
+        "True", "--scan_steps", str(GRAPH_SPST_SCAN), "--exp_name",
+        "graph_spst", *common], "graph_spst")
+    expected = {"trainer": trainer_launches(TRAINER_EPOCHS),
+                "seg": seg_trainer_launches(SEG_TRAINER_EPOCHS),
+                "spst": spst_launches(SPST_ROUNDS)}
+    res = {}
+    for name, r in runs.items():
+        losses = [rec["train"] for rec in r["records"]]
+        res[name] = {"launches": r["launches"],
+                     "launches_expected": expected[name],
+                     "launches_in_graphs": r["in_graphs"],
+                     "step_graphs": [rec["step_graphs"]
+                                     for rec in r["records"]],
+                     "losses": losses,
+                     "finite": all(np.isfinite(v) for m in losses
+                                   for v in m.values()),
+                     "epoch_seconds": [rec["seconds"]
+                                       for rec in r["records"]],
+                     "route_line": [ln.split(": ", 1)[-1]
+                                    for ln in r["log"].splitlines()
+                                    if "step graphs:" in ln]}
+        emit("step_graphs", what=f"{name}_cli", **res[name])
+        check(r["launches"] == expected[name],
+              f"{name} with step graphs launched {r['launches']}, not "
+              f"{expected[name]}")
+        check(res[name]["finite"] and all(res[name]["step_graphs"])
+              and r["in_graphs"]["knn"] > 0,
+              f"{name} with step graphs: {res[name]}")
+
+    # the trainer's chunks and single steps against its eager steps, on the
+    # recipe whose steps are reproducible (`chunk_cfg`): 2 epochs
+    pn = {S: graph_cli(tmp, [
+        "trainer", "--model", "pointnet", "--DefRec_on_trgt", "True",
+        "--epochs", "2", "--scan_steps", str(S), "--exp_name",
+        f"graph_pointnet_{S}", *common], f"graph_pointnet_{S}")["records"]
+        for S in (GRAPH_TRAINER_SCAN, 1)}
+    pn_losses = {S: [rec["train"] for rec in recs] for S, recs in pn.items()}
+    gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for a, b in zip(*pn_losses.values()) for k in b)
+    res["pointnet_cli"] = {"losses": pn_losses, "loss_rel_gap_max": gap,
+                           "step_graphs": [rec["step_graphs"]
+                                           for rec in pn[GRAPH_TRAINER_SCAN]]}
+    emit("step_graphs", what="pointnet_cli_scan_vs_eager",
+         **res["pointnet_cli"])
+    check(len(pn_losses[1]) == 2 and gap <= LOSS_RTOL
+          and all(res["pointnet_cli"]["step_graphs"]),
+          f"the trainer's chunks part from its eager steps: "
+          f"{res['pointnet_cli']}")
+
+    # epoch wall time: scan_steps 1 (eager) against GRAPH_EPOCH (the epoch
+    # as one chunk), interleaved
+    times = {1: [], GRAPH_EPOCH: []}
+    epoch0 = {f"scan_steps_{GRAPH_TRAINER_SCAN}":
+              runs["trainer"]["records"][0]["train"]["total"]}
+    for i, S in enumerate((1, GRAPH_EPOCH, GRAPH_EPOCH, 1)):
+        r = graph_cli(tmp, [
+            "trainer", "--paper_recipe", "True", "--epochs",
+            str(GRAPH_TIMED_EPOCHS), "--scan_steps", str(S), "--exp_name",
+            f"graph_timed_{i}", *common], f"graph_timed_{i}")
+        times[S] += [rec["seconds"] for rec in r["records"][1:]]
+        epoch0[f"scan_steps_{S}_run_{i}"] = r["records"][0]["train"]["total"]
+    spread = (max(epoch0.values()) - min(epoch0.values())) / min(
+        abs(v) for v in epoch0.values())
+    res["epoch0_total"] = {"totals": epoch0, "spread": spread,
+                           "bound": EPOCH0_LOSS_RTOL}
+    emit("step_graphs", what="trainer_epoch0_losses", **res["epoch0_total"])
+    check(spread <= EPOCH0_LOSS_RTOL,
+          f"the paper trainer's epoch-0 losses part by scan_steps: "
+          f"{res['epoch0_total']}")
+    trace_dir = os.path.join(tmp, "graph_trace")
+    r = graph_cli(tmp, ["trainer", "--paper_recipe", "True", "--epochs", "2",
+                        "--scan_steps", str(GRAPH_EPOCH), "--exp_name",
+                        "graph_profiled", "--profile_dir", trace_dir, *common],
+                  "graph_profiled")
+    busy = busy_share(os.path.join(trace_dir, "trace.json"), "mlsp/epoch 1")
+    res["epochs"] = {
+        f"scan_steps_{S}": {
+            "epoch_s_median": statistics.median(t["epoch"] for t in ts),
+            "train_s_median": statistics.median(t["train"] for t in ts),
+            "epochs": len(ts)} for S, ts in times.items()}
+    res["profiled"] = {"scan_steps": GRAPH_EPOCH, "epoch": 1, **busy,
+                       "seconds": r["records"][-1]["seconds"]}
+    emit("step_graphs", what="trainer_epochs", epochs=res["epochs"],
+         profiled=res["profiled"])
+    return res
+
+
+def graph_eval(device, model_file: str) -> dict:
+    """The scanned eval (`eval_logits` through `scan_in_chunks` of
+    `eval_scan`: a captured eval forward) against the eager forward loop
+    on the same model and batches."""
+    model = make_model("dgcnn", NUM_CLASS, device=device)
+    checkpoint.load_model_weights(model, model_file)
+    ds = load_pointda("scannet", ".", "train", N, True, 1, device=device)
+    x = torch.from_numpy(ds.data).to(device)
+    sels, _ = eval_batches(len(ds), B)
+    kernels.reset_launches()
+    got = eval_logits(model, x, sels, graphs=Graphs())
+    launches, in_graphs = kernels.launches(), kernels.launches_in_graphs()
+    with torch.inference_mode():
+        want = torch.stack([model(x[torch.from_numpy(s).to(device)])["cls"]
+                            for s in sels]).float().cpu().numpy()
+    res = {"batches": len(sels), "max_abs_diff": float(np.abs(got - want).max()),
+           "class_agreement": float((got.argmax(-1) == want.argmax(-1)).mean()),
+           "launches": launches, "launches_in_graphs": in_graphs}
+    emit("step_graphs", what="eval_scan", **res)
+    check(res["class_agreement"] >= MIN_CLASS_AGREEMENT
+          and res["max_abs_diff"] <= MAX_LOGIT_DIFF
+          and in_graphs["knn"] == 5 * len(sels) == launches["knn"],
+          f"the scanned eval disagrees with the eager forwards: {res}")
+    return res
+
+
+def graph_step_times(device, card: str) -> dict:
+    """Step wall time (host clock, ending in a synchronize) of chunks of
+    GRAPH_EPOCH replays against eager steps, interleaved, for the paper,
+    all-branch and seg recipes; peak memory allocated and reserved, after
+    the graph's capture and replays and again after the eager steps
+    beside it (reserved counts the graph's private pool)."""
+    pcfg = train_cfg()
+    recipes = {"paper": (pcfg, pointda_train_scan, pointda_train_step,
+                         train_model),
+               "all_branch": (dataclasses.replace(pcfg, **ALL_BRANCHES),
+                              pointda_train_scan, pointda_train_step,
+                              train_model),
+               "seg": (seg_cfg(), pointsegda_train_scan,
+                       pointsegda_train_step, seg_model)}
+    res = {}
+    for name, (cfg, scan, step, build) in recipes.items():
+        model = build(cfg, device)
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                    STEPS_PER_EPOCH)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        batches = (seg_batches(cfg, device) if name == "seg"
+                   else train_batches(cfg, device))
+        chunk = [torch.stack([batches[i % len(batches)][j]
+                              for i in range(GRAPH_EPOCH)]) for j in range(3)]
+        graphs = Graphs()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scan(model, opt, sched, *chunk, gen, cfg, graphs)  # capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        ms = {"graph": [], "eager": []}
+        # allocated: live tensors; reserved: the caching allocator's
+        # memory, the graph's private pool included
+        peak = {"graph_allocated": torch.cuda.max_memory_allocated() / 1e9,
+                "graph_reserved": torch.cuda.max_memory_reserved() / 1e9}
+        for _ in range(2):
+            for _ in range(GRAPH_CHUNKS // 2):
+                t0 = time.perf_counter()
+                scan(model, opt, sched, *chunk, gen, cfg, graphs)
+                torch.cuda.synchronize()
+                ms["graph"].append((time.perf_counter() - t0) * 1e3
+                                   / GRAPH_EPOCH)
+            for i in range(GRAPH_STEPS // 2):
+                t0 = time.perf_counter()
+                step(model, opt, sched, *batches[i % len(batches)], gen, cfg)
+                torch.cuda.synchronize()
+                ms["eager"].append((time.perf_counter() - t0) * 1e3)
+        peak["with_eager_allocated"] = torch.cuda.max_memory_allocated() / 1e9
+        peak["with_eager_reserved"] = torch.cuda.max_memory_reserved() / 1e9
+        res[name] = {"batch": cfg.batch_size, "points": cfg.num_points,
+                     "graph_step_p50_ms": statistics.median(ms["graph"]),
+                     "eager_step_p50_ms": statistics.median(ms["eager"]),
+                     "speedup": statistics.median(ms["eager"])
+                     / statistics.median(ms["graph"]),
+                     "graph_ms": ms["graph"], "eager_ms": ms["eager"],
+                     "capture_s": capture_s, "peak_memory_gb": peak,
+                     "card": card}
+        emit("times", what=f"step_graphs_{name}", **res[name])
+        del model, opt, sched, graphs
+        torch.cuda.empty_cache()
+    return res
+
+
+def step_graphs(device, card: str, g: torch.Generator, tmp: str,
+                model_file: str) -> dict:
+    """The `step_graphs` phase; returns the launches of its paths."""
+    rv = graph_vs_eager(device)
+    ce = graph_chunks_vs_eager(device)
+    kc = graph_kernels(device, g)
+    tr = graph_trainers(tmp, model_file)
+    ev = graph_eval(device, model_file)
+    times = graph_step_times(device, card)
+    by_path = {f"graph_{n}": tr[n]["launches"] for n in ("trainer", "seg",
+                                                          "spst")}
+    by_path["graph_replay_vs_eager"] = rv["launches_graph"]
+    in_graphs = {k: sum(tr[n]["launches_in_graphs"][k]
+                        for n in ("trainer", "seg", "spst"))
+                 + rv["launches_in_graph"][k] for k in PER_STEP}
+    return {"by_path": by_path, "in_graphs": in_graphs, "kernel_checks": kc,
+            "replay_vs_eager": rv, "chunks_vs_eager": ce, "trainers": tr,
+            "eval": ev,
+            "times": times}
+
+
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
 # one B=32 serving forward, the train-only kernels over one B=32 train step.
 KERNELS = {
@@ -3397,6 +3993,7 @@ def run(device: torch.device, card: str) -> None:
         g2 = serving_g2(device, card, tmp, trn["model_file"],
                         seg_trn["model_file"])
         ddp = ddp_ingest(device, card, tmp)
+        sgr = step_graphs(device, card, g, tmp, trn["model_file"])
 
         kt = kernel_times(device, card, knn_in, edge_in, g)
         serving_times(srv["served"], srv["plain"], device, card)
@@ -3407,18 +4004,21 @@ def run(device: torch.device, card: str) -> None:
         seg_trainer_times(seg_trn, seg_st["p50_ms"], device, card)
         sg = scan_graph(device, card, g)
 
+    gk = sgr["kernel_checks"]
     errs = {
-        "knn": max(c["max_dist_gap"]
-                   for c in knn_checks + seg["knn"] + sg["knn_checks"]),
-        "edge_moments": max(c["max_abs_err"] for c in edge_checks),
-        "edge_moments_bwd": max(c["max_abs_err"]
-                                for c in bwd_checks + sg["bwd_checks"]),
+        "knn": max(c["max_dist_gap"] for c in knn_checks + seg["knn"]
+                   + sg["knn_checks"] + gk["knn"]),
+        "edge_moments": max(c["max_abs_err"]
+                            for c in edge_checks + gk["edge"]),
+        "edge_moments_bwd": max(c["max_abs_err"] for c in bwd_checks
+                                + sg["bwd_checks"] + gk["edge_bwd"]),
         "knn_moments": max(moments_check["max_abs_err"],
-                           seg["knn_moments"]["max_abs_err"]),
+                           seg["knn_moments"]["max_abs_err"],
+                           gk["knn_moments"]["max_abs_err"]),
         "fps": float(max(c["unequal_indices"]
                          for c in fps_checks + [seg["fps"]]
                          + fam["kernel_checks"]["fps"]
-                         + vit["kernel_checks"]["fps"])),
+                         + vit["kernel_checks"]["fps"] + gk["fps"])),
     }
     errs["knn"] = max(errs["knn"], max(
         c["max_dist_gap"] for c in fam["kernel_checks"]["knn"]
@@ -3467,11 +4067,14 @@ def run(device: torch.device, card: str) -> None:
                    **{path: n[kname] for path, n in vit["by_path"].items()},
                    "seg_bundle": g2["launches"][kname],
                    "aot": g2["aot_launches"][kname],
-                   **{path: n[kname] for path, n in ddp["by_path"].items()}}
+                   **{path: n[kname] for path, n in ddp["by_path"].items()},
+                   **{path: n[kname] for path, n in sgr["by_path"].items()}}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": errs[kname],
+            "launches_by_path": by_path,
+            "launches_in_step_graphs": sgr["in_graphs"][kname],
+            "max_abs_err": errs[kname],
             **main, "library_ms": None, "ms_over": over,
             "per_train_step": total(step_rows[kname]),
             "per_launch_at_family_shapes": fam["times"]["rows"].get(kname),

@@ -26,7 +26,8 @@ def radius_count(xyz: torch.Tensor, radius: float,
     """Neighbours within `radius` per point of xyz [B, N, 3], self included,
     with the two quirks above: float32 [B, N]."""
     d = self_sqdist(xyz)  # [B, N, N]
-    r2 = torch.tensor(radius, dtype=torch.float32, device=d.device) ** 2
+    # a fill, not a host copy: a step graph captures it
+    r2 = torch.full((), radius, dtype=torch.float32, device=d.device) ** 2
     within = d <= r2
     total = within.sum(-1, dtype=torch.float32)
     # Rank point 0 among the in-radius points by those strictly closer.

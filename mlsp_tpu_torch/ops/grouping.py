@@ -38,7 +38,8 @@ def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     if not 1 <= nsample <= N:
         raise ValueError(f"ball_query: nsample={nsample} outside [1, {N}]")
     d = pairwise_sqdist(centers, xyz)  # [B, S, N]
-    r2 = torch.tensor(radius, dtype=torch.float32, device=d.device) ** 2
+    # a fill, not a host copy: a step graph captures it
+    r2 = torch.full((), radius, dtype=torch.float32, device=d.device) ** 2
     ranks = torch.arange(N, device=d.device).expand_as(d)
     keyed = torch.where(d <= r2, ranks, N)  # out-of-ball points sort last
     idx = torch.topk(keyed, nsample, dim=-1, largest=False,

@@ -186,6 +186,44 @@ class Tape:
 # ---------------------------------------------------------------------------
 
 
+# Operators that read a tensor's value on the host (an item, a data-
+# dependent shape, a tensor made from a Python value): on the card each is
+# a copy and a wait that a CUDA graph capture refuses.
+_HOST_SYNC_OPS = ("_local_scalar_dense", "nonzero", "lift_fresh",
+                  "masked_select", "_unique2", "unique_dim",
+                  "unique_consecutive", "equal", "repeat_interleave",
+                  "bincount", "_assert_async")
+
+
+def _caller() -> str:
+    """file:line of the innermost frame outside torch and this module."""
+    for frame in reversed(traceback.extract_stack()):
+        if "/torch/" not in frame.filename and not frame.filename.endswith(
+                "testing.py"):
+            return f"{os.path.basename(frame.filename)}:{frame.lineno}"
+    return "?"
+
+
+def host_syncs(fn, *args, **kwargs) -> list[str]:
+    """Run fn(*args, **kwargs) on the CPU and list the operators it
+    dispatched that would make the card wait on the host (`_HOST_SYNC_OPS`):
+    a step or forward with none can be captured into a CUDA graph."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    found = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in _HOST_SYNC_OPS:
+                found.append(f"{name} at {_caller()}")
+            return func(*args, **(kwargs or {}))
+
+    with Watch():
+        fn(*args, **kwargs)
+    return found
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

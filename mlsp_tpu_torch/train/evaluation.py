@@ -10,8 +10,11 @@ model as `mlsp_tpu/train/evaluation.py::_build_model` does
 (`models.model_kwargs`: `--knn_backend` reaches every family that builds
 a graph or samples points). The weights come from the port's own
 checkpoint, a JAX `.ckpt` or, with `--from_torch`, a reference
-`model.pt` (`utils/checkpoint.py::load_model_weights`). `run_aot_export`
-freezes the eval forward into an AOT serving bundle (`serving`).
+`model.pt` (`utils/checkpoint.py::load_model_weights`). The forwards of `run_eval`
+and `run_infer` go through the scanned eval (`steps.scan_in_chunks`: on
+the card one captured graph of the eval forward, replayed once a batch).
+`run_aot_export` freezes the eval forward into an AOT serving bundle
+(`serving`).
 """
 
 from __future__ import annotations

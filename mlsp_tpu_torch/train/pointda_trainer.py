@@ -9,9 +9,18 @@ target test split with the best epoch's weights.
 
 Device and host: every split is staged on the device once; batches are
 gathered there with the epoch's numpy-shuffled indices (copied once per
-epoch). Each step's loss terms stay on the device until the end of the
-epoch, when they are fetched in one copy and fed to `MeterDict` in step
-order. Evaluation fetches its logits once per split.
+epoch). The epoch runs as chunks of `scan_steps` steps
+(`steps.pointda_train_scan`: on the card the replays of one captured
+CUDA graph of the step, captured at the first chunk of the run, after
+any `--resume`), then the remaining steps one at a time, as the JAX
+trainer does; `scan_steps` 1 takes every step eagerly. Under a mesh the
+chunks run eagerly (NCCL collectives are not captured): the log and
+every `metrics.jsonl` record say whether step graphs ran
+("step_graphs"). Each step's loss terms stay on the device until the end
+of the epoch, when they are fetched in one copy and fed to `MeterDict`
+in step order. Evaluation runs through the scanned eval forward
+(`steps.eval_scan`, a captured graph on the card) and fetches its logits
+once per split.
 
 Each epoch is one `torch.profiler` range, "mlsp/epoch {epoch}" (a trace
 taken with the CLI's --profile_dir shows it beside the kernels), and its
@@ -22,8 +31,11 @@ Random streams per epoch, derived from (seed, epoch) and not consumed
 across epochs, so that a resumed run repeats the uninterrupted one: the
 batch order from `np.random.default_rng(SeedSequence((seed, epoch)))`,
 shared by the source and then the target iterator as in the JAX trainer
-(the same index order), and the step draws and dropout from a
-`torch.Generator` seeded with `SeedSequence((seed, epoch, 1))`.
+(the same index order), and the step draws and dropout from one
+`torch.Generator` of the run, seeded anew each epoch with
+`SeedSequence((seed, epoch, 1))` (in place: a step graph holds it). The
+draws do not depend on `scan_steps`, where the JAX trainer's keys split
+per chunk.
 """
 
 from __future__ import annotations
@@ -45,9 +57,20 @@ from mlsp_tpu_torch.parallel.mesh import (
     replicate_for_mesh,
     shard_batch,
 )
+from mlsp_tpu_torch.train.graphs import (
+    Graphs,
+    check_capturable,
+    unstack_steps,
+)
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.state import make_optimizer
-from mlsp_tpu_torch.train.steps import check_recipe, pointda_train_step
+from mlsp_tpu_torch.train.steps import (
+    check_recipe,
+    eval_scan,
+    pointda_train_scan,
+    pointda_train_step,
+    scan_in_chunks,
+)
 from mlsp_tpu_torch.utils import checkpoint, metrics
 from mlsp_tpu_torch.utils.average_meter import MeterDict
 from mlsp_tpu_torch.utils.config import (
@@ -75,22 +98,29 @@ def eval_batches(n_examples: int, batch_size: int,
 
 
 def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
-                output: str = "cls", mesh: Mesh | None = None) -> np.ndarray:
+                output: str = "cls", mesh: Mesh | None = None,
+                graphs: Graphs | None = None) -> np.ndarray:
     """Logits [S, B, ...] of the batches `data[sels[i]]` (the model's
     `output`: "cls" [B, C] of DGCNN, "seg" [B, N, C] of DGCNNSeg),
     forwarded in eval mode (running BN statistics, no dropout) on the
-    model's device; one copy of the indices in, one of the logits out. The
-    model's mode is restored afterwards. With a mesh each rank forwards its
-    rows of every batch (padded with the batch's last index to a multiple
-    of the ranks) and every rank gets all the logits (`fetch_global`)."""
+    model's device through the scanned eval (`steps.scan_in_chunks` of
+    `eval_scan`: on the card a captured eval forward, kept in `graphs`);
+    one copy of the indices in, one of the logits out. The model's mode is
+    restored afterwards. With a mesh each rank forwards its rows of every
+    batch eagerly (padded with the batch's last index to a multiple of the
+    ranks) and every rank gets all the logits (`fetch_global`)."""
     device = next(model.parameters()).device
     x = torch.as_tensor(data, device=device)
     idx = torch.from_numpy(np.stack(sels)).to(device)
     B = idx.shape[1]
-    if mesh is not None:
-        pad = -B % mesh.size
-        idx = torch.cat([idx, idx[:, -1:].expand(-1, pad)], 1)
-        idx = shard_batch(mesh, idx.T).T
+    if mesh is None:
+        def scan(m, xs, graphs):
+            return eval_scan(m, xs, graphs, output)
+
+        return scan_in_chunks(scan, model, x[idx], graphs=graphs)
+    pad = -B % mesh.size
+    idx = torch.cat([idx, idx[:, -1:].expand(-1, pad)], 1)
+    idx = shard_batch(mesh, idx.T).T
     was_training = model.training
     model.eval()
     try:
@@ -98,15 +128,14 @@ def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
             out = torch.stack([model(x[i])[output] for i in idx])
     finally:
         model.train(was_training)
-    if mesh is not None:
-        out = fetch_global(out.transpose(0, 1), mesh).transpose(0, 1)[:, :B]
+    out = fetch_global(out.transpose(0, 1), mesh).transpose(0, 1)[:, :B]
     return out.float().cpu().numpy()
 
 
 def evaluate(model: torch.nn.Module, data, label: np.ndarray,
              batch_size: int, num_classes: int,
              indices: np.ndarray | None = None,
-             mesh: Mesh | None = None) -> dict:
+             mesh: Mesh | None = None, graphs: Graphs | None = None) -> dict:
     """Accuracy, balanced accuracy, mean cross-entropy and the confusion
     matrix over a split. `data` [M, N, 3] is a numpy array or a tensor
     (staged on the model's device, it is not copied); `label` [M] numpy.
@@ -117,7 +146,7 @@ def evaluate(model: torch.nn.Module, data, label: np.ndarray,
     sels, counts = eval_batches(label.shape[0], batch_size, indices)
     if not sels:
         raise ValueError("evaluate: empty evaluation split")
-    all_logits = eval_logits(model, data, sels, mesh=mesh)
+    all_logits = eval_logits(model, data, sels, mesh=mesh, graphs=graphs)
     preds, trues, losses = [], [], []
     for logits, sel, n in zip(all_logits, sels, counts):
         logits, by = logits[:n], label[sel][:n]
@@ -147,11 +176,53 @@ def epoch_pairs(src, trgt, batch_size: int, seed: int, epoch: int
                       shuffle=True, drop_last=True, rng=erng)))
 
 
-def epoch_generator(seed: int, epoch: int,
-                    device: torch.device) -> torch.Generator:
-    """The epoch's generator for the step draws and dropout."""
+def seed_epoch(generator: torch.Generator, seed: int,
+               epoch: int) -> torch.Generator:
+    """Seed the run's generator in place for `epoch`'s step draws and
+    dropout; returns it."""
     s = int(np.random.SeedSequence((seed, epoch, 1)).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(s)
+    return generator.manual_seed(s)
+
+
+def train_epoch(pairs: torch.Tensor, gather, scan, step,
+                scan_steps: int) -> list:
+    """An epoch's steps in the JAX trainer's order: chunks of `scan_steps`
+    batches through `scan(*stacked)`, whose outputs are stacked over the
+    chunk, then the remaining batches one at a time through
+    `step(*batch)` (every batch, for `scan_steps` 1). `pairs` [P, 2, B]
+    are the (first, second) index rows on the device; `gather(first,
+    second)` makes a batch, or a stacked chunk, of them. Returns the
+    per-step outputs."""
+    S = scan_steps
+    full = (len(pairs) // S) * S if S > 1 else 0
+    out = []
+    for c in range(0, full, S):
+        out += unstack_steps(scan(*gather(pairs[c:c + S, 0],
+                                          pairs[c:c + S, 1])))
+    for first, second in pairs[full:]:
+        out.append(step(*gather(first, second)))
+    return out
+
+
+def graphs_route(cfg, device: torch.device, mesh: Mesh | None,
+                 io: IOStream) -> bool:
+    """Whether the trainer's chunks replay step graphs (on the card, with
+    no mesh and `scan_steps` > 1), said in the log; raises for a recipe a
+    graph cannot hold (`graphs.check_capturable`)."""
+    S = cfg.scan_steps
+    on = device.type == "cuda" and mesh is None and S > 1
+    if on:
+        check_capturable(cfg)
+        how = f"chunks of {S} steps replay one captured graph"
+    elif S <= 1:
+        how = "scan_steps 1: eager steps"
+    elif mesh is not None:
+        how = (f"chunks of {S} steps run eagerly: a mesh's collectives are "
+               "not captured")
+    else:
+        how = f"chunks of {S} steps run eagerly on the {device.type}"
+    io.cprint(f"step graphs: {'on' if on else 'off'} ({how})")
+    return on
 
 
 def fetch_metrics(steps: list[dict]) -> list[dict]:
@@ -221,19 +292,29 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
                   f"(best src val acc {best['src_val_acc']:.4f})")
     replicate_for_mesh(mesh, model, B)
     io.trim_metrics(start_epoch)  # drop records the loop will write again
+    step_graphs = graphs_route(cfg, device, mesh, io)
+    graphs = Graphs() if device.type == "cuda" and mesh is None else None
+    gen = torch.Generator(device=device)
+
+    def gather(s, t):
+        return src_x[s], src_y[s], trgt_x[t]
+
+    def scan(*chunk):
+        return pointda_train_scan(model, opt, sched, *chunk, gen, cfg, graphs,
+                                  mesh)
+
+    def step(*batch):
+        return pointda_train_step(model, opt, sched, *batch, gen, cfg, mesh)
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         with torch.profiler.record_function(f"mlsp/epoch {epoch}"):
             pairs = epoch_pairs(src_train, trgt_train, B, cfg.seed, epoch)
-            gen = epoch_generator(cfg.seed, epoch, device)
+            seed_epoch(gen, cfg.seed, epoch)
             steps = []
             if pairs:
-                sel = torch.from_numpy(np.asarray(pairs)).to(device)  # [S, 2, B]
-                for s, t in sel:
-                    steps.append(pointda_train_step(
-                        model, opt, sched, src_x[s], src_y[s], trgt_x[t], gen,
-                        cfg, mesh))
+                sel = torch.from_numpy(np.asarray(pairs)).to(device)  # [P, 2, B]
+                steps = train_epoch(sel, gather, scan, step, cfg.scan_steps)
             meters = MeterDict()
             for m in fetch_metrics(steps):
                 meters.update(m, n=B)
@@ -244,17 +325,18 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
 
             src_val = evaluate(model, src_x, src_train.label,
                                cfg.test_batch_size, cfg.num_class,
-                               src_train.val_ind, mesh)
+                               src_train.val_ind, mesh, graphs)
             trgt_val = evaluate(model, trgt_x, trgt_train.label,
                                 cfg.test_batch_size, cfg.num_class,
-                                trgt_train.val_ind, mesh)
+                                trgt_train.val_ind, mesh, graphs)
         seconds = {"train": t_train, "epoch": time.perf_counter() - t0}
         io.cprint(
             f"Val - epoch {epoch}: src acc {src_val['acc']:.4f} "
             f"(bal {src_val['balanced_acc']:.4f}, loss {src_val['loss']:.4f}), "
             f"trgt acc {trgt_val['acc']:.4f} (loss {trgt_val['loss']:.4f})")
         io.log_metrics({
-            "epoch": epoch, "seconds": seconds, "train": meters.averages(),
+            "epoch": epoch, "seconds": seconds, "step_graphs": step_graphs,
+            "train": meters.averages(),
             "src_val": {k: src_val[k] for k in ("acc", "balanced_acc", "loss")},
             "trgt_val": {k: trgt_val[k] for k in ("acc", "balanced_acc", "loss")},
         })
@@ -283,7 +365,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
                   + str(best["conf_mat"]))
     model.load_state_dict(best.pop("weights"))
     final = evaluate(model, test_x, trgt_test.label, cfg.test_batch_size,
-                     cfg.num_class, mesh=mesh)
+                     cfg.num_class, mesh=mesh, graphs=graphs)
     io.cprint(f"target test accuracy: {final['acc']:.4f}, "
               f"target test loss: {final['loss']:.4f}")
     io.cprint("Test confusion matrix:\n" + str(final["conf_mat"]))

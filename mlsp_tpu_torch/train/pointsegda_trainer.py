@@ -10,15 +10,20 @@ the best epoch's weights. There is no resume, as in the JAX trainer.
 
 Device and host, as the PointDA trainer (`train.pointda_trainer`): every
 split is staged on the device once, batches are gathered there with the
-epoch's indices (one copy an epoch), and each step's loss terms,
-predictions and labels stay on the device until one fetch at the end of
-the epoch, where the train mIoU is computed step by step as the JAX
-trainer does. Evaluation fetches its logits once per split.
+epoch's indices (one copy an epoch), the epoch runs as chunks of
+`scan_steps` steps (`seg_steps.pointsegda_train_scan`: replays of one
+captured step graph on the card; eagerly under a mesh), then single
+steps, and each step's loss terms, predictions and labels stay on the
+device until one fetch at the end of the epoch, where the train mIoU is
+computed step by step as the JAX trainer does. Evaluation runs through
+the scanned eval (`seg_steps.seg_eval_scan`) and fetches its logits once
+per split.
 
 Random streams per epoch from (seed, epoch): the batch order from one
 numpy generator shared by the source and then the target iterator (the
-JAX trainer's indices), the step draws and dropout from a
-`torch.Generator` (`pointda_trainer.epoch_generator`). Each epoch is one
+JAX trainer's indices), the step draws and dropout from the run's
+`torch.Generator` seeded anew each epoch (`pointda_trainer.seed_epoch`).
+Each epoch is one
 `torch.profiler` range, "mlsp/epoch {epoch}", and its wall time goes into
 its `metrics.jsonl` record.
 """
@@ -35,16 +40,20 @@ import torch
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.models import make_model, model_kwargs
 from mlsp_tpu_torch.parallel.mesh import Mesh, replicate_for_mesh
+from mlsp_tpu_torch.train.graphs import Graphs
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.pointda_trainer import (
-    epoch_generator,
     epoch_pairs,
     eval_batches,
     eval_logits,
     fetch_metrics,
+    graphs_route,
+    seed_epoch,
+    train_epoch,
 )
 from mlsp_tpu_torch.train.seg_steps import (
     check_seg_recipe,
+    pointsegda_train_scan,
     pointsegda_train_step,
 )
 from mlsp_tpu_torch.train.state import make_optimizer
@@ -63,8 +72,8 @@ MAX_LOSS = 9e9
 
 
 def evaluate_seg(model: torch.nn.Module, data, label: np.ndarray,
-                 batch_size: int, mesh: Mesh | None = None
-                 ) -> tuple[float, float, float]:
+                 batch_size: int, mesh: Mesh | None = None,
+                 graphs: Graphs | None = None) -> tuple[float, float, float]:
     """(seg loss, mIoU, accuracy) over a split, each averaged per sample
     as the reference does; the trailing batch is repetition-padded and
     only its real clouds count. `data` [M, N, 3] is a numpy array or a
@@ -75,7 +84,8 @@ def evaluate_seg(model: torch.nn.Module, data, label: np.ndarray,
     sels, counts = eval_batches(label.shape[0], batch_size)
     if not sels:
         raise ValueError("evaluate_seg: empty evaluation split")
-    all_logits = eval_logits(model, data, sels, "seg", mesh)  # [S, B, N, C]
+    all_logits = eval_logits(model, data, sels, "seg", mesh,
+                             graphs)  # [S, B, N, C]
     seg_loss = miou = acc = 0.0
     for logits, sel, n in zip(all_logits, sels, counts):
         logits, by = logits[:n], label[sel][:n]
@@ -151,21 +161,34 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
     ckpt_path = os.path.join(io.path, "model.ckpt")
     io.trim_metrics(0)  # a fresh run: drop any earlier metrics.jsonl
 
+    step_graphs = graphs_route(cfg, device, mesh, io)
+    graphs = Graphs() if device.type == "cuda" and mesh is None else None
+    gen = torch.Generator(device=device)
+
     def val(name):
-        return evaluate_seg(model, *staged[name], cfg.test_batch_size, mesh)
+        return evaluate_seg(model, *staged[name], cfg.test_batch_size, mesh,
+                            graphs)
+
+    def gather(s, t):
+        return src_x[s], src_y[s], trgt_x[t]
+
+    def scan(*chunk):
+        return pointsegda_train_scan(model, opt, sched, *chunk, gen, cfg,
+                                     graphs, mesh)
+
+    def step(*batch):
+        return pointsegda_train_step(model, opt, sched, *batch, gen, cfg,
+                                     mesh)
 
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
         with torch.profiler.record_function(f"mlsp/epoch {epoch}"):
             pairs = epoch_pairs(src_train, trgt_train, B, cfg.seed, epoch)
-            gen = epoch_generator(cfg.seed, epoch, device)
+            seed_epoch(gen, cfg.seed, epoch)
             steps = []
             if pairs:
-                sel = torch.from_numpy(np.asarray(pairs)).to(device)  # [S, 2, B]
-                for s, t in sel:
-                    steps.append(pointsegda_train_step(
-                        model, opt, sched, src_x[s], src_y[s], trgt_x[t], gen,
-                        cfg, mesh))
+                sel = torch.from_numpy(np.asarray(pairs)).to(device)  # [P, 2, B]
+                steps = train_epoch(sel, gather, scan, step, cfg.scan_steps)
             meters = MeterDict()
             for m, (p, y) in zip(fetch_metrics([m for m, _ in steps]),
                                  _fetch_preds([p for _, p in steps])):
@@ -186,7 +209,8 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
             f"{trgt_val_loss:.4f} mIoU {trgt_val_miou:.4f} acc "
             f"{trgt_val_acc:.4f}")
         io.log_metrics({
-            "epoch": epoch, "seconds": seconds, "train": meters.averages(),
+            "epoch": epoch, "seconds": seconds, "step_graphs": step_graphs,
+            "train": meters.averages(),
             "src_val": {"loss": src_val_loss, "mIoU": src_val_miou,
                         "acc": src_val_acc},
             "trgt_val": {"loss": trgt_val_loss, "mIoU": trgt_val_miou,
@@ -206,7 +230,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
     io.cprint(f"Best model was found at epoch {best['epoch']}")
     model.load_state_dict(best.pop("weights"))
     test_loss, test_miou, test_acc = evaluate_seg(
-        model, *staged["trgt_test"], cfg.test_batch_size, mesh)
+        model, *staged["trgt_test"], cfg.test_batch_size, mesh, graphs)
     io.cprint(f"target test seg loss: {test_loss:.4f}, target test seg "
               f"mIOU: {test_miou:.4f}, target test seg accuracy: "
               f"{test_acc:.4f}")

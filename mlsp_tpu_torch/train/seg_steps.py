@@ -13,6 +13,10 @@ pergroup 5. As in `train.steps`, every random number is drawn first
 (`pointsegda_train_step`) and `pointsegda_losses` takes the transformed
 clouds as inputs, so a test can feed it the JAX step's own.
 
+Fused dispatch as `train.steps`: `pointsegda_train_scan` takes S steps as
+S replays of one captured graph on the card, eagerly on the CPU;
+`seg_eval_scan` is the scanned eval forward.
+
 Data-parallel (`mesh=`) as `train.steps`: the draws, PCM and the labels on
 the global batch, the forwards and losses on the rank's rows, the
 gradients and loss terms averaged over the ranks.
@@ -35,6 +39,7 @@ from mlsp_tpu_torch.parallel.mesh import (
     fetch_global,
     shard_batch,
 )
+from mlsp_tpu_torch.train.graphs import Graphs
 from mlsp_tpu_torch.train.steps import (
     augment_batch,
     check_generator,
@@ -42,7 +47,9 @@ from mlsp_tpu_torch.train.steps import (
     draw_augment,
     draw_deform_dispatch,
     draw_pcm,
+    eval_scan,
     pcm_mix_segmentation,
+    run_chunk,
 )
 
 
@@ -166,26 +173,10 @@ def pointsegda_losses(model, cfg, batch: dict, draws: dict,
     return total, m, (preds, sy.detach())
 
 
-def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
-                          generator: torch.Generator, cfg, mesh=None):
-    """One PointSegDA train iteration: draw, transform, forward, one
-    backward, one optimizer step and one scheduler step.
-
-    Args:
-      model: a port segmenter, on the data's device.
-      opt, sched: from `train.state.make_optimizer`.
-      src_x, trgt_x: [B, N, 3] float32 clouds; src_y: [B, N] int64 labels.
-      generator: a `torch.Generator` on the data's device.
-      cfg: `utils.config.PointSegDAConfig` (resolved).
-      mesh: a `parallel.Mesh` to take the step as one of its ranks (the
-        batch is the global one, the same on every rank).
-
-    Returns:
-      (losses, (preds, labels)): the loss terms as detached 0-d tensors
-      and the source forward's predictions with their labels [B, N], all
-      still on the device; with a mesh, the ranks' average terms and the
-      global batch's predictions.
-    """
+def pointsegda_step(model, opt, src_x, src_y, trgt_x,
+                    generator: torch.Generator, cfg, mesh=None):
+    """`pointsegda_train_step` without the scheduler step: what a step
+    graph captures."""
     check_seg_recipe(cfg)
     check_generator(generator, src_x)
     g = generator
@@ -211,6 +202,59 @@ def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
         total.backward()
     all_reduce_grads(model, mesh)
     opt.step()
-    sched.step()
     m = average_metrics({name: t.detach() for name, t in m.items()}, mesh)
     return m, tuple(fetch_global(t, mesh) for t in preds)
+
+
+def pointsegda_train_step(model, opt, sched, src_x, src_y, trgt_x,
+                          generator: torch.Generator, cfg, mesh=None):
+    """One PointSegDA train iteration: draw, transform, forward, one
+    backward, one optimizer step and one scheduler step.
+
+    Args:
+      model: a port segmenter, on the data's device.
+      opt, sched: from `train.state.make_optimizer`.
+      src_x, trgt_x: [B, N, 3] float32 clouds; src_y: [B, N] int64 labels.
+      generator: a `torch.Generator` on the data's device.
+      cfg: `utils.config.PointSegDAConfig` (resolved).
+      mesh: a `parallel.Mesh` to take the step as one of its ranks (the
+        batch is the global one, the same on every rank).
+
+    Returns:
+      (losses, (preds, labels)): the loss terms as detached 0-d tensors
+      and the source forward's predictions with their labels [B, N], all
+      still on the device; with a mesh, the ranks' average terms and the
+      global batch's predictions.
+    """
+    out = pointsegda_step(model, opt, src_x, src_y, trgt_x, generator, cfg,
+                          mesh)
+    sched.step()
+    return out
+
+
+def pointsegda_train_scan(model, opt, sched, src_xs, src_ys, trgt_xs,
+                          generator: torch.Generator, cfg,
+                          graphs: Graphs | None = None, mesh=None):
+    """S PointSegDA train iterations (`mlsp_tpu/train/seg_steps.py::
+    pointsegda_train_scan`; see `steps.pointda_train_scan`): src_xs,
+    trgt_xs [S, B, N, 3], src_ys [S, B, N]. Returns (losses stacked over
+    S, (preds [S, B, N], labels [S, B, N]))."""
+    check_seg_recipe(cfg)
+    check_generator(generator, src_xs)
+
+    def step(sx, sy, tx):
+        return pointsegda_step(model, opt, sx, sy, tx, generator, cfg)
+
+    def eager(sx, sy, tx):
+        return pointsegda_train_step(model, opt, sched, sx, sy, tx,
+                                     generator, cfg, mesh)
+
+    return run_chunk("pointsegda", step, eager, (src_xs, src_ys, trgt_xs),
+                     (), model, opt, sched, generator, cfg, graphs, mesh)
+
+
+def seg_eval_scan(model, xs: torch.Tensor,
+                  graphs: Graphs | None = None) -> torch.Tensor:
+    """Scanned seg eval: xs [S, B, N, 3] -> per-point logits [S, B, N, C]
+    (`steps.eval_scan` on the "seg" output)."""
+    return eval_scan(model, xs, graphs, output="seg")

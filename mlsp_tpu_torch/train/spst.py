@@ -15,9 +15,13 @@ checkpointed apart (`:524-539`).
 
 The learning rate is set once per epoch from torch's cosine in closed
 form at the global epoch `round * epochs + epoch`, unclamped, so round 2's
-LR rises again (`train.state.torch_cosine_lr`). The JAX package's
-`scan_steps` fuses steps into one XLA program; this port takes the same
-steps one by one, the same math.
+LR rises again (`train.state.torch_cosine_lr`). An epoch's steps run in
+chunks of `scan_steps` (`spst_train_scan`: on the card replays of one
+captured step graph, whose loss weights are 0-d tensors on the card), the
+rest one by one, as the JAX package's scan does; the selection and every
+evaluation go through the scanned eval (`steps.scan_in_chunks`). One
+capture serves a run: the selection changes the number of steps, not
+their shapes.
 
 Randomness: one numpy generator from `seed` shuffles the target and then
 the source batches of every epoch (the JAX trainer's order); the step
@@ -52,13 +56,16 @@ from mlsp_tpu_torch.parallel.mesh import (
     replicate_for_mesh,
     shard_batch,
 )
+from mlsp_tpu_torch.train.graphs import Graphs
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.pointda_trainer import (
-    epoch_generator,
     eval_batches,
     eval_logits,
     evaluate,
     fetch_metrics,
+    graphs_route,
+    seed_epoch,
+    train_epoch,
 )
 from mlsp_tpu_torch.train.state import (
     make_epoch_lr_optimizer,
@@ -71,6 +78,7 @@ from mlsp_tpu_torch.train.steps import (
     draw_augment,
     draw_pcm,
     pcm_mix,
+    run_chunk,
 )
 from mlsp_tpu_torch.transforms import augment
 from mlsp_tpu_torch.utils import checkpoint, metrics
@@ -171,10 +179,34 @@ def spst_train_step(model, opt, t_x, t_y, s_x, s_y, spl_weight: float,
     return average_metrics({name: t.detach() for name, t in m.items()}, mesh)
 
 
+def spst_train_scan(model, opt, t_xs, t_ys, s_xs, s_ys, spl_weight,
+                    cls_weight, generator: torch.Generator, cfg,
+                    graphs: Graphs | None = None, mesh=None) -> dict:
+    """S SPST iterations (`mlsp_tpu/train/spst.py::spst_train_scan`; see
+    `steps.pointda_train_scan`): t_xs, s_xs [S, B, N, 3], t_ys, s_ys
+    [S, B]; the epoch's weights, held on the card as 0-d float32 tensors
+    that the step graph reads. Returns the loss terms stacked over S."""
+    check_generator(generator, t_xs)
+    weights = tuple(torch.full((), float(w), device=t_xs.device)
+                    for w in (spl_weight, cls_weight))
+
+    def step(tx, ty, sx, sy, spl, cls):
+        return spst_train_step(model, opt, tx, ty, sx, sy, spl, cls,
+                               generator, cfg)
+
+    def eager(tx, ty, sx, sy):
+        return spst_train_step(model, opt, tx, ty, sx, sy, spl_weight,
+                               cls_weight, generator, cfg, mesh)
+
+    return run_chunk("spst", step, eager, (t_xs, t_ys, s_xs, s_ys), weights,
+                     model, opt, None, generator, cfg, graphs, mesh)
+
+
 def select_pseudo_labels(model, data, label: np.ndarray,
                          indices: np.ndarray, batch_size: int,
                          threshold: float, use_entropy: bool, io: IOStream,
-                         epoch: int, mesh: Mesh | None = None
+                         epoch: int, mesh: Mesh | None = None,
+                         graphs: Graphs | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Confidence-gated target selection (`train_spst.py:239-313`).
 
@@ -194,8 +226,8 @@ def select_pseudo_labels(model, data, label: np.ndarray,
     sels, counts = eval_batches(label.shape[0], batch_size, indices)
     keep_idx, plabels, tlabels = [], [], []
     if sels:
-        for logits, sel, n in zip(eval_logits(model, data, sels, mesh=mesh),
-                                  sels, counts):
+        for logits, sel, n in zip(eval_logits(model, data, sels, mesh=mesh,
+                                              graphs=graphs), sels, counts):
             conf = metrics.softmax_np(logits[:n])
             pred = conf.argmax(-1)
             if use_entropy:
@@ -268,10 +300,13 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
     replicate_for_mesh(mesh, model, cfg.batch_size)
     opt = make_epoch_lr_optimizer(model, cfg.optimizer, cfg.lr, cfg.wd,
                                   cfg.momentum)
+    step_graphs = graphs_route(cfg, device, mesh, io)
+    graphs = Graphs() if device.type == "cuda" and mesh is None else None
+    gen = torch.Generator(device=device)
 
     def evaluate_on(x, label, indices=None):
         return evaluate(model, x, label, cfg.test_batch_size, cfg.num_class,
-                        indices, mesh)
+                        indices, mesh, graphs)
 
     initial = evaluate_on(test_x, trgt_test.label)
     io.cprint(f"initial target test accuracy: {initial['acc']:.4f}")
@@ -289,7 +324,7 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
         pcs, plabels = select_pseudo_labels(
             model, trgt_x, trgt_train.label, trgt_train.train_ind,
             cfg.test_batch_size, cfg.threshold, cfg.use_entropy_selection,
-            io, rnd, mesh)
+            io, rnd, mesh, graphs)
         if len(pcs) < B:
             # A degenerate round: fewer confident clouds than one batch.
             # The reference would step its epoch loop with no batch and
@@ -313,15 +348,20 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
             with torch.profiler.record_function(f"mlsp/spst epoch "
                                                 f"{global_epoch}"):
                 pairs = epoch_pairs(len(pcs), src_train, B, rng)
-                gen = epoch_generator(cfg.seed, global_epoch, device)
+                seed_epoch(gen, cfg.seed, global_epoch)
                 steps = []
                 if pairs:
                     sel = torch.from_numpy(np.asarray(pairs)).to(device)
-                    for t, s in sel:  # [S, 2, B]
-                        steps.append(spst_train_step(
-                            model, opt, pcs[t], plabels[t], src_x[s],
-                            src_y[s], spl_weight, cls_weight, gen, cfg,
-                            mesh))
+                    weights = (spl_weight, cls_weight)
+                    steps = train_epoch(  # sel: [P, 2, B], (target, source)
+                        sel,
+                        lambda t, s: (pcs[t], plabels[t], src_x[s], src_y[s]),
+                        lambda *chunk: spst_train_scan(
+                            model, opt, *chunk, *weights, gen, cfg, graphs,
+                            mesh),
+                        lambda *batch: spst_train_step(
+                            model, opt, *batch, *weights, gen, cfg, mesh),
+                        cfg.scan_steps)
                 meters = MeterDict()
                 for m in fetch_metrics(steps):
                     meters.update(m, n=B)
@@ -347,6 +387,7 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
                     json.dump(curves, f)
             io.log_metrics({
                 "round": rnd, "epoch": global_epoch, "lr": lr,
+                "step_graphs": step_graphs,
                 "spl_weight": spl_weight, "cls_weight": cls_weight,
                 "seconds": {"train": t_train,
                             "epoch": time.perf_counter() - t0},

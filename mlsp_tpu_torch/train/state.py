@@ -23,6 +23,16 @@ clears gradients with `zero_grad(set_to_none=True)`, so every optimizer
 here skips them, weight decay and momentum included: the freeze the JAX
 package builds with `untrained_decay_mask`. A zero gradient instead would
 let the decay term move them.
+
+On the card every optimizer can be captured into a step graph
+(`train.graphs`): Adam and AdamW are built with `capturable=True` (their
+step counts live on the card) in torch's multi-tensor form, SGD with
+`fused=True`, and each with its learning rate as a float32 0-d tensor on
+the card, which the schedulers and `set_learning_rate` fill in place, so
+that a replay reads the current LR. The capturable Adam update divides
+by the LR, but only after it adds eps: at LR 0 (SPST's cosine reaches
+it) it leaves every parameter as it is, one whose second moment is 0
+too. On the CPU the LR is a float, as before.
 """
 
 from __future__ import annotations
@@ -77,19 +87,25 @@ def _check_name(name: str) -> str:
 
 def _build(params: list, name: str, lr: float, wd: float,
            momentum: float) -> torch.optim.Optimizer:
+    dev = params[0].device if params else torch.device("cpu")
+    card = dev.type == "cuda"
+    # on the card: the LR as a tensor, filled in place (`set_learning_rate`)
+    lr_arg = torch.full((), lr, device=dev) if card else lr
     if name == "SGD":
-        return torch.optim.SGD(params, lr=lr, momentum=momentum,
+        return torch.optim.SGD(params, lr=lr_arg, momentum=momentum,
                                dampening=0.0, weight_decay=wd,
-                               nesterov=False)
+                               nesterov=False, fused=card or None)
     if name == "ADAMW":
         decay = [p for p in params if p.ndim > 1]
         rest = [p for p in params if p.ndim <= 1]
         return torch.optim.AdamW(
             [{"params": decay, "weight_decay": wd},
              {"params": rest, "weight_decay": 0.0}],
-            lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=wd)
+            lr=lr_arg, betas=(0.9, 0.999), eps=1e-8, capturable=card,
+            foreach=card or None)
+    return torch.optim.Adam(params, lr=lr_arg, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=wd, capturable=card,
+                            foreach=card or None)
 
 
 def make_optimizer(model: torch.nn.Module, lr: float, wd: float, epochs: int,
@@ -112,6 +128,9 @@ def make_optimizer(model: torch.nn.Module, lr: float, wd: float, epochs: int,
     else:
         def factor(step: int) -> float:
             return 1.0
+    for group in opt.param_groups:
+        # a float base LR, whatever the group's LR is (a tensor on the card)
+        group["initial_lr"] = lr
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
@@ -130,6 +149,25 @@ def make_epoch_lr_optimizer(model: torch.nn.Module, name: str, lr: float,
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
-    """Set the LR of every parameter group of `opt`."""
+    """Set the LR of every parameter group of `opt` (in place where it is
+    a tensor)."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def lr_tensors(opt: torch.optim.Optimizer) -> list[torch.Tensor]:
+    """The distinct LR tensors of `opt`'s parameter groups (groups built
+    together share one). Raises ValueError for a float LR: a step graph
+    would hold it as a constant."""
+    out = []
+    for group in opt.param_groups:
+        lr = group["lr"]
+        if not isinstance(lr, torch.Tensor):
+            raise ValueError("the optimizer's LR is a float: build it with "
+                             "make_optimizer on the card")
+        if not any(lr is t for t in out):
+            out.append(lr)
+    return out

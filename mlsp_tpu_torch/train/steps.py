@@ -18,6 +18,12 @@ arrays as inputs, as the JAX step's `debug_aux` returns them, so a test
 can feed it the JAX step's own. Every PointDA family runs
 (`check_recipe`).
 
+Fused dispatch (`pointda_train_scan`, the JAX package's scan): S steps on
+stacked batches, on the card as S replays of one captured CUDA graph of
+the step (`train.graphs`), on the CPU and under a mesh as S eager steps;
+the eval forward likewise (`eval_scan`, `scan_in_chunks`). A replay takes
+the step an eager `pointda_train_step` takes from the same state.
+
 Data-parallel (`mesh=`, see `parallel.mesh`): every rank takes the global
 batch and the same generator, so the draws, augmentation, PCM (one FPS on
 [2B, N]: a cloud's partner may be another rank's row), the deformations
@@ -46,6 +52,7 @@ from mlsp_tpu_torch.parallel.mesh import (
     global_count,
     shard_batch,
 )
+from mlsp_tpu_torch.train.graphs import Graphs, check_capturable, stack_steps
 from mlsp_tpu_torch.transforms import augment, deform
 from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
 
@@ -410,6 +417,28 @@ def check_generator(generator: torch.Generator, x: torch.Tensor) -> None:
                          f"batch on {x.device}")
 
 
+def pointda_step(model, opt, src_x, src_y, trgt_x,
+                 generator: torch.Generator, cfg, mesh=None) -> dict:
+    """`pointda_train_step` without the scheduler step: what a step graph
+    captures."""
+    check_recipe(cfg)
+    check_generator(generator, src_x)
+    g = generator
+    src = augment_batch(src_x, *draw_augment(g, src_x))
+    trgt = augment_batch(trgt_x, *draw_augment(g, trgt_x))
+    draws = draw_step(g, src, src_y, trgt, cfg)
+
+    opt.zero_grad(set_to_none=True)
+    with data_parallel(mesh):
+        total, m = pointda_losses(
+            model, cfg, {"src_x": src, "src_y": src_y, "trgt_x": trgt}, draws,
+            g)
+        total.backward()
+    all_reduce_grads(model, mesh)
+    opt.step()
+    return average_metrics({name: t.detach() for name, t in m.items()}, mesh)
+
+
 def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
                        generator: torch.Generator, cfg, mesh=None) -> dict:
     """One PointDA train iteration: draw, transform, forward, one backward,
@@ -428,20 +457,115 @@ def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
       The loss terms (detached 0-d tensors, still on the device; with a
       mesh, the ranks' average).
     """
-    check_recipe(cfg)
-    check_generator(generator, src_x)
-    g = generator
-    src = augment_batch(src_x, *draw_augment(g, src_x))
-    trgt = augment_batch(trgt_x, *draw_augment(g, trgt_x))
-    draws = draw_step(g, src, src_y, trgt, cfg)
-
-    opt.zero_grad(set_to_none=True)
-    with data_parallel(mesh):
-        total, m = pointda_losses(
-            model, cfg, {"src_x": src, "src_y": src_y, "trgt_x": trgt}, draws,
-            g)
-        total.backward()
-    all_reduce_grads(model, mesh)
-    opt.step()
+    m = pointda_step(model, opt, src_x, src_y, trgt_x, generator, cfg, mesh)
     sched.step()
-    return average_metrics({name: t.detach() for name, t in m.items()}, mesh)
+    return m
+
+
+def run_chunk(kind: str, step, eager_step, inputs, consts, model, opt,
+              sched, generator, cfg, graphs: Graphs | None, mesh):
+    """S steps on the stacked `inputs` [S, ...]: `eager_step(*batch)` S
+    times on the CPU or under a mesh; on the card S replays of the graph of
+    `step(*batch, *consts)` (`graphs`' own, or a new one), then S scheduler
+    steps. The replays read the LR as it is: a chunk whose steps the
+    schedule gives different LRs (one that crosses an epoch) raises
+    ValueError. Returns the outputs stacked over S."""
+    S = inputs[0].shape[0]
+    if not inputs[0].is_cuda or mesh is not None:
+        return stack_steps([eager_step(*batch) for batch in zip(*inputs)])
+    check_capturable(cfg)
+    if sched is not None and any(
+            len({f(sched.last_epoch + i) for i in range(S)}) > 1
+            for f in sched.lr_lambdas):
+        raise ValueError(f"a chunk of {S} steps from step "
+                         f"{sched.last_epoch} crosses a change of the LR "
+                         "schedule; a step graph reads one LR a chunk")
+    key = (kind, cfg, tuple(tuple(t.shape) for t in inputs))
+    graph = (graphs or Graphs()).train_step(key, step, inputs, consts, model,
+                                            opt, generator)
+    out = graph.run(inputs, consts)
+    if sched is not None:
+        for _ in range(S):
+            sched.step()
+    return out
+
+
+def pointda_train_scan(model, opt, sched, src_xs, src_ys, trgt_xs,
+                       generator: torch.Generator, cfg,
+                       graphs: Graphs | None = None, mesh=None) -> dict:
+    """S PointDA train iterations (`mlsp_tpu/train/steps.py::
+    pointda_train_scan`): on the card S replays of one captured graph of
+    the step, on the CPU (and under a mesh, whose collectives are not
+    captured) S `pointda_train_step`s. The same steps either way: the
+    draws come from `generator` in the same order, and the schedule's LR
+    is the same for every step of a chunk (chunks end at epochs; see
+    `run_chunk`).
+
+    Args:
+      src_xs, trgt_xs: [S, B, N, 3]; src_ys: [S, B].
+      graphs: a `train.graphs.Graphs` that keeps the captured graph for
+        the next chunk (without one, each call captures anew).
+      The rest as `pointda_train_step`.
+
+    Returns:
+      The loss terms stacked over S (a dict of [S] tensors).
+    """
+    check_recipe(cfg)
+    check_generator(generator, src_xs)
+
+    def step(sx, sy, tx):
+        return pointda_step(model, opt, sx, sy, tx, generator, cfg)
+
+    def eager(sx, sy, tx):
+        return pointda_train_step(model, opt, sched, sx, sy, tx, generator,
+                                  cfg, mesh)
+
+    return run_chunk("pointda", step, eager, (src_xs, src_ys, trgt_xs), (),
+                     model, opt, sched, generator, cfg, graphs, mesh)
+
+
+# Batches per eval/selection dispatch (`mlsp_tpu/train/steps.py`): bounds
+# the staged input to chunk x B x N x 3 floats on the device; one eval
+# graph of that many batches serves a split, its remainder too.
+EVAL_SCAN_CHUNK = 64
+
+
+def eval_scan(model, xs: torch.Tensor, graphs: Graphs | None = None,
+              output: str = "cls") -> torch.Tensor:
+    """Scanned eval: xs [S, B, N, 3] -> the model's `output` [S, B, ...]
+    ("cls" logits [S, B, C]) in eval mode (running BN statistics, no
+    dropout); on the card one replay of a captured eval forward per batch,
+    on the CPU a loop of forwards. The model's mode is restored."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            def forward(x):
+                return model(x)[output]
+
+            if not xs.is_cuda:
+                return torch.stack([forward(x) for x in xs])
+            graph = (graphs or Graphs()).eval_forward(
+                model, output, forward, xs[0],
+                max(EVAL_SCAN_CHUNK, xs.shape[0]))
+            return graph.run(xs)
+    finally:
+        model.train(was_training)
+
+
+def scan_in_chunks(scan_fn, model, batches, chunk: int | None = None,
+                   graphs: Graphs | None = None) -> np.ndarray:
+    """`scan_fn(model, xs, graphs=graphs)` over equal-shape batches (a
+    list of [B, ...] arrays or tensors, or one stacked [S, B, ...] tensor)
+    in chunks of at most `chunk` (default `EVAL_SCAN_CHUNK`), on the
+    model's device; returns the stacked [S, ...] outputs as float numpy."""
+    chunk = chunk or EVAL_SCAN_CHUNK
+    device = next(model.parameters()).device
+    outs = []
+    for s in range(0, len(batches), chunk):
+        part = batches[s:s + chunk]
+        xs = (part if isinstance(part, torch.Tensor)
+              else torch.stack([torch.as_tensor(b) for b in part]))
+        outs.append(scan_fn(model, xs.to(device), graphs=graphs)
+                    .float().cpu().numpy())
+    return np.concatenate(outs)

@@ -6,9 +6,12 @@
 
 Tensors are saved as CPU copies and loaded with `weights_only=True` and
 `map_location="cpu"`; `load_state_dict` then copies them onto the
-model's device (the optimizer's too, but for Adam's step counts, which
-it keeps on the CPU as a fresh optimizer does). So a checkpoint written
-on the card loads on the CPU and the other way round.
+model's device. The optimizer keeps its own learning-rate objects (a
+float on the CPU, a tensor on the card that a step graph reads, filled
+with the saved LR) and its `capturable`/`fused` flags, and Adam's step
+counts go where it keeps them (on the card when capturable, on the CPU
+otherwise, as a fresh optimizer does). So a checkpoint written on the
+card loads on the CPU and the other way round.
 
 `load_model_weights` also reads the two foreign formats: the JAX
 package's msgpack `.ckpt` (any file that is no `torch.save` archive;
@@ -55,7 +58,7 @@ def save_train_state(path: str, model: torch.nn.Module, opt=None, sched=None,
         "format": FORMAT,
         "model": _cpu(model.state_dict()),
         "optimizer": _cpu(opt.state_dict()) if opt is not None else None,
-        "scheduler": sched.state_dict() if sched is not None else None,
+        "scheduler": _cpu(sched.state_dict()) if sched is not None else None,
         "epoch": int(epoch),
         "metrics": dict(metrics or {}),
     }
@@ -142,5 +145,32 @@ def load_train_state(path: str, model: torch.nn.Module, opt=None,
             continue
         if raw[what] is None:
             raise ValueError(f"checkpoint {path!r} holds no {what} state")
-        obj.load_state_dict(raw[what])
+        if what == "optimizer":
+            _load_optimizer(obj, raw[what])
+        else:
+            obj.load_state_dict(raw[what])
     return raw["epoch"], raw["metrics"]
+
+
+_OWN_KEYS = ("lr", "capturable", "fused", "foreach")
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, state: dict) -> None:
+    """`opt.load_state_dict(state)`, keeping the optimizer's own LR objects
+    (filled with the loaded LRs) and route flags; the step counts moved to
+    the device the route keeps them on."""
+    own = [{k: g[k] for k in _OWN_KEYS if k in g} for g in opt.param_groups]
+    opt.load_state_dict(state)
+    for group, kept in zip(opt.param_groups, own):
+        lr = float(group["lr"])
+        if isinstance(kept.get("lr"), torch.Tensor):
+            kept["lr"].fill_(lr)
+        else:
+            kept["lr"] = lr
+        group.update(kept)
+        on_card = bool(group.get("capturable") or group.get("fused"))
+        for p in group["params"]:
+            step = opt.state.get(p, {}).get("step")
+            if isinstance(step, torch.Tensor):
+                opt.state[p]["step"] = step.to(
+                    p.device if on_card else "cpu", torch.float32)

@@ -4,15 +4,18 @@ module the port may not import), the head tables and the YAML/CLI funnel.
 
 Field names and defaults mirror the reference's argparse surfaces
 (`PointDA/trainer.py:44-99`, `train_spst.py:56-100`,
-`PointSegDA/trainer.py:93-135`) plus their per-target radius tables. Left
-out as having no meaning here: `edge_impl` (the port has one EdgeConv
-core), `compute_dtype`/`gather_dtype` (the port runs in float32 but for
-the PointDA heads), `scan_steps` (a TPU dispatch amortisation: the port
-takes the same steps one by one, the same math) and `debug_aux`
-(`pointda_losses` and `pointsegda_losses` take the draws as inputs); a
-YAML or CLI naming one of them is refused as an unknown key. Added:
-`device`, where the entry points run ("" is the CUDA card, which they
-require unless given "cpu").
+`PointSegDA/trainer.py:93-135`) plus their per-target radius tables.
+`scan_steps` keeps JAX's defaults (16, 8, 8; 1 = off): the trainers take
+an epoch as chunks of that many steps, each chunk on the card as that
+many replays of one captured CUDA graph of the step (`train.graphs`),
+then the remaining steps one at a time; on the CPU a chunk runs its steps
+eagerly. Left out as having no meaning here: `edge_impl` (the port has
+one EdgeConv core), `compute_dtype`/`gather_dtype` (the port runs in
+float32 but for the PointDA heads) and `debug_aux` (`pointda_losses` and
+`pointsegda_losses` take the draws as inputs); a YAML or CLI naming one
+of them is refused as an unknown key. Added: `device`, where the entry
+points run ("" is the CUDA card, which they require unless given
+"cpu").
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ class PointDAConfig:
     # versions anywhere (the comparison path)
     knn_backend: str = "auto"
     head_dtype: str = "bf16"  # the per-point heads; "f32" for full float32
+    scan_steps: int = 16  # train steps per captured-graph chunk (1 = off)
     # Test-only: forwards use the running BN statistics (eval-mode BN, no
     # statistics update), as the JAX package's `debug_bn_eval`.
     debug_bn_eval: bool = False
@@ -153,6 +157,7 @@ class SPSTConfig:
     pergroup: float = 2.0
     knn_backend: str = "auto"
     head_dtype: str = "bf16"  # see PointDAConfig
+    scan_steps: int = 8  # see PointDAConfig
     synthetic: bool = False
     device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
 
@@ -203,6 +208,7 @@ class PointSegDAConfig:
     shift: int = 10
     density_radius: float = 0.081
     knn_backend: str = "auto"
+    scan_steps: int = 8  # see PointDAConfig
     synthetic: bool = False
     device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
 

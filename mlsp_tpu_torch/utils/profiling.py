@@ -15,10 +15,21 @@ import time
 import torch
 
 
+def trace_path(logdir: str) -> str:
+    """`{logdir}/trace.json`, or `{logdir}/trace.rank{R}.json` for rank R
+    of an initialised `torch.distributed` world, so that the ranks of a
+    data-parallel run do not write over each other."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return os.path.join(logdir, f"trace.rank{dist.get_rank()}.json")
+    return os.path.join(logdir, "trace.json")
+
+
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """Profile the block with `torch.profiler` (CPU, and CUDA where a card
-    is present) and write a Chrome trace to `{logdir}/trace.json`."""
+    is present) and write a Chrome trace to `trace_path(logdir)`."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -27,7 +38,7 @@ def device_trace(logdir: str):
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield logdir
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    prof.export_chrome_trace(trace_path(logdir))
 
 
 def log_execution_time(func):

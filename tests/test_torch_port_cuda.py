@@ -808,3 +808,271 @@ def test_two_gloo_ranks_share_the_card(card):
     assert max(gaps.values()) <= 1e-3, max(gaps.items(), key=lambda kv: kv[1])
     for k, want in one["metrics"].items():
         assert abs(r0["metrics"][k] - want) <= 1e-4 * max(abs(want), 1e-3), k
+
+
+# ------------------------------------------------- step graphs (scan_steps)
+
+
+def _graph_setup(card, seed=0, n=256, b=8, lr=None, name="ADAM"):
+    cfg = PointDAConfig(num_points=n, batch_size=b).paper_recipe
+    model = make_model("dgcnn", 10, device=card,
+                       generator=torch.Generator().manual_seed(seed),
+                       head_dtype="f32")
+    opt, sched = make_optimizer(model, cfg.lr if lr is None else lr, cfg.wd,
+                                2, 4, name)
+    x, y = make_classification(3 * b, n, 10, seed=seed + 1)
+    x = torch.from_numpy(x).to(card).view(3, b, n, 3)
+    y = torch.from_numpy(y).to(card).view(3, b)
+    return cfg, model, opt, sched, x, y
+
+
+def test_chunk_replays_match_eager_steps(card):
+    """A chunk of 3 replays of the captured paper step against 3 eager
+    steps from the same weights and generator seed, SGD at LR 0: each
+    replay must take its own batch and draws and give the eager step's
+    losses (within 1e-4; K2-bwd's atomics round the gradients ~1e-6
+    apart) and BN statistics (1e-4, relative); the generators end in the
+    same state, the schedule took 3 steps, and the launches are counted
+    through the replays. LR 0 keeps the weights as they are: DGCNN's
+    steps at a nonzero LR part at the rounding level even eager against
+    eager (the atomics' order, then near-tied kNN in feature space), so
+    the update itself is held on PointNet below."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+
+    runs = []
+    for route in ("graph", "eager"):
+        cfg, model, opt, sched, x, y = _graph_setup(card, lr=0.0,
+                                                    name="SGD")
+        gen = torch.Generator(device=card).manual_seed(3)
+        kernels.reset_launches()
+        if route == "graph":
+            m = pointda_train_scan(model, opt, sched, x, y, x.flip(1), gen,
+                                   cfg, Graphs())
+        else:
+            steps = [pointda_train_step(model, opt, sched, x[i], y[i],
+                                        x[i].flip(0), gen, cfg)
+                     for i in range(3)]
+            m = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+        torch.cuda.synchronize()
+        runs.append((m, model, gen.get_state(), kernels.launches(),
+                     kernels.launches_in_graphs(), sched.last_epoch))
+    (mg, model_g, gs_g, l_g, in_g, e_g), (me, model_e, gs_e, l_e, in_e,
+                                         e_e) = runs
+    assert torch.equal(gs_g, gs_e) and e_g == e_e == 3
+    for k in me:
+        torch.testing.assert_close(mg[k], me[k], rtol=1e-4, atol=1e-5)
+    buffers = dict(model_e.named_buffers())
+    for (n, a), b in zip(model_g.state_dict().items(),
+                         model_e.state_dict().values()):
+        if n in buffers:
+            gap = float((a.double() - b.double()).norm()
+                        / max(float(b.double().norm()), 1e-12))
+            assert gap <= 1e-4, (n, gap)
+        else:
+            assert torch.equal(a, b), n
+    per_step = {"knn": 10, "edge_moments": 8, "edge_moments_bwd": 8,
+                "knn_moments": 1, "fps": 1}
+    assert l_g == l_e == in_g == {k: 3 * v for k, v in per_step.items()}
+    assert not any(in_e.values())
+
+
+def _pointnet_setup(card, name="ADAM", lr=1e-3, seed=0, n=256, b=8):
+    """PointNet under PCM (K4) and DefRec on the target, 2 epochs of 3
+    steps under the cosine: a step with no scatter or atomic add in it, so
+    that two runs of the same steps are bit-equal, eager or replayed."""
+    cfg = dataclasses.replace(
+        PointDAConfig(num_points=n, batch_size=b).resolved(),
+        DefRec_on_trgt=True)
+    model = make_model("pointnet", 10, device=card,
+                       generator=torch.Generator().manual_seed(seed))
+    opt, sched = make_optimizer(model, lr, cfg.wd, 2, 3, name)
+    x, y = make_classification(6 * b, n, 10, seed=seed + 1)
+    x = torch.from_numpy(x).to(card).view(6, b, n, 3)
+    y = torch.from_numpy(y).to(card).view(6, b)
+    return cfg, model, opt, sched, x, y
+
+
+def _train_state(model, opt, sched, gen) -> dict:
+    from mlsp_tpu_torch.train.state import lr_tensors
+
+    out = {f"model.{k}": v for k, v in model.state_dict().items()}
+    for i, st in enumerate(opt.state.values()):
+        out.update({f"opt.{i}.{k}": v for k, v in st.items()
+                    if torch.is_tensor(v)})
+    return {**out, "lr": torch.stack(lr_tensors(opt)).cpu(),
+            "gen": gen.get_state(), "sched": torch.tensor(sched.last_epoch)}
+
+
+def _assert_same_steps(got, want, state_got, state_want) -> None:
+    for k in want:
+        assert torch.equal(got[k], want[k]), (k, got[k], want[k])
+    assert state_got.keys() == state_want.keys()
+    for k, v in state_want.items():
+        assert torch.equal(state_got[k], v), k
+
+
+@pytest.mark.parametrize("name,lr", [("ADAM", 1e-3), ("ADAMW", 1e-3),
+                                     ("SGD", 1e-2)])
+def test_chunk_replays_take_the_eager_updates(card, name, lr):
+    """Two chunks of 3 replays, one an epoch (the cosine halves the LR
+    between them), against 6 eager steps from the same weights and
+    generator seed at a nonzero LR: the losses, the parameters, the BN
+    statistics, the optimizer's state (Adam's moments and step counts,
+    SGD's momentum), the LRs, the schedule's count and the generator are
+    bit-equal. The optimizer state and LR that one replay leaves are what
+    the next reads."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+
+    runs = []
+    for route in ("graph", "eager"):
+        cfg, model, opt, sched, x, y = _pointnet_setup(card, name, lr)
+        gen = torch.Generator(device=card).manual_seed(3)
+        if route == "graph":
+            graphs = Graphs()
+            chunks = [pointda_train_scan(model, opt, sched, x[c:c + 3],
+                                         y[c:c + 3], x[c:c + 3].flip(1), gen,
+                                         cfg, graphs) for c in (0, 3)]
+            m = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+            assert len(graphs._graphs) == 1
+        else:
+            steps = [pointda_train_step(model, opt, sched, x[i], y[i],
+                                        x[i].flip(0), gen, cfg)
+                     for i in range(6)]
+            m = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+        torch.cuda.synchronize()
+        runs.append((m, _train_state(model, opt, sched, gen)))
+    (mg, sg), (me, se) = runs
+    assert int(se["sched"]) == 6 and any(k.startswith("opt.") for k in se)
+    _assert_same_steps(mg, me, sg, se)
+
+
+def test_chunk_across_an_lr_change_is_refused(card):
+    """A step graph reads one LR a chunk: a chunk the schedule would give
+    two LRs (steps 2-4, across the first epoch's end) raises, before any
+    capture."""
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+
+    cfg, model, opt, sched, x, y = _pointnet_setup(card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    for i in range(2):
+        pointda_train_step(model, opt, sched, x[i], y[i], x[i], gen, cfg)
+    with pytest.raises(ValueError, match="crosses a change of the LR"):
+        pointda_train_scan(model, opt, sched, x[2:5], y[2:5], x[2:5], gen,
+                           cfg)
+    assert sched.last_epoch == 2
+
+
+def test_graph_recaptures_after_load_state_dict(card, tmp_path):
+    """A checkpoint written with capturable Adam state resumes into the
+    graph route and the eager route alike: `load_train_state` gives the
+    optimizer new state tensors, the kept graph no longer matches them and
+    is captured again, and the resumed chunk takes the eager steps from
+    the same checkpoint bit for bit (losses and state, as above)."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+    from mlsp_tpu_torch.utils import checkpoint
+
+    cfg, model, opt, sched, x, y = _pointnet_setup(card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    graphs = Graphs()
+    pointda_train_scan(model, opt, sched, x[:3], y[:3], x[:3].flip(1), gen,
+                       cfg, graphs)
+    first = graphs._graphs[next(iter(graphs._graphs))]
+    path = str(tmp_path / "c.ckpt")
+    checkpoint.save_train_state(path, model, opt, sched, 0)
+    raw = torch.load(path, weights_only=True)
+    assert torch.is_tensor(raw["optimizer"]["param_groups"][0]["lr"])
+    checkpoint.load_train_state(path, model, opt, sched)
+    assert opt.param_groups[0]["capturable"]
+    state = gen.get_state()
+    got = pointda_train_scan(model, opt, sched, x[3:], y[3:], x[3:].flip(1),
+                             gen, cfg, graphs)
+    assert graphs._graphs[next(iter(graphs._graphs))] is not first
+
+    _, model_e, opt_e, sched_e, _, _ = _pointnet_setup(card, seed=5)
+    checkpoint.load_train_state(path, model_e, opt_e, sched_e)
+    gen_e = torch.Generator(device=card).manual_seed(1)
+    gen_e.set_state(state)
+    want = [pointda_train_step(model_e, opt_e, sched_e, x[3 + i], y[3 + i],
+                               x[3 + i].flip(0), gen_e, cfg)
+            for i in range(3)]
+    _assert_same_steps(got, {k: torch.stack([w[k] for w in want])
+                             for k in want[0]},
+                       _train_state(model, opt, sched, gen),
+                       _train_state(model_e, opt_e, sched_e, gen_e))
+
+
+def test_adam_at_lr_0_leaves_the_parameters(card):
+    """SPST's cosine reaches LR 0. An SPST chunk at LR 0 through the graph
+    route (capturable Adam with coupled L2 decay) leaves every parameter
+    bit for bit as it was, as torch's non-capturable Adam at LR 0 leaves
+    it; among them an element whose value and gradient are 0, so that its
+    second moment stays 0 (the capturable update adds eps before it
+    divides by the LR)."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.spst import spst_train_scan, spst_train_step
+    from mlsp_tpu_torch.train.state import (
+        make_epoch_lr_optimizer,
+        set_learning_rate,
+    )
+    from mlsp_tpu_torch.utils.config import SPSTConfig
+
+    cfg = SPSTConfig(num_points=256, batch_size=8, apply_PCM=True)
+    xs = [torch.from_numpy(make_classification(3 * 8, 256, 10, seed=s)[0]
+                           ).to(card).view(3, 8, 256, 3) for s in (1, 2)]
+    ys = [torch.from_numpy(np.random.default_rng(s).integers(0, 10, (3, 8))
+                           ).to(card) for s in (1, 2)]
+    models = []
+    for route in ("graph", "eager"):
+        model = make_model("dgcnn", 10, device=card,
+                           generator=torch.Generator().manual_seed(0))
+        w = next(model.parameters())
+        mask = torch.ones_like(w)
+        mask.view(-1)[0] = 0.0
+        with torch.no_grad():
+            w.view(-1)[0] = 0.0
+        w.register_hook(lambda g, mask=mask: g * mask)
+        before = [p.detach().clone() for p in model.parameters()]
+        gen = torch.Generator(device=card).manual_seed(0)
+        if route == "graph":
+            opt = make_epoch_lr_optimizer(model, "ADAM", 1e-3, 5e-5, 0.9)
+            set_learning_rate(opt, 0.0)
+            assert opt.param_groups[0]["capturable"]
+            m = spst_train_scan(model, opt, *xs[:1], *ys[:1], xs[1], ys[1],
+                                0.9, 0.8, gen, cfg, Graphs())
+            assert all(torch.isfinite(v).all() for v in m.values())
+            v = opt.state[w]["exp_avg_sq"]
+            assert float(v.view(-1)[0]) == 0.0 and bool((v.view(-1)[1:] > 0
+                                                         ).all())
+        else:
+            opt = torch.optim.Adam(model.parameters(), lr=0.0,
+                                   weight_decay=5e-5)
+            for i in range(3):
+                spst_train_step(model, opt, xs[0][i], ys[0][i], xs[1][i],
+                                ys[1][i], 0.9, 0.8, gen, cfg)
+        torch.cuda.synchronize()
+        for p, b in zip(model.parameters(), before):
+            assert torch.equal(p, b)
+        models.append(model)
+    for p, q in zip(*(m.parameters() for m in models)):
+        assert torch.equal(p, q)
+
+
+def test_eval_graph_matches_eager_forwards(card):
+    """The scanned eval on the card (a captured eval forward, one replay a
+    batch, a remainder chunk on the same graph) equals the eager forwards
+    and counts K1 5 and K2-fwd 4 a batch."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.steps import eval_scan, scan_in_chunks
+
+    model = make_model("dgcnn", 10, device=card)
+    xs = torch.from_numpy(make_classification(5 * 4, 256, 10, seed=2)[0]
+                          ).to(card).view(5, 4, 256, 3)
+    kernels.reset_launches()
+    got = scan_in_chunks(eval_scan, model, xs, chunk=3, graphs=Graphs())
+    assert kernels.launches_in_graphs()["knn"] == 25
+    with torch.inference_mode():
+        want = torch.stack([model(x)["cls"] for x in xs]).cpu().numpy()
+    np.testing.assert_array_equal(got, want)

@@ -92,6 +92,18 @@ def _case(kind: str, bn_eval: bool = False) -> dict:
     return case
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread in this process for the file's tests, then the
+    count it had: the files that run after this one in the same worker
+    keep theirs (the JAX parity bounds of `test_torch_port_train_step.py`
+    hold at the default count, not at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = {"pointda_bn_eval": ("pointda", True), "pointda": ("pointda", False),
          "seg": ("seg", False), "spst": ("spst", False)}
 
@@ -99,7 +111,6 @@ CASES = {"pointda_bn_eval": ("pointda", True), "pointda": ("pointda", False),
 @pytest.fixture(scope="module")
 def two_ranks():
     """Every case's step on 2 gloo ranks (one spawn), and the cases."""
-    torch.set_num_threads(1)
     cases = {name: _case(*args) for name, args in CASES.items()}
     ranks = run_ranks(2, step_cases, list(cases.values()))
     return cases, {name: [r[i] for r in ranks]
@@ -179,7 +190,6 @@ def test_local_batch_norm_fails_the_bounds():
     their statistics over their own rows (`testing.local_batch_norm`, a
     planted fault) leave them, in the gradients and in the running
     statistics."""
-    torch.set_num_threads(1)
     case = _case("pointda")
     r0, r1 = run_ranks(2, step_cases, [case], [True])
     out = _outside(case, r0[0], r1[0], False)
@@ -261,6 +271,31 @@ def _trainer_cmd(out: str, extra=()) -> list:
             "--num_points", "32", "--batch_size", "8", "--test_batch_size",
             "8", "--DefRec_on_src", "False", "--apply_PCM", "True",
             "--out_path", out, *extra]
+
+
+def test_two_rank_trainer_cli_profile_dir(tmp_path):
+    """`trainer --mesh_data 2 --profile_dir D` on 2 gloo ranks: each rank
+    writes its own parseable Chrome trace, D/trace.rank{R}.json, and no
+    rank writes D/trace.json."""
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "2"}
+    trace_dir = tmp_path / "trace"
+    procs = [subprocess.Popen(
+        _trainer_cmd(str(tmp_path / f"r{r}"),
+                     ("--mesh_data", "2", "--profile_dir", str(trace_dir),
+                      "--batch_size", "32", "--test_batch_size", "32")),
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert sorted(p.name for p in trace_dir.iterdir()) == [
+        "trace.rank0.json", "trace.rank1.json"]
+    for r in range(2):
+        events = json.loads((trace_dir / f"trace.rank{r}.json").read_text())
+        assert any(e.get("name") == "mlsp/epoch 0"
+                   for e in events["traceEvents"])
 
 
 def test_two_rank_trainer_cli(tmp_path):

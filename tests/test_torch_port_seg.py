@@ -87,7 +87,7 @@ class TestSegConfig:
         p = {f.name: f.default for f in dataclasses.fields(PointSegDAConfig)}
         j = {f.name: f.default
              for f in dataclasses.fields(jconfig.PointSegDAConfig)}
-        assert set(j) - set(p) == {"scan_steps", "compute_dtype", "debug_aux"}
+        assert set(j) - set(p) == {"compute_dtype", "debug_aux"}
         assert set(p) - set(j) == {"device"}
         assert {k: p[k] for k in j if k in p} == {k: j[k] for k in j
                                                    if k in p}
@@ -102,7 +102,8 @@ class TestSegConfig:
         g, w = _shared(got.resolved(), want.resolved())
         assert g == w
 
-    @pytest.mark.parametrize("d", [{"scan_steps": 4}, {"debug_aux": True},
+    @pytest.mark.parametrize("d", [{"gather_dtype": "bf16"},
+                                   {"debug_aux": True},
                                    {"compute_dtype": "bf16"}])
     def test_left_out_keys_are_refused(self, d):
         with pytest.raises(ValueError, match="unknown|test-only"):

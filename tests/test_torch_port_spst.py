@@ -297,7 +297,7 @@ def test_config_fields_and_defaults_match_jax():
     knobs, plus the port's `device`."""
     got = {f.name: f.default for f in dataclasses.fields(SPSTConfig)}
     want = {f.name: f.default for f in dataclasses.fields(JaxSPSTConfig)}
-    inert = {"edge_impl", "compute_dtype", "gather_dtype", "scan_steps"}
+    inert = {"edge_impl", "compute_dtype", "gather_dtype"}
     assert set(got) == (set(want) - inert) | {"device"}
     assert all(got[k] == want[k] for k in want if k not in inert)
 
