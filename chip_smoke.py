@@ -175,9 +175,11 @@ one JSON line each; any failure exits non-zero before the last line:
                against the plain kNN and K1 index-equal on integer
                coordinates of those shapes; `torchrun --standalone
                --nproc_per_node 1` of
-               `trainer --mesh_data 1 --paper_recipe True` (2 epochs, NCCL,
-               the single-process trainer's launches); `standardize_files`
-               over 96 seeded .npy clouds of 1,000-16,384 points through the
+               `trainer --mesh_data 1 --paper_recipe True --scan_steps 8`
+               (2 epochs, NCCL, the single-process trainer's launches, the
+               train steps' inside replays of the captured mesh step,
+               "step graphs: on" and "step_graphs" true in every record);
+               `standardize_files` over 96 seeded .npy clouds of 1,000-16,384 points through the
                native C++ ingest (K4 per bucket chunk), bitwise against the
                same ingest with the plain FPS, its unit cube within 1e-6 of
                a float64 one, and against the numpy route (the difference,
@@ -212,6 +214,35 @@ one JSON line each; any failure exits non-zero before the last line:
                chunks of 8 against eager steps, interleaved, for the
                paper, all-branch and seg recipes, with peak memory
                allocated and reserved (the graph's pool)
+  ddp_graphs   the NCCL version; in a process of its own (an NCCL world
+               of one, a 600 s timeout), a chunk of 8 replays of the
+               captured paper step as a rank of the world (global
+               BatchNorm's, the gradient's and the loss terms' all-reduces
+               inside the graph) against 8 eager mesh steps from the same
+               weights and generator seed at LR 0: the last step's draws
+               and the generators bit-equal, losses within 1e-4, the last
+               gradients within the train-mode bounds, launches (per step
+               K1 10, K2-fwd 8, K2-bwd 8, K3 1, K4 1) all inside the
+               replays; the world's step p50 replayed against eager; the
+               torchrun trainer's epochs against the same trainer in one
+               process (same launches)
+  precision_routes  the calibration record and the route "auto" resolves
+               to at each layer of the default DGCNN: "fused" (K1 + K2) on
+               all four, or the phase fails with the record; K1 on a bf16
+               forward's five graphs (upcast) by sorted distance sets and
+               on bf16 integer coordinates index-equal, K2-fwd and K2-bwd
+               on its u computed in bf16, upcast; the paper step at
+               `compute_dtype` bf16 as a chunk of 3 replays (per step K1
+               10, K2-fwd 8, K2-bwd 8, K3 1, K4 1 inside the replays), its
+               first step against the plain route on the kernel run's
+               graphs and FPS order with eval-mode BN (losses 1e-2, each
+               gradient's cosine >= 0.999); the trainer CLI at
+               `--compute_dtype bf16 --scan_steps 8` (2 epochs: exact
+               launches, the steps' inside replays, every EdgeConv layer
+               on "fused" in its log) and the seg CLI at `--compute_dtype
+               bf16` (exact launches); each EdgeConv route's forward and
+               backward ms per layer at [32, 1024, C]; the bf16 step's
+               replayed p50 and peak memory against float32's
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
                kernel's bound, K2-bwd on the repeated-point graph too, K4
@@ -708,6 +739,7 @@ def train_model(cfg: PointDAConfig, device, knn_backend: str = "auto"):
                        k=K, dropout=cfg.dropout,
                        density_num_cls=cfg.density_num_class,
                        pergroup=cfg.pergroup, head_dtype=cfg.head_dtype,
+                       compute_dtype=cfg.compute_dtype,
                        knn_backend=knn_backend)
     randomise_batch_norm(model, g)
     return model.train()
@@ -3142,17 +3174,23 @@ def cli_rank(out: str, argv: list) -> int:
                            record_then_destroy):
         rc = cli.main(argv)
     with open(out, "w") as f:
-        json.dump({"rc": rc, "launches": kernels.launches(), **seen}, f)
+        json.dump({"rc": rc, "launches": kernels.launches(),
+                   "in_graphs": kernels.launches_in_graphs(), **seen}, f)
     return rc
 
 
 def ddp_cli(tmp: str) -> dict:
     """`torchrun --standalone --nproc_per_node 1` of the trainer CLI with
-    `--mesh_data 1`: a world of one over NCCL, 2 epochs at full width,
-    exact launches (those of the single-process trainer)."""
+    `--mesh_data 1 --scan_steps GRAPH_EPOCH`: a world of one over NCCL, 2
+    epochs at full width, each epoch's 8 steps one chunk of replays of the
+    captured mesh step ("step graphs: on" in the log, "step_graphs" true
+    in every record), exact launches (those of the single-process
+    trainer), the train steps' inside the replays and the eval forwards'
+    (eager under a mesh) outside."""
     out = os.path.join(tmp, "ddp_cli.json")
     argv = ["trainer", "--mesh_data", "1", "--paper_recipe", "True",
             "--synthetic", "True", "--epochs", str(TRAINER_EPOCHS),
+            "--scan_steps", str(GRAPH_EPOCH),
             "--out_path", os.path.join(tmp, "runs"), "--exp_name", "ddp"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", os.path.abspath(__file__), "--cli-rank",
@@ -3165,11 +3203,18 @@ def ddp_cli(tmp: str) -> dict:
           f"{done.stderr[-4000:]}")
     with open(out) as f:
         rank = json.load(f)
-    with open(os.path.join(tmp, "runs", "ddp", "metrics.jsonl")) as f:
+    exp = os.path.join(tmp, "runs", "ddp")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
+    with open(os.path.join(exp, "run.log")) as f:
+        routes = [ln.split("step graphs: ", 1)[-1]
+                  for ln in f.read().splitlines() if "step graphs:" in ln]
+    steps = GRAPH_EPOCH * TRAINER_EPOCHS
     res = {"argv": argv, "seconds_with_startup": seconds, **rank,
            "launches_expected": trainer_launches(TRAINER_EPOCHS),
-           "records": len(records),
+           "in_graphs_expected": {k: steps * v for k, v in PER_STEP.items()},
+           "records": len(records), "route_line": routes,
+           "step_graphs": [r["step_graphs"] for r in records],
            "epoch_seconds": [r["seconds"] for r in records],
            "finite": all(np.isfinite(v) for r in records
                          for v in r["train"].values()),
@@ -3178,10 +3223,16 @@ def ddp_cli(tmp: str) -> dict:
     emit("ddp_ingest", what="torchrun trainer --mesh_data 1", **res)
     check(rank.get("backend") == "nccl" and rank.get("world_size") == 1,
           f"the trainer ran on {rank}")
-    check(rank["launches"] == res["launches_expected"],
-          f"the data-parallel trainer launched {rank['launches']}")
+    check(rank["launches"] == res["launches_expected"]
+          and rank["in_graphs"] == res["in_graphs_expected"],
+          f"the data-parallel trainer launched {rank['launches']} "
+          f"({rank['in_graphs']} inside graph replays)")
     check(res["finite"] and res["records"] == TRAINER_EPOCHS,
           f"the data-parallel trainer left {res['records']} records")
+    check(len(routes) == 1 and routes[0].startswith("on (")
+          and all(res["step_graphs"]),
+          f"the NCCL world did not replay step graphs: {routes}, "
+          f"{res['step_graphs']}")
     return res
 
 
@@ -3337,7 +3388,8 @@ def ddp_ingest(device, card: str, tmp: str) -> dict:
          calibrate_ms=cal["records"])
     return {"by_path": {
         "ddp": {k: dd["launches"][k] + dc["launches"][k] for k in PER_STEP},
-        "ingest": ing["launches"], "calibrate": cal["launches"]}}
+        "ingest": ing["launches"], "calibrate": cal["launches"]},
+        "cli": dc}
 
 
 # ---------------------------------------------------------------------------
@@ -3898,6 +3950,494 @@ def step_graphs(device, card: str, g: torch.Generator, tmp: str,
             "times": times}
 
 
+# ---------------------------------------------------------------------------
+# PR 12: NCCL capture of the data-parallel step (`ddp_graphs`), and the
+# precision and EdgeConv-route knobs (`precision_routes`).
+# ---------------------------------------------------------------------------
+
+MESH_CHUNK = 8  # the world-of-one chunk held to eager mesh steps
+MESH_TIMED_CHUNKS, MESH_TIMED_STEPS = 4, 16  # timed, interleaved
+# The bf16 bounds of the CPU tests (tests/test_torch_port_precision.py),
+# here for the kernel route against the plain one on the same card: loss
+# terms within 1e-2 relative, each gradient tensor's cosine >= 0.999.
+BF16_LOSS_RTOL, BF16_GRAD_COS = 1e-2, 0.999
+# The EdgeConv layers of the flagship DGCNN: (input, output) widths.
+EDGE_LAYERS = ((3, 64), (64, 64), (64, 128), (128, 256))
+ROUTES = {"fused": ("fused", ""), "moments": ("moments", ""),
+          "moments_gather_bf16": ("moments", "bf16"),
+          "direct": ("direct", "")}
+
+
+def nccl_version() -> str:
+    return ".".join(map(str, torch.cuda.nccl.version()))
+
+
+def mesh_chunk(out: str) -> int:
+    """`chip_smoke.py --mesh-chunk OUT`, a process of its own: an NCCL
+    world of one (`parallel.init_local_world`, the CLI's `--mesh_data 1`).
+    A chunk of MESH_CHUNK replays of the captured paper step as a rank of
+    the world (global BatchNorm's, the gradient's and the loss terms'
+    all-reduces inside the graph) against as many eager mesh steps, each
+    from the same seeded weights and generator seed, SGD at LR 0 (DGCNN's
+    steps part at the rounding level at a nonzero LR, eager against eager;
+    `graph_chunks_vs_eager`); then the step p50 of chunks of replays
+    against eager mesh steps, interleaved. Writes OUT (JSON)."""
+    from mlsp_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    parallel.init_local_world("nccl")
+    mesh = parallel.make_mesh(1, device=device)
+    cfg = train_cfg()
+    batches = train_batches(cfg, device)
+    chunk = [torch.stack([batches[i % len(batches)][j]
+                          for i in range(MESH_CHUNK)]) for j in range(3)]
+    runs = {}
+    for route in ("graph", "eager"):
+        model = train_model(cfg, device)
+        opt, sched = make_optimizer(model, 0.0, cfg.wd, cfg.epochs,
+                                    STEPS_PER_EPOCH, "SGD")
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        seen = {}
+
+        def recorded(name, fn, seen=seen):
+            def call(*a, **kw):
+                res = fn(*a, **kw)
+                seen.setdefault(name, []).append(res)
+                return res
+            return call
+
+        graphs = Graphs()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(steps_mod, "augment_batch", recorded(
+                "augmented", steps_mod.augment_batch)), \
+                mock.patch.object(steps_mod, "draw_step", recorded(
+                    "draws", steps_mod.draw_step)):
+            if route == "graph":
+                m = pointda_train_scan(model, opt, sched, *chunk, gen, cfg,
+                                       graphs, mesh)
+            else:
+                ms = [pointda_train_step(model, opt, sched, *(
+                    t[i] for t in chunk), gen, cfg, mesh)
+                    for i in range(MESH_CHUNK)]
+                m = {k: torch.stack([s[k] for s in ms]) for k in ms[0]}
+        torch.cuda.synchronize()
+        # the last step's draws: the capture's tensors hold what the last
+        # replay wrote
+        draws = {**dict(zip(("src", "trgt"), seen["augmented"][-2:])),
+                 **seen["draws"][-1]}
+        runs[route] = {
+            "seconds": time.perf_counter() - t0, "losses": m,
+            "grads": {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "draws": {k: v.clone() for k, v in draws.items()},
+            "gen": gen.get_state(), "launches": kernels.launches(),
+            "in_graphs": kernels.launches_in_graphs(),
+            "step": (model, opt, sched, gen, graphs)}
+    g, e = runs["graph"], runs["eager"]
+    loss_gap = max(float(((g["losses"][k] - w).abs()
+                          / w.abs().clamp_min(1e-12)).max())
+                   for k, w in e["losses"].items())
+    grad_gap = grad_gaps(g["grads"], e["grads"])
+    res = {
+        "nccl": nccl_version(), "backend": mesh.backend,
+        "world_size": mesh.size, "chunk": MESH_CHUNK,
+        "config": "PointDAConfig().paper_recipe, SGD at LR 0",
+        "batch": cfg.batch_size, "points": cfg.num_points,
+        "draws_bit_equal": {k: bool(torch.equal(g["draws"][k],
+                                                e["draws"][k]))
+                            for k in e["draws"]},
+        "generator_state_equal": bool(torch.equal(g["gen"], e["gen"])),
+        "loss_rel_gap_max": loss_gap,
+        "losses_bit_equal": all(torch.equal(g["losses"][k], v)
+                                for k, v in e["losses"].items()),
+        "same_grad_set": set(g["grads"]) == set(e["grads"]),
+        "grad_gap": {"max": max(grad_gap.values()),
+                     "median": statistics.median(grad_gap.values()),
+                     "worst": max(grad_gap, key=grad_gap.get)},
+        "capture_and_chunk_seconds": g["seconds"],
+        "eager_seconds": e["seconds"],
+        "launches_graph": g["launches"], "launches_in_graphs": g["in_graphs"],
+        "launches_eager": e["launches"],
+        "launches_eager_in_graphs": e["in_graphs"]}
+    # step p50: chunks of replays against eager mesh steps, interleaved
+    model, opt, sched, gen, graphs = g["step"]
+    ms = {"graph": [], "eager": []}
+    for _ in range(2):
+        for _ in range(MESH_TIMED_CHUNKS // 2):
+            t0 = time.perf_counter()
+            pointda_train_scan(model, opt, sched, *chunk, gen, cfg, graphs,
+                               mesh)
+            torch.cuda.synchronize()
+            ms["graph"].append((time.perf_counter() - t0) * 1e3 / MESH_CHUNK)
+        for i in range(MESH_TIMED_STEPS // 2):
+            t0 = time.perf_counter()
+            pointda_train_step(model, opt, sched, *batches[i % len(batches)],
+                               gen, cfg, mesh)
+            torch.cuda.synchronize()
+            ms["eager"].append((time.perf_counter() - t0) * 1e3)
+    res["times"] = {"graph_step_p50_ms": statistics.median(ms["graph"]),
+                    "eager_step_p50_ms": statistics.median(ms["eager"]),
+                    "graph_ms": ms["graph"], "eager_ms": ms["eager"]}
+    with open(out, "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ddp_graphs(device, card: str, tmp: str, dc: dict) -> dict:
+    """NCCL capture of the data-parallel step: the NCCL version; the
+    `mesh_chunk` process (a subprocess with a timeout of its own: a hung
+    peer inside a replay is bounded by no process-group timeout, see
+    PERF.md); the world-of-one trainer's epochs (`ddp_cli`, step graphs
+    on) against the same trainer in one process."""
+    emit("ddp_graphs", what="nccl", version=nccl_version(), card=card)
+    out = os.path.join(tmp, "mesh_chunk.json")
+    done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--mesh-chunk", out], capture_output=True,
+                          text=True, timeout=600)
+    check(done.returncode == 0,
+          f"the NCCL mesh chunk exited {done.returncode}:\n"
+          f"{done.stderr[-4000:]}")
+    with open(out) as f:
+        mc = json.load(f)
+    times = mc.pop("times")
+    emit("ddp_graphs", what="chunk_vs_eager_mesh_steps", **mc)
+    steps = {k: MESH_CHUNK * v for k, v in PER_STEP.items()}
+    check(all(mc["draws_bit_equal"].values())
+          and mc["generator_state_equal"],
+          f"a mesh replay draws other numbers than the eager step: {mc}")
+    check(mc["loss_rel_gap_max"] <= LOSS_RTOL,
+          f"mesh replays' losses differ: {mc['loss_rel_gap_max']}")
+    check(mc["same_grad_set"] and mc["grad_gap"]["max"] <= GRAD_RTOL_TRAIN
+          and mc["grad_gap"]["median"] <= GRAD_MEDIAN_TRAIN,
+          f"mesh replays' gradients differ: {mc['grad_gap']}")
+    check(mc["launches_graph"] == mc["launches_in_graphs"] == steps
+          == mc["launches_eager"] and not any(
+              mc["launches_eager_in_graphs"].values()),
+          f"mesh chunk launches: {mc}")
+    one = graph_cli(tmp, [
+        "trainer", "--paper_recipe", "True", "--synthetic", "True",
+        "--epochs", str(TRAINER_EPOCHS), "--scan_steps", str(GRAPH_EPOCH),
+        "--out_path", os.path.join(tmp, "runs"), "--exp_name",
+        "one_process"], "one_process")
+    # one process also replays its eval forwards (EvalGraph); a mesh
+    # evaluates eagerly
+    check(one["launches"] == dc["launches"]
+          == one["in_graphs"],
+          f"one process launched {one['launches']} ({one['in_graphs']} "
+          f"inside graph replays), the NCCL world {dc['launches']}")
+    res = {"card": card, "nccl": mc["nccl"], "batch": mc["batch"],
+           "world_of_one_step": times,
+           "epoch_seconds": {"nccl_world_of_one": dc["epoch_seconds"],
+                             "one_process": [r["seconds"]
+                                             for r in one["records"]]},
+           "scan_steps": GRAPH_EPOCH}
+    emit("times", what="ddp_graphs", **res)
+    return {"by_path": {"ddp_graphs_chunk": {
+        k: mc["launches_graph"][k] + mc["launches_eager"][k]
+        for k in PER_STEP}, "ddp_graphs_one_process": one["launches"]},
+        "in_graphs": {k: mc["launches_in_graphs"][k] + dc["in_graphs"][k]
+                      + one["in_graphs"][k] for k in PER_STEP},
+        "times": res}
+
+
+def edge_calibration_routes(device) -> dict:
+    """This card's `calibrate` record and the route "auto" resolves to at
+    each EdgeConv layer of the default DGCNN (N = 1024): "fused" (K1 + K2)
+    everywhere, or the phase fails with the record."""
+    records = chipcal.calibrated(device)
+    model = train_model(train_cfg(), device)
+    routes = model.edge_routes(N, device)
+    res = {"records": records, "auto_routes": list(routes), "points": N,
+           "layers": [list(io) for io in EDGE_LAYERS]}
+    emit("precision_routes", what="calibration", **res)
+    check(routes == ("fused",) * len(EDGE_LAYERS),
+          f'edge_impl="auto" resolves to {routes} on this card, not K2 '
+          f"(fused) on every layer; the record: {records}")
+    return res
+
+
+def bf16_kernels(device, g: torch.Generator) -> dict:
+    """K1 and K2 on a bf16 forward's inputs (the kernels take them upcast
+    to float32): K1 at the five graphs (cloud, then each EdgeConv layer's
+    bf16 input) by the distance-set bound of `check_knn`, and on integer
+    coordinates in bf16 (exact), index-equal; K2-fwd and K2-bwd at the
+    four layers on u computed in bf16 and upcast, as `check_edge` and
+    `check_edge_bwd` hold them."""
+    cfg = dataclasses.replace(train_cfg(), compute_dtype="bf16")
+    model = train_model(cfg, device).eval()
+    x = torch.from_numpy(make_classification(B, N, NUM_CLASS,
+                                             seed=SEED + 21)[0]).to(device)
+    with torch.no_grad():
+        idx = knn_indices(x, K)
+        T = model.input_transform_net(edge_features(x, idx))
+        feats = [torch.einsum("bnc,bdc->bnd", x, T).to(torch.bfloat16)]
+        for conv in (model.conv1, model.conv2, model.conv3):
+            feats.append(conv(feats[-1]))
+        us = [dense_u(conv, f) for conv, f in zip(
+            (model.conv1, model.conv2, model.conv3, model.conv4), feats)]
+    check(all(f.dtype == torch.bfloat16 for f in feats + us),
+          "the bf16 forward's features are not bf16")
+    knn_checks = [check_knn(name, t.float(), phase="precision_routes")
+                  for name, t in [("bf16 cloud", x)] + [
+                      (f"bf16 conv{i + 1}", f) for i, f in enumerate(feats)]]
+    exact = []
+    for c in (3, 64):
+        xi = integer_cloud(g, (B, N, c), device).to(torch.bfloat16)
+        got, want = knn_cuda(xi, K), knn_indices_torch(xi, K)
+        torch.cuda.synchronize()
+        exact.append({"shape": [B, N, c], "dtype": "bf16",
+                      "rows_unequal": int((got != want).any(-1).sum())})
+    emit("precision_routes", kernel="knn", what="bf16 integer coordinates",
+         cases=exact)
+    check(all(e["rows_unequal"] == 0 for e in exact),
+          f"K1 indices differ on bf16 integer coordinates: {exact}")
+    edge = [check_edge(f"bf16 conv{i + 1}", f.float(), u.float())
+            for i, (f, u) in enumerate(zip(feats, us))]
+    bwd = [check_edge_bwd(f"bf16 conv{i + 1}", f.float(), u.float(), g)
+           for i, (f, u) in enumerate(zip(feats, us))]
+    return {"knn": knn_checks, "edge": edge, "edge_bwd": bwd}
+
+
+def dense_u(conv, x: torch.Tensor) -> torch.Tensor:
+    """u = W_d x of an EdgeConv layer, in its compute dtype."""
+    from mlsp_tpu_torch.models.layers import dense
+
+    w = conv.conv[0].weight.flatten(1)
+    return dense(x, w[:, :x.shape[-1]], dtype=conv.dtype)
+
+
+def cosines(got: dict, want: dict) -> dict:
+    """Per tensor, the cosine of two gradients (1 where both are 0)."""
+    out = {}
+    for n, w in want.items():
+        a, b = got[n].double(), w.double()
+        norms = float(a.norm() * b.norm())
+        out[n] = (float((a * b).sum()) / norms if norms
+                  else float(not a.any() and not b.any()))
+    return out
+
+
+def bf16_step(device) -> dict:
+    """The paper step at `compute_dtype` bf16 as a chunk of TRAIN_STEPS
+    replays of its captured graph (per step K1 10, K2-fwd 8, K2-bwd 8, K3
+    1, K4 1, all inside the replays), finite losses; then its first step
+    through the kernels, recorded, against the plain route on the same
+    card replaying the kernel run's kNN graphs and FPS order, eval-mode BN
+    (rounding alone separates them): loss terms within BF16_LOSS_RTOL,
+    each gradient's cosine >= BF16_GRAD_COS."""
+    cfg = dataclasses.replace(train_cfg(), compute_dtype="bf16")
+    batches = train_batches(cfg, device)
+    model = train_model(cfg, device)
+    init = copy.deepcopy(model.state_dict())
+    opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                STEPS_PER_EPOCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    chunk = [torch.stack([b[j] for b in batches]) for j in range(3)]
+    kernels.reset_launches()
+    m = pointda_train_scan(model, opt, sched, *chunk, gen, cfg, Graphs())
+    torch.cuda.synchronize()
+    launches, in_graphs = kernels.launches(), kernels.launches_in_graphs()
+    losses = {k: v.tolist() for k, v in m.items()}
+    expected = {k: TRAIN_STEPS * v for k, v in PER_STEP.items()}
+    ecfg = dataclasses.replace(cfg, debug_bn_eval=True)
+
+    def rerun(backend):
+        mm = train_model(ecfg, device, backend)
+        mm.load_state_dict(init)
+        return first_step(mm, dataclasses.replace(ecfg, knn_backend=backend),
+                          batches[0], device)
+
+    tape = Tape()
+    kernels.reset_launches()
+    with tape.record():
+        k_loss, k_grad = rerun("auto")
+    kernels_launched = kernels.launches()
+    kernels.reset_launches()
+    with tape.replay():
+        p_loss, p_grad = rerun("torch")
+    torch.cuda.synchronize()
+    plain_launches = kernels.launches()
+    loss_gap = {n: abs(p_loss[n] - w) / max(abs(w), 1e-12)
+                for n, w in k_loss.items()}
+    cos = cosines(p_grad, k_grad)
+    res = {"config": "PointDAConfig().paper_recipe, compute_dtype bf16",
+           "batch": cfg.batch_size, "steps": TRAIN_STEPS,
+           "launches": launches, "launches_in_graphs": in_graphs,
+           "launches_expected": expected, "losses": losses,
+           "finite": all(np.isfinite(v).all() for v in losses.values()),
+           "first_step_plain_vs_kernel_eval_bn": {
+               "loss_rel_gap": loss_gap, "grad_cos_min": min(cos.values()),
+               "grad_cos_worst": min(cos, key=cos.get),
+               "same_grad_set": set(p_grad) == set(k_grad),
+               "graphs_replayed": len(tape.graphs),
+               "plain_route_launches": plain_launches}}
+    emit("precision_routes", what="bf16 paper step", **res)
+    check(res["finite"] and launches == in_graphs == expected,
+          f"the bf16 step graph launched {launches} ({in_graphs} inside "
+          f"its replays), not {expected}")
+    check(not any(plain_launches.values()) and kernels_launched == PER_STEP
+          and set(p_grad) == set(k_grad)
+          and max(loss_gap.values()) <= BF16_LOSS_RTOL
+          and min(cos.values()) >= BF16_GRAD_COS,
+          f"the bf16 first step: plain route against kernels {res}")
+    return {**res, "cfg": cfg, "batches": batches}
+
+
+def bf16_clis(tmp: str) -> dict:
+    """The trainer CLI at `--compute_dtype bf16 --scan_steps GRAPH_EPOCH`
+    (2 epochs, each one chunk of replays: exact launches, all inside graph
+    replays, the eval forwards' too; the log's EdgeConv routes all
+    "fused") and the seg
+    CLI at `--compute_dtype bf16` (exact launches), finite losses."""
+    out = os.path.join(tmp, "bf16_runs")
+    tr = graph_cli(tmp, [
+        "trainer", "--paper_recipe", "True", "--synthetic", "True",
+        "--epochs", str(TRAINER_EPOCHS), "--scan_steps", str(GRAPH_EPOCH),
+        "--compute_dtype", "bf16", "--out_path", out, "--exp_name",
+        "bf16_trainer"], "bf16_trainer")
+    seg = graph_cli(tmp, [
+        "seg", "--config", repo_file(SEG_CONFIG), "--synthetic", "True",
+        "--apply_PCM", "True", "--epochs", str(SEG_TRAINER_EPOCHS),
+        "--compute_dtype", "bf16", "--out_path", out, "--exp_name",
+        "bf16_seg"], "bf16_seg")
+    routes = [ln.rsplit(": ", 1)[-1] for ln in tr["log"].splitlines()
+              if "EdgeConv routes" in ln]
+    res = {}
+    for name, r, want in (
+            ("trainer", tr, trainer_launches(TRAINER_EPOCHS)),
+            ("seg", seg, seg_trainer_launches(SEG_TRAINER_EPOCHS))):
+        losses = [rec["train"] for rec in r["records"]]
+        res[name] = {"launches": r["launches"], "launches_expected": want,
+                     "launches_in_graphs": r["in_graphs"], "losses": losses,
+                     "finite": all(np.isfinite(v) for m in losses
+                                   for v in m.values()),
+                     "step_graphs": [rec["step_graphs"]
+                                     for rec in r["records"]],
+                     "epoch_seconds": [rec["seconds"]
+                                       for rec in r["records"]]}
+        emit("precision_routes", what=f"bf16 {name} cli", **res[name])
+        check(r["launches"] == want and res[name]["finite"],
+              f"the bf16 {name} CLI: {res[name]}")
+    res["trainer"]["edge_routes_line"] = routes
+    # each epoch one chunk of replays, every eval forward an EvalGraph
+    check(res["trainer"]["launches_in_graphs"] == res["trainer"]["launches"]
+          and all(res["trainer"]["step_graphs"])
+          and routes == ["fused, fused, fused, fused"],
+          f"the bf16 trainer's replays or routes: {res['trainer']}, "
+          f"{routes}")
+    return res
+
+
+def route_times(device, card: str) -> dict:
+    """Each EdgeConv route's forward and forward + backward ms per layer
+    (CUDA events, `median_ms`) in train mode at [B, N, C_in] -> C_out for
+    the flagship's four layers, float32, the kNN graph built by K1 in
+    every route; "moments_gather_bf16" is the moments route at
+    `gather_dtype` bf16. The backward takes a fixed cotangent to the
+    layer's input and weights."""
+    from mlsp_tpu_torch.models.dgcnn import EdgeConvM
+    from mlsp_tpu_torch.models.layers import init_parameters
+
+    g = torch.Generator().manual_seed(SEED + 22)
+    rows = []
+    for cin, cout in EDGE_LAYERS:
+        x = torch.randn(B, N, cin, generator=g).to(device)
+        cot = torch.randn(B, N, cout, generator=g).to(device)
+        row = {"shape": [B, N, cin], "c_out": cout}
+        for name, (route, gd) in ROUTES.items():
+            layer = EdgeConvM(cin, cout, K, "auto", None,
+                              torch.bfloat16 if gd else None)
+            init_parameters(layer, torch.Generator().manual_seed(SEED))
+            layer = layer.to(device).train()
+            xr = x.clone().requires_grad_()
+
+            def fwd(layer=layer, route=route, xr=xr):
+                with torch.no_grad():
+                    return layer(xr, route)
+
+            def fwd_bwd(layer=layer, route=route, xr=xr):
+                torch.autograd.backward(layer(xr, route), cot)
+
+            f, fb = median_ms(fwd), median_ms(fwd_bwd)
+            row[name] = {"fwd_ms": f, "fwd_bwd_ms": fb, "bwd_ms": fb - f}
+        rows.append(row)
+    res = {"card": card, "batch": B, "points": N, "k": K, "layers": rows,
+           "total_fwd_bwd_ms": {name: sum(r[name]["fwd_bwd_ms"]
+                                          for r in rows) for name in ROUTES}}
+    emit("times", what="edge_routes", **res)
+    return res
+
+
+def precision_times(device, card: str) -> dict:
+    """Step p50 (host clock, chunks of GRAPH_EPOCH replays ending in a
+    synchronize) and peak memory of the paper step at `compute_dtype`
+    float32 and bf16, each route's graph captured alone (peak allocated
+    and reserved after its capture and replays), then their chunks
+    interleaved."""
+    runs = {}
+    for dt in ("f32", "bf16"):
+        cfg = dataclasses.replace(train_cfg(), compute_dtype=dt)
+        batches = train_batches(cfg, device)
+        chunk = [torch.stack([batches[i % len(batches)][j]
+                              for i in range(GRAPH_EPOCH)]) for j in range(3)]
+        model = train_model(cfg, device)
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs,
+                                    STEPS_PER_EPOCH)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        graphs = Graphs()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            pointda_train_scan(model, opt, sched, *chunk, gen, cfg, graphs)
+        torch.cuda.synchronize()
+        runs[dt] = {"args": (model, opt, sched, *chunk, gen, cfg, graphs),
+                    "ms": [],
+                    "peak_allocated_gb": torch.cuda.max_memory_allocated()
+                    / 1e9,
+                    "peak_reserved_gb": torch.cuda.max_memory_reserved()
+                    / 1e9}
+    for dt in ("f32", "bf16", "bf16", "f32", "f32", "bf16", "bf16", "f32"):
+        t0 = time.perf_counter()
+        pointda_train_scan(*runs[dt]["args"])
+        torch.cuda.synchronize()
+        runs[dt]["ms"].append((time.perf_counter() - t0) * 1e3 / GRAPH_EPOCH)
+    res = {"card": card, "chunk": GRAPH_EPOCH, **{
+        dt: {"graph_step_p50_ms": statistics.median(r["ms"]), "ms": r["ms"],
+             "peak_allocated_gb": r["peak_allocated_gb"],
+             "peak_reserved_gb": r["peak_reserved_gb"]}
+        for dt, r in runs.items()}}
+    res["bf16_over_f32"] = (res["bf16"]["graph_step_p50_ms"]
+                            / res["f32"]["graph_step_p50_ms"])
+    emit("times", what="precision_step", **res)
+    return res
+
+
+def precision_routes(device, card: str, g: torch.Generator,
+                     tmp: str) -> dict:
+    """The `precision_routes` phase; returns the launches of its paths."""
+    cal = edge_calibration_routes(device)
+    kc = bf16_kernels(device, g)
+    st = bf16_step(device)
+    cl = bf16_clis(tmp)
+    rt = route_times(device, card)
+    pt = precision_times(device, card)
+    return {"by_path": {"bf16_step": st["launches"],
+                        "bf16_trainer": cl["trainer"]["launches"],
+                        "bf16_seg_trainer": cl["seg"]["launches"]},
+            "in_graphs": {k: st["launches_in_graphs"][k]
+                          + cl["trainer"]["launches_in_graphs"][k]
+                          + cl["seg"]["launches_in_graphs"][k]
+                          for k in PER_STEP},
+            "kernel_checks": kc, "calibration": cal, "route_times": rt,
+            "times": pt}
+
+
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
 # one B=32 serving forward, the train-only kernels over one B=32 train step.
 KERNELS = {
@@ -3993,7 +4533,9 @@ def run(device: torch.device, card: str) -> None:
         g2 = serving_g2(device, card, tmp, trn["model_file"],
                         seg_trn["model_file"])
         ddp = ddp_ingest(device, card, tmp)
+        dg = ddp_graphs(device, card, tmp, ddp["cli"])
         sgr = step_graphs(device, card, g, tmp, trn["model_file"])
+        pr = precision_routes(device, card, g, tmp)
 
         kt = kernel_times(device, card, knn_in, edge_in, g)
         serving_times(srv["served"], srv["plain"], device, card)
@@ -4004,14 +4546,15 @@ def run(device: torch.device, card: str) -> None:
         seg_trainer_times(seg_trn, seg_st["p50_ms"], device, card)
         sg = scan_graph(device, card, g)
 
-    gk = sgr["kernel_checks"]
+    gk, pk = sgr["kernel_checks"], pr["kernel_checks"]
     errs = {
         "knn": max(c["max_dist_gap"] for c in knn_checks + seg["knn"]
-                   + sg["knn_checks"] + gk["knn"]),
+                   + sg["knn_checks"] + gk["knn"] + pk["knn"]),
         "edge_moments": max(c["max_abs_err"]
-                            for c in edge_checks + gk["edge"]),
+                            for c in edge_checks + gk["edge"] + pk["edge"]),
         "edge_moments_bwd": max(c["max_abs_err"] for c in bwd_checks
-                                + sg["bwd_checks"] + gk["edge_bwd"]),
+                                + sg["bwd_checks"] + gk["edge_bwd"]
+                                + pk["edge_bwd"]),
         "knn_moments": max(moments_check["max_abs_err"],
                            seg["knn_moments"]["max_abs_err"],
                            gk["knn_moments"]["max_abs_err"]),
@@ -4068,12 +4611,15 @@ def run(device: torch.device, card: str) -> None:
                    "seg_bundle": g2["launches"][kname],
                    "aot": g2["aot_launches"][kname],
                    **{path: n[kname] for path, n in ddp["by_path"].items()},
-                   **{path: n[kname] for path, n in sgr["by_path"].items()}}
+                   **{path: n[kname] for path, n in dg["by_path"].items()},
+                   **{path: n[kname] for path, n in sgr["by_path"].items()},
+                   **{path: n[kname] for path, n in pr["by_path"].items()}}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "launches_in_step_graphs": sgr["in_graphs"][kname],
+            "launches_in_step_graphs": sgr["in_graphs"][kname]
+            + dg["in_graphs"][kname] + pr["in_graphs"][kname],
             "max_abs_err": errs[kname],
             **main, "library_ms": None, "ms_over": over,
             "per_train_step": total(step_rows[kname]),
@@ -4089,6 +4635,8 @@ def run(device: torch.device, card: str) -> None:
 def main() -> int:
     if sys.argv[1:2] == ["--cli-rank"]:  # a torchrun rank of `ddp_cli`
         return cli_rank(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--mesh-chunk"]:  # `ddp_graphs`'s NCCL world
+        return mesh_chunk(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4102,7 +4650,8 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(),
          capability=list(torch.cuda.get_device_capability(0)),
-         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=card)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         nccl=nccl_version(), nvidia_smi=card)
     run(device, card)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ from mlsp_tpu_torch.models.pointnet import PointNet
 from mlsp_tpu_torch.models.pointnet2 import PointNet2SSG
 from mlsp_tpu_torch.models.transformer import PointTransformer
 from mlsp_tpu_torch.models.vit import PointViT
+from mlsp_tpu_torch.utils import chipcal
 from mlsp_tpu_torch.utils.device import resolve_device
 
 __all__ = ["DGCNN", "DGCNNSeg", "HengshuangSeg", "HengshuangTransformer",
@@ -48,16 +49,26 @@ def model_kwargs(cfg, name: str | None = None) -> dict:
     """The constructor keywords a config gives model `name` (default
     `cfg.model`), as the JAX trainers and `evaluation._build_model` build
     it: `dropout` always, `knn_backend` for every family but PointNet
-    (which builds no graph), DGCNN's and DGCNNSeg's density head sizes, and
-    DGCNN's head dtype where the config has one."""
+    (which builds no graph), DGCNN's and DGCNNSeg's density head sizes,
+    DGCNN's precision and EdgeConv route (`compute_dtype`, and the
+    `head_dtype`, `gather_dtype` and `edge_impl` the config has:
+    `dgcnn_dtype_kwargs`), and the seg trainer's `compute_dtype` for
+    DGCNNSeg (JAX's eval builds DGCNNSeg in float32)."""
+    from mlsp_tpu_torch.utils.config import PointSegDAConfig
+
     name = canonical_name(name or cfg.model)
     kw = {"dropout": cfg.dropout}
     if name != "pointnet":
         kw["knn_backend"] = cfg.knn_backend
     if name in ("dgcnn", "dgcnn_seg"):
         kw.update(density_num_cls=cfg.density_num_class, pergroup=cfg.pergroup)
-    if name == "dgcnn" and getattr(cfg, "head_dtype", None) is not None:
-        kw["head_dtype"] = cfg.head_dtype or "f32"
+    if name == "dgcnn":
+        kw["compute_dtype"] = cfg.compute_dtype
+        for key in ("head_dtype", "gather_dtype", "edge_impl"):
+            if getattr(cfg, key, ""):
+                kw[key] = getattr(cfg, key)
+    if name == "dgcnn_seg" and isinstance(cfg, PointSegDAConfig):
+        kw["compute_dtype"] = cfg.compute_dtype
     return kw
 
 
@@ -68,9 +79,15 @@ def make_model(name: str, num_classes: int, *,
     """Build a model with weights drawn from `generator` (seed 0 if None),
     on `device` (the CUDA card if None; raises without one), in eval mode.
     `name` may be a JAX alias (`pointnet2_ssg`, `transformer`,
-    `hengshuang_transformer`)."""
+    `hengshuang_transformer`). A DGCNN with `edge_impl="auto"` on the card
+    has the card's EdgeConv calibration measured first, if this process
+    has none (`utils.chipcal.calibrated`), as the JAX `make_model` does
+    outside any trace."""
     cls = _MODELS[canonical_name(name)]
     device = resolve_device(device)
     model = cls(num_classes=num_classes, **kw)
     init_parameters(model, generator or torch.Generator().manual_seed(0))
+    if isinstance(model, DGCNN) and model.edge_impl == "auto" and (
+            device.type == "cuda"):
+        chipcal.calibrated(device)
     return model.to(device).eval()

@@ -23,7 +23,14 @@ update depends on the parameterisation:
 `model.pt` is the `export` of ROADMAP.md's Slice G.
 
 Every kNN graph is built through `mlsp_tpu_torch.ops.knn.knn_indices` (on
-the card the K1 kernel), looked up on its module at each call.
+the card the K1 kernel, which takes bf16 features upcast to float32),
+looked up on its module at each call.
+
+`compute_dtype="bf16"` (the seg trainer's; the JAX `dtype`) runs the edge
+blocks and `conv6` in bf16 with float32 parameters, as flax's `dtype`
+does (`layers.set_compute_dtype`): the transform net stays float32, the
+global feature is float32 and the heads, which the JAX model builds
+without a dtype, take the bf16 per-point features promoted to float32.
 """
 
 from __future__ import annotations
@@ -34,9 +41,12 @@ from torch import nn
 from mlsp_tpu_torch.models.layers import (
     DenseBN,
     DensityHead,
+    Linear,
     PointMLPHead,
     PointwiseConv,
     check_heads,
+    parse_dtype,
+    set_compute_dtype,
 )
 from mlsp_tpu_torch.ops import knn as knn_ops
 
@@ -59,8 +69,8 @@ class LinearEdgeBlock(nn.Module):
         super().__init__()
         dims = (cin, *widths)
         for j, (a, b) in enumerate(zip(dims, dims[1:])):
-            setattr(self, f"w_diff{j}", nn.Linear(a, b, bias=False))
-            setattr(self, f"w_center{j}", nn.Linear(a, b))
+            setattr(self, f"w_diff{j}", Linear(a, b, bias=False))
+            setattr(self, f"w_center{j}", Linear(a, b))
         self.depth = len(widths)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -90,7 +100,7 @@ class SegTransformNet(nn.Module):
                            use_bn=False)
         self.fc2 = DenseBN(512, 256, "leakyrelu", True, conv=False,
                            use_bn=False)
-        self.fc3 = nn.Linear(256, out * out)
+        self.fc3 = Linear(256, out * out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv2d2(self.conv2d1(x)).amax(-2)  # over k
@@ -126,22 +136,25 @@ class DGCNNSeg(nn.Module):
 
     `knn_backend` picks the kNN path ("auto": the kernel for CUDA
     tensors, the plain version for CPU tensors; "torch": the plain version
-    anywhere).
+    anywhere); `compute_dtype` ("f32" | "bf16") the edge blocks' and
+    conv6's precision (see the module docstring).
     """
 
     NAME = "dgcnn_seg"
 
     def __init__(self, num_classes: int = 8, k: int = 20,
                  dropout: float = 0.5, density_num_cls: int = 16,
-                 pergroup: float = 5.0, knn_backend: str = "auto"):
+                 pergroup: float = 5.0, knn_backend: str = "auto",
+                 compute_dtype: str = "f32"):
         super().__init__()
+        self.dtype = parse_dtype(compute_dtype, "compute_dtype")
         self.config = {"k": k, "dropout": dropout,
                        "density_num_cls": density_num_cls,
-                       "pergroup": pergroup}
+                       "pergroup": pergroup, "compute_dtype": compute_dtype}
         self.k = k
         self.knn_backend = knn_backend
         self.input_transform_net = SegTransformNet(3)
-        self.shared_layers = SharedLayers()
+        self.shared_layers = set_compute_dtype(SharedLayers(), self.dtype)
         cin = 192 + 1024  # [x123 | x5]
         self.seg = SegPointHead(cin, num_classes, dropout)
         self.DefRec = SegPointHead(cin, 3, dropout)
@@ -165,13 +178,15 @@ class DGCNNSeg(nn.Module):
             knn_ops.edge_features(x, self._knn(x)))
         # The reference applies T @ x_col; channels-last that is x_row @ T^T.
         x = torch.einsum("bnc,bdc->bnd", x, T)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
 
         sl = self.shared_layers
         x1 = sl.edge1(x, self._knn(x))
         x2 = sl.edge2(x1, self._knn(x1))
         x3 = sl.edge3(x2, self._knn(x2))
         x123 = torch.cat([x1, x2, x3], dim=-1)  # [B, N, 192]
-        x5 = sl.conv6(x123).amax(1)  # global feature [B, 1024]
+        x5 = sl.conv6(x123).amax(1).float()  # global feature [B, 1024]
 
         pp = (x123, x5)  # the heads' input, concat [x123 | x5] implied
         out = {"feat": x5}

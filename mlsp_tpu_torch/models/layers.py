@@ -13,6 +13,14 @@ with the unbiased variance: the semantics that the JAX package's
 `TorchBatchNorm` emulates. It always runs in float32, also inside a bf16
 head, as the JAX package's does.
 
+Precision follows flax's `dtype` (not autocast): each `Linear` and
+`PointwiseConv` computes in its `compute_dtype` (`set_compute_dtype`;
+None: the promoted type of its input and weight) with float32 parameters
+cast at the call, so its output is in that dtype; BatchNorm computes in
+float32 and returns its input's dtype; the activations, dropout and
+maxima keep their input's dtype; the heads and the transform net return
+float32.
+
 Dropout draws its masks from the `torch.Generator` the caller passes to
 `forward` (`dropout` below), never from the global RNG; in train mode a
 layer with dropout > 0 needs one.
@@ -33,11 +41,21 @@ from torch import nn
 from mlsp_tpu_torch.parallel.mesh import active_mesh, shard_batch
 
 
+# jnp's 0.2 * x on a bf16 x takes the slope rounded to bf16
+_SLOPE_BF16 = float(torch.tensor(0.2, dtype=torch.bfloat16))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU 0.2 as flax computes it in x's dtype: in bf16 the slope is
+    bf16's 0.2 (0.2001953125), the product rounded once."""
+    return F.leaky_relu(x, _SLOPE_BF16 if x.dtype == torch.bfloat16 else 0.2)
+
+
 def act_fn(name: str):
     if name == "relu":
         return F.relu
     if name == "leakyrelu":
-        return lambda x: F.leaky_relu(x, negative_slope=0.2)
+        return leaky_relu
     raise ValueError(f"unknown activation {name!r}")
 
 
@@ -49,10 +67,37 @@ def check_heads(heads, known: tuple[str, ...], model: str) -> None:
                          f"{known}")
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: torch.Tensor | None = None,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x @ weight^T (+ bias) as flax's `nn.Dense(dtype=dtype)` computes it:
+    x and the parameters cast to `dtype` (None: their promoted type). Below
+    float32 the product is rounded to it, then the bias added, as flax
+    rounds twice (a bias fused into the product would round once); in
+    float32 the product's own epilogue adds the bias, the same sum."""
+    dt = dtype or torch.promote_types(x.dtype, weight.dtype)
+    b = None if bias is None else bias.to(dt)
+    if dt == torch.float32 or b is None:
+        return F.linear(x.to(dt), weight.to(dt), b)
+    return F.linear(x.to(dt), weight.to(dt)) + b
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` that computes in `compute_dtype` (see `dense`)."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
 class PointwiseConv(nn.Module):
     """A 1x1 Conv1d (rank 1) or Conv2d (rank 2) of the reference, run
-    channels-last as a matmul. The weight keeps the conv's shape,
-    [out, in, 1] or [out, in, 1, 1], so the state_dict matches."""
+    channels-last as a matmul in `compute_dtype` (see `dense`). The weight
+    keeps the conv's shape, [out, in, 1] or [out, in, 1, 1], so the
+    state_dict matches."""
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, cin: int, cout: int, rank: int, bias: bool):
         super().__init__()
@@ -60,11 +105,37 @@ class PointwiseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        return dense(x, self.weight.flatten(1), self.bias, self.compute_dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype | None
+                      ) -> nn.Module:
+    """Make every `Linear` and `PointwiseConv` of `module` compute in
+    `dtype` (flax's `dtype` of the JAX module); returns `module`."""
+    for m in module.modules():
+        if isinstance(m, (Linear, PointwiseConv)):
+            m.compute_dtype = dtype
+    return module
+
+
+DTYPES = {"f32": None, "bf16": torch.bfloat16}
+
+
+def parse_dtype(name: str, what: str, allow_empty: bool = False
+                ) -> torch.dtype | None:
+    """A config's dtype string as a compute dtype: "f32" -> None (float32
+    throughout), "bf16" -> torch.bfloat16, "" -> None where `allow_empty`.
+    Raises ValueError for anything else (JAX reads it as float32)."""
+    if name in DTYPES:
+        return DTYPES[name]
+    if allow_empty and name == "":
+        return None
+    raise ValueError(f"{what} must be one of {sorted(DTYPES)}"
+                     + (' or ""' if allow_empty else "") + f", got {name!r}")
 
 
 def linear_in(layer: nn.Module, x) -> torch.Tensor:
-    """Apply `layer` (PointwiseConv or nn.Linear) to x, or to the implicit
+    """Apply `layer` (PointwiseConv or Linear) to x, or to the implicit
     concat [a | broadcast(b)] when x is a (per-point a [B, N, Ca], global
     b [B, Cb]) pair, as the JAX package's `SplitDense` does: the global half
     is multiplied once per cloud and the concat is never built."""
@@ -72,9 +143,12 @@ def linear_in(layer: nn.Module, x) -> torch.Tensor:
         return layer(x)
     a, b = x
     w = layer.weight.flatten(1)
+    dt = layer.compute_dtype or torch.promote_types(
+        torch.promote_types(a.dtype, b.dtype), w.dtype)
     ca = a.shape[-1]
-    y = F.linear(a, w[:, :ca]) + F.linear(b, w[:, ca:])[..., None, :]
-    return y if layer.bias is None else y + layer.bias
+    y = dense(a, w[:, :ca], None, dt) + dense(b, w[:, ca:], None, dt)[
+        ..., None, :]
+    return y if layer.bias is None else y + layer.bias.to(dt)
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -183,13 +257,13 @@ def dropout(x: torch.Tensor, p: float, training: bool,
 class DenseBN(nn.Module):
     """Dense -> BatchNorm -> activation: the reference's `conv_2d`
     (`conv=True`: parameters `conv.0`, `conv.1`, a rank-2 1x1 conv) or
-    `fc_layer` (`conv=False`: `fc.0`, `fc.1`, an nn.Linear). With
+    `fc_layer` (`conv=False`: `fc.0`, `fc.1`, a `Linear`). With
     `use_bn=False` (the PointSegDA transform net) there is no `.1`."""
 
     def __init__(self, cin: int, cout: int, activation: str, bias: bool,
                  conv: bool, use_bn: bool = True):
         super().__init__()
-        lin = PointwiseConv(cin, cout, 2, bias) if conv else nn.Linear(
+        lin = PointwiseConv(cin, cout, 2, bias) if conv else Linear(
             cin, cout, bias=bias)
         layers = nn.ModuleList([lin, nn.BatchNorm1d(cout)] if use_bn
                                else [lin])
@@ -229,14 +303,15 @@ class TransformNet(nn.Module):
         self.conv2d3 = DenseBN(128, 1024, act, bias, conv=True)
         self.fc1 = DenseBN(1024, 512, act, bias, conv=False)
         self.fc2 = DenseBN(512, 256, act, True, conv=False)
-        self.fc3 = nn.Linear(256, out * out)
+        self.fc3 = Linear(256, out * out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv2d2(self.conv2d1(x))
         if self.mode == "dgcnn":
             x = x.amax(-2)  # over k
         x = self.conv2d3(x).amax(-2)  # over N
-        x = self.fc3(self.fc2(self.fc1(x)))
+        # the matrix multiplies raw coordinates: float32 at any dtype
+        x = self.fc3(self.fc2(self.fc1(x))).float()
         eye = torch.eye(self.out, dtype=x.dtype, device=x.device).reshape(-1)
         return (x + eye).reshape(x.shape[0], self.out, self.out)
 
@@ -253,14 +328,14 @@ class Classifier(nn.Module):
         act = "leakyrelu" if leaky else "relu"
         self.mlp1 = DenseBN(cin, 512, act, leaky, conv=False)
         self.mlp2 = DenseBN(512, 256, act, True, conv=False)
-        self.mlp3 = nn.Linear(256, num_classes)
+        self.mlp3 = Linear(256, num_classes)
         self.p = dropout
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = dropout(self.mlp1(x), self.p, self.training, generator)
         x = dropout(self.mlp2(x), self.p, self.training, generator)
-        return self.mlp3(x)
+        return self.mlp3(x).float()
 
 
 class PointMLPHead(nn.Module):
@@ -289,7 +364,7 @@ class PointMLPHead(nn.Module):
         x = drop(F.relu(batch_norm(self.bn1, linear_in(self.conv1, x))))
         x = drop(F.relu(batch_norm(self.bn2, self.conv2(x))))
         x = F.relu(batch_norm(self.bn3, self.conv3(x)))
-        return self.conv4(x)
+        return self.conv4(x).float()
 
 
 class DensityHead(nn.Module):
@@ -310,8 +385,8 @@ class DensityHead(nn.Module):
         self.bn1 = nn.BatchNorm1d(512)
         self.mlp1 = DenseBN(512, 256, "leakyrelu", True, conv=False)
         self.mlp2 = DenseBN(256, 256, "leakyrelu", True, conv=False)
-        self.mlp3 = nn.Linear(256, num_cls)
-        self.fc2 = nn.Linear(num_cls, 1, bias=False)
+        self.mlp3 = Linear(256, num_cls)
+        self.fc2 = Linear(num_cls, 1, bias=False)
         self.fc2.weight.requires_grad_(False)
         self.pergroup = pergroup
         self.p = dropout
@@ -324,20 +399,19 @@ class DensityHead(nn.Module):
         x = drop(self.mlp1(x))
         x = drop(self.mlp2(x))
         p_vec = torch.softmax(self.mlp3(x).float(), dim=-1)
-        # elementwise, so a bf16 autocast region leaves it in float32
         return p_vec, (p_vec * self.fc2.weight[0]).sum(-1)
 
 
 class FlaxDenseBN(nn.Module):
     """Dense -> BatchNorm -> activation under the JAX package's module
-    names, `Dense_0` (an nn.Linear) and `BatchNorm_0`: for the parts of
+    names, `Dense_0` (a `Linear`) and `BatchNorm_0`: for the parts of
     models with no reference state_dict (PointNet++, Point-ViT's group
     embedders)."""
 
     def __init__(self, cin: int, cout: int, activation: str = "relu",
                  bias: bool = True):
         super().__init__()
-        self.Dense_0 = nn.Linear(cin, cout, bias=bias)
+        self.Dense_0 = Linear(cin, cout, bias=bias)
         self.BatchNorm_0 = nn.BatchNorm1d(cout)
         self.act = act_fn(activation)
 

@@ -19,6 +19,11 @@ global batch. The port keeps that contract with one process per card
   (`all_reduce_grads`), and the loss terms are averaged for the metrics
   and the non-finite guard (`average_metrics`).
 
+On the card (NCCL) a chunk of `scan_steps` steps replays one captured
+CUDA graph of the step with its collectives inside (`train.graphs`); the
+graph's warm-up runs them first, so each communicator exists before the
+capture. Gloo ranks take their chunks eagerly.
+
 Each rank's loss is R times its share of the single-process loss (a mean
 over its rows, or a sum over the global count divided by R), so the
 averaged gradient is the single process's, up to the rounding of the
@@ -45,15 +50,25 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data-parallel world as one rank sees it."""
+    """The data-parallel world as one rank sees it, with its process
+    group's backend ("nccl" or "gloo")."""
 
     rank: int
     size: int
     device: torch.device
+    backend: str = "gloo"
 
     @property
     def shape(self) -> dict[str, int]:
         return {"data": self.size, "points": 1}
+
+
+def captures(mesh: Mesh | None) -> bool:
+    """Whether a CUDA graph can hold a step taken as a rank of `mesh`:
+    without a mesh, or with NCCL's collectives (NCCL >= 2.9.6 captures
+    them, once each communicator exists). Gloo's run on the host and
+    cannot be captured."""
+    return mesh is None or mesh.backend == "nccl"
 
 
 def init_distributed(backend: str | None = None, timeout_s: int = 30) -> None:
@@ -109,7 +124,8 @@ def make_mesh(data: int | None = None, points: int = 1,
         raise ValueError(f"mesh data axis {data} != world size {size}")
     if device is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    return Mesh(dist.get_rank(), size, torch.device(device))
+    return Mesh(dist.get_rank(), size, torch.device(device),
+                dist.get_backend())
 
 
 def _tree_map(fn, tree):
@@ -242,12 +258,14 @@ def all_reduce_grads(model: torch.nn.Module, mesh: Mesh | None) -> None:
 
 @torch.no_grad()
 def average_metrics(m: dict, mesh: Mesh | None) -> dict:
-    """The step's 0-d loss terms averaged over the ranks (one all-reduce):
-    the single-process values, the same on every rank."""
+    """The step's 0-d loss terms (tensors on the device) averaged over the
+    ranks (one all-reduce): the single-process values, the same on every
+    rank. Nothing here reads a value on the host, so a step graph holds
+    it."""
     if mesh is None or not m:
         return m
     names = list(m)
-    vals = torch.stack([torch.as_tensor(m[k]).float() for k in names])
+    vals = torch.stack([m[k].float() for k in names])
     dist.all_reduce(vals)
     vals /= mesh.size
     return dict(zip(names, vals.unbind()))

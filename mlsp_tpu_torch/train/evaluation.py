@@ -73,12 +73,18 @@ def _setup(cfg: EvalConfig, io: IOStream):
     return _load_model(cfg, io, device), ds.data, ds.label, indices
 
 
-def _load_model(cfg: EvalConfig, io: IOStream, device=None):
+def _load_model(cfg: EvalConfig, io: IOStream, device=None,
+                aot: bool = False):
     """The model with the weights of `cfg.model_file` (the port's format,
-    a JAX `.ckpt`, or with `from_torch` a reference `model.pt`)."""
+    a JAX `.ckpt`, or with `from_torch` a reference `model.pt`). With
+    `aot`, a DGCNN takes the "moments" EdgeConv route, as the JAX
+    package pins it for its bundles."""
+    kw = model_kwargs(cfg)
+    if aot and canonical_name(cfg.model) == "dgcnn":
+        kw["edge_impl"] = "moments"
     model = make_model(cfg.model, cfg.num_class,
                        device=device or resolve_device(cfg.device or None),
-                       **model_kwargs(cfg))
+                       **kw)
     checkpoint.load_model_weights(model, cfg.model_file, cfg.from_torch)
     io.cprint(f"loaded {cfg.model_file}"
               + (" (reference torch state_dict)" if cfg.from_torch else ""))
@@ -183,11 +189,12 @@ def run_aot_export(cfg: EvalConfig, io: IOStream | None = None) -> dict:
     model is built with `knn_backend="torch"` whatever `cfg` says: the
     program holds the plain kNN and FPS, so one artifact serves on the
     CPU and on the card, as the JAX package forces its XLA kNN into its
-    bundle. Returns the summary (also printed as one JSON line), with
+    bundle, and a DGCNN the "moments" EdgeConv route, as the JAX package
+    pins it. Returns the summary (also printed as one JSON line), with
     `selfcheck_max_diff`."""
     cfg = dataclasses.replace(cfg.resolved(), knn_backend="torch")
     io = io or IOStream(cfg.out_path, cfg.exp_name)
-    model = _load_model(cfg, io)
+    model = _load_model(cfg, io, aot=True)
     out_dir = cfg.output or os.path.join(io.path, "serving_bundle")
     meta = serving.save_aot_bundle(model, out_dir, num_points=cfg.num_points,
                                    num_class=cfg.num_class)

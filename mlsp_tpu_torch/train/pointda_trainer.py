@@ -13,14 +13,14 @@ epoch). The epoch runs as chunks of `scan_steps` steps
 (`steps.pointda_train_scan`: on the card the replays of one captured
 CUDA graph of the step, captured at the first chunk of the run, after
 any `--resume`), then the remaining steps one at a time, as the JAX
-trainer does; `scan_steps` 1 takes every step eagerly. Under a mesh the
-chunks run eagerly (NCCL collectives are not captured): the log and
-every `metrics.jsonl` record say whether step graphs ran
-("step_graphs"). Each step's loss terms stay on the device until the end
-of the epoch, when they are fetched in one copy and fed to `MeterDict`
-in step order. Evaluation runs through the scanned eval forward
-(`steps.eval_scan`, a captured graph on the card) and fetches its logits
-once per split.
+trainer does; `scan_steps` 1 takes every step eagerly. Under an NCCL
+mesh the graph holds the step's collectives; a gloo mesh takes its chunks
+eagerly: the log and every `metrics.jsonl` record say whether step
+graphs ran ("step_graphs"). The log names each EdgeConv layer's route.
+Each step's loss terms stay on the device until the end of the epoch,
+when they are fetched in one copy and fed to `MeterDict` in step order.
+Evaluation runs through the scanned eval forward (`steps.eval_scan`, a
+captured graph on the card) and fetches its logits once per split.
 
 Each epoch is one `torch.profiler` range, "mlsp/epoch {epoch}" (a trace
 taken with the CLI's --profile_dir shows it beside the kernels), and its
@@ -53,6 +53,7 @@ from mlsp_tpu_torch.data.pointda import idx_to_label, load_pointda
 from mlsp_tpu_torch.models import make_model, model_kwargs
 from mlsp_tpu_torch.parallel.mesh import (
     Mesh,
+    captures,
     fetch_global,
     replicate_for_mesh,
     shard_batch,
@@ -205,24 +206,41 @@ def train_epoch(pairs: torch.Tensor, gather, scan, step,
 
 
 def graphs_route(cfg, device: torch.device, mesh: Mesh | None,
-                 io: IOStream) -> bool:
+                 io: IOStream) -> tuple[bool, Graphs | None]:
     """Whether the trainer's chunks replay step graphs (on the card, with
-    no mesh and `scan_steps` > 1), said in the log; raises for a recipe a
-    graph cannot hold (`graphs.check_capturable`)."""
+    no mesh or an NCCL one, `parallel.mesh.captures`, and `scan_steps` >
+    1), said in the log, and the run's graphs (`Graphs`; None where
+    nothing is captured: the CPU, a gloo mesh). Under a mesh the eval
+    forwards run eagerly (`eval_logits`), which the log says too. Raises
+    for a recipe a graph cannot hold (`graphs.check_capturable`)."""
     S = cfg.scan_steps
-    on = device.type == "cuda" and mesh is None and S > 1
+    capture = device.type == "cuda" and captures(mesh)
+    on = capture and S > 1
     if on:
         check_capturable(cfg)
         how = f"chunks of {S} steps replay one captured graph"
+        if mesh is not None:
+            how += " with the mesh's NCCL collectives"
     elif S <= 1:
         how = "scan_steps 1: eager steps"
     elif mesh is not None:
-        how = (f"chunks of {S} steps run eagerly: a mesh's collectives are "
-               "not captured")
+        how = (f"chunks of {S} steps run eagerly: {mesh.backend} "
+               "collectives cannot be captured")
     else:
         how = f"chunks of {S} steps run eagerly on the {device.type}"
+    if mesh is not None:
+        how += "; eval forwards eager under a mesh"
     io.cprint(f"step graphs: {'on' if on else 'off'} ({how})")
-    return on
+    return on, Graphs() if capture else None
+
+
+def log_edge_routes(model: torch.nn.Module, n: int, device: torch.device,
+                    io: IOStream) -> None:
+    """Name each EdgeConv layer's route for clouds of `n` points (a DGCNN's
+    `edge_routes`; nothing for the other families)."""
+    if hasattr(model, "edge_routes"):
+        io.cprint(f"EdgeConv routes (edge_impl={model.edge_impl}): "
+                  + ", ".join(model.edge_routes(n, device)))
 
 
 def fetch_metrics(steps: list[dict]) -> list[dict]:
@@ -292,8 +310,8 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
                   f"(best src val acc {best['src_val_acc']:.4f})")
     replicate_for_mesh(mesh, model, B)
     io.trim_metrics(start_epoch)  # drop records the loop will write again
-    step_graphs = graphs_route(cfg, device, mesh, io)
-    graphs = Graphs() if device.type == "cuda" and mesh is None else None
+    log_edge_routes(model, src_x.shape[1], device, io)
+    step_graphs, graphs = graphs_route(cfg, device, mesh, io)
     gen = torch.Generator(device=device)
 
     def gather(s, t):

@@ -161,8 +161,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
     ckpt_path = os.path.join(io.path, "model.ckpt")
     io.trim_metrics(0)  # a fresh run: drop any earlier metrics.jsonl
 
-    step_graphs = graphs_route(cfg, device, mesh, io)
-    graphs = Graphs() if device.type == "cuda" and mesh is None else None
+    step_graphs, graphs = graphs_route(cfg, device, mesh, io)
     gen = torch.Generator(device=device)
 
     def val(name):

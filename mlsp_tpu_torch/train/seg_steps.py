@@ -243,7 +243,7 @@ def pointsegda_train_scan(model, opt, sched, src_xs, src_ys, trgt_xs,
     check_generator(generator, src_xs)
 
     def step(sx, sy, tx):
-        return pointsegda_step(model, opt, sx, sy, tx, generator, cfg)
+        return pointsegda_step(model, opt, sx, sy, tx, generator, cfg, mesh)
 
     def eager(sx, sy, tx):
         return pointsegda_train_step(model, opt, sched, sx, sy, tx,

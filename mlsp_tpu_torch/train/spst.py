@@ -64,6 +64,7 @@ from mlsp_tpu_torch.train.pointda_trainer import (
     evaluate,
     fetch_metrics,
     graphs_route,
+    log_edge_routes,
     seed_epoch,
     train_epoch,
 )
@@ -192,7 +193,7 @@ def spst_train_scan(model, opt, t_xs, t_ys, s_xs, s_ys, spl_weight,
 
     def step(tx, ty, sx, sy, spl, cls):
         return spst_train_step(model, opt, tx, ty, sx, sy, spl, cls,
-                               generator, cfg)
+                               generator, cfg, mesh)
 
     def eager(tx, ty, sx, sy):
         return spst_train_step(model, opt, tx, ty, sx, sy, spl_weight,
@@ -300,8 +301,8 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
     replicate_for_mesh(mesh, model, cfg.batch_size)
     opt = make_epoch_lr_optimizer(model, cfg.optimizer, cfg.lr, cfg.wd,
                                   cfg.momentum)
-    step_graphs = graphs_route(cfg, device, mesh, io)
-    graphs = Graphs() if device.type == "cuda" and mesh is None else None
+    log_edge_routes(model, src_x.shape[1], device, io)
+    step_graphs, graphs = graphs_route(cfg, device, mesh, io)
     gen = torch.Generator(device=device)
 
     def evaluate_on(x, label, indices=None):

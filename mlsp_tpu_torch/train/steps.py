@@ -20,7 +20,8 @@ can feed it the JAX step's own. Every PointDA family runs
 
 Fused dispatch (`pointda_train_scan`, the JAX package's scan): S steps on
 stacked batches, on the card as S replays of one captured CUDA graph of
-the step (`train.graphs`), on the CPU and under a mesh as S eager steps;
+the step (`train.graphs`; under an NCCL mesh with its collectives), on
+the CPU and under a gloo mesh as S eager steps;
 the eval forward likewise (`eval_scan`, `scan_in_chunks`). A replay takes
 the step an eager `pointda_train_step` takes from the same state.
 
@@ -48,6 +49,7 @@ from mlsp_tpu_torch.parallel.mesh import (
     active_mesh,
     all_reduce_grads,
     average_metrics,
+    captures,
     data_parallel,
     global_count,
     shard_batch,
@@ -465,13 +467,16 @@ def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
 def run_chunk(kind: str, step, eager_step, inputs, consts, model, opt,
               sched, generator, cfg, graphs: Graphs | None, mesh):
     """S steps on the stacked `inputs` [S, ...]: `eager_step(*batch)` S
-    times on the CPU or under a mesh; on the card S replays of the graph of
-    `step(*batch, *consts)` (`graphs`' own, or a new one), then S scheduler
-    steps. The replays read the LR as it is: a chunk whose steps the
-    schedule gives different LRs (one that crosses an epoch) raises
-    ValueError. Returns the outputs stacked over S."""
+    times on the CPU or under a gloo mesh; on the card (without a mesh or
+    with NCCL's, `parallel.mesh.captures`) S replays of the graph of
+    `step(*batch, *consts)` (`graphs`' own, or a new one; a step of a
+    mesh holds its collectives), then S scheduler steps. The replays read
+    the LR as it is: a chunk whose steps the schedule gives different LRs
+    (one that crosses an epoch) raises ValueError. A capture that fails
+    raises: nothing falls back to eager steps. Returns the outputs stacked
+    over S."""
     S = inputs[0].shape[0]
-    if not inputs[0].is_cuda or mesh is not None:
+    if not inputs[0].is_cuda or not captures(mesh):
         return stack_steps([eager_step(*batch) for batch in zip(*inputs)])
     check_capturable(cfg)
     if sched is not None and any(
@@ -495,8 +500,9 @@ def pointda_train_scan(model, opt, sched, src_xs, src_ys, trgt_xs,
                        graphs: Graphs | None = None, mesh=None) -> dict:
     """S PointDA train iterations (`mlsp_tpu/train/steps.py::
     pointda_train_scan`): on the card S replays of one captured graph of
-    the step, on the CPU (and under a mesh, whose collectives are not
-    captured) S `pointda_train_step`s. The same steps either way: the
+    the step (under an NCCL mesh with its collectives), on the CPU and
+    under a gloo mesh S `pointda_train_step`s. The same steps either way:
+    the
     draws come from `generator` in the same order, and the schedule's LR
     is the same for every step of a chunk (chunks end at epochs; see
     `run_chunk`).
@@ -514,7 +520,7 @@ def pointda_train_scan(model, opt, sched, src_xs, src_ys, trgt_xs,
     check_generator(generator, src_xs)
 
     def step(sx, sy, tx):
-        return pointda_step(model, opt, sx, sy, tx, generator, cfg)
+        return pointda_step(model, opt, sx, sy, tx, generator, cfg, mesh)
 
     def eager(sx, sy, tx):
         return pointda_train_step(model, opt, sched, sx, sy, tx, generator,

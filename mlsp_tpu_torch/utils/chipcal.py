@@ -1,23 +1,25 @@
-"""Per-card calibration of the EdgeConv neighbourhood statistics
-(counterpart of `mlsp_tpu/utils/chipcal.py`, the `calibrate` command).
+"""Per-card calibration of DGCNN's EdgeConv route (counterpart of
+`mlsp_tpu/utils/chipcal.py`, the `calibrate` command and
+`edge_impl="auto"`).
 
-The JAX package times its two EdgeConv cores on each TPU, the XLA
-gather route ("moments") against the Pallas kernel ("fused"), and lets
-`edge_impl="auto"` pick the faster per layer shape. The port has one
-EdgeConv core: its DGCNN always takes the statistics through K2
-(`ops.edge.edge_moments`), so the record selects nothing. It is a
-per-card measurement, kept in the JAX package's record layout for its
-readers (`resolve_shape`, `nearest_shape_key`, the same log-space rule):
-"moments_ms" is the gather route (the kNN graph, `knn_gather`, then max,
-min, sum and sum of squares over k, differentiated by autograd), "fused_ms"
-K2 (`EdgeMoments`: K2-fwd, and K2-bwd for the gradient), both forward and
-backward with the graph from K1, so the two differ by K2 alone; "winner"
-names the faster.
+The JAX package times its two EdgeConv cores on each chip, the gather
+route ("moments") against the fused kernel ("fused"), and lets
+`edge_impl="auto"` pick the faster per layer shape (`edge_impl`: the
+record of the measured shape nearest the layer's (N, output width),
+`resolve_shape` / `nearest_shape_key`, in log space). The port keeps
+that: on the card "moments_ms" is the gather route (the kNN graph from
+K1, `knn_gather`, then max, min, sum and sum of squares over k,
+differentiated by autograd), "fused_ms" K2 (`EdgeMoments`: K2-fwd, and
+K2-bwd for the gradient), both forward and backward with the graph from
+K1, so the two differ by K2 alone; "winner" names the faster. Without a
+card "auto" resolves to "moments", as JAX's does off a TPU.
 
 Timing: CUDA events around each forward + backward, the launches queued
 behind a sleep on the card, median of 20 after 3 warm-ups. The records
 are cached in `mlsp_tpu_torch/_build/chipcal.json`, one per shape, keyed
-by `torch.cuda.get_device_name()`; `force` measures again.
+by `torch.cuda.get_device_name()`, and in the process; `force` measures
+again. `make_model` measures a card's missing records before a DGCNN
+with "auto" runs (`calibrated`), never inside a CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ SHAPES: dict[str, dict] = {
 }
 
 CACHE = Path(__file__).resolve().parents[1] / "_build" / "chipcal.json"
+# This process's records by device name: what "auto" resolves from.
+_RECORDS: dict[str, dict] = {}
 
 
 def _shape_dist(key: str, n: int, c: int):
@@ -145,6 +149,7 @@ def edge_calibration(force: bool = False) -> dict:
     records = {} if force else dict(cache.get(key, {}))
     missing = [s for s in SHAPES if s not in records]
     if not missing:
+        _RECORDS[key] = records
         return records
     for shape in missing:
         records[shape] = measure_edge_impl(shape)
@@ -154,4 +159,38 @@ def edge_calibration(force: bool = False) -> dict:
     with open(tmp, "w") as f:
         json.dump(cache, f, indent=1)
     os.replace(tmp, CACHE)
+    _RECORDS[key] = records
     return records
+
+
+def calibrated(device: str | torch.device) -> dict:
+    """The records of `device`'s card, measured now if this process has
+    none (`edge_calibration`) with the kernels' launch counts left as they
+    were: a calibration is no launch of the path that asks for it. Raises
+    inside a CUDA graph capture, where nothing can be measured."""
+    from mlsp_tpu_torch.ops import kernels
+
+    key = torch.cuda.get_device_name(device)
+    if key in _RECORDS:
+        return _RECORDS[key]
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "edge_impl='auto' has no calibration record for this card "
+            "inside a CUDA graph capture: build the model with make_model, "
+            "which measures first")
+    counts = kernels.launches()
+    try:
+        with torch.cuda.device(device):
+            return edge_calibration()
+    finally:
+        kernels.set_launches(counts)
+
+
+def edge_impl(n: int, c: int, device: str | torch.device) -> str:
+    """Resolve `edge_impl="auto"` for an EdgeConv layer of `n` points and
+    `c` output channels on `device`: "moments" off the card, else the
+    winner of the nearest measured shape (`calibrated`)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "moments"
+    return resolve_shape(calibrated(device), n, c)["winner"]

@@ -9,11 +9,16 @@ Field names and defaults mirror the reference's argparse surfaces
 an epoch as chunks of that many steps, each chunk on the card as that
 many replays of one captured CUDA graph of the step (`train.graphs`),
 then the remaining steps one at a time; on the CPU a chunk runs its steps
-eagerly. Left out as having no meaning here: `edge_impl` (the port has
-one EdgeConv core), `compute_dtype`/`gather_dtype` (the port runs in
-float32 but for the PointDA heads) and `debug_aux` (`pointda_losses` and
-`pointsegda_losses` take the draws as inputs); a YAML or CLI naming one
-of them is refused as an unknown key. Added: `device`, where the entry
+eagerly. The precision and EdgeConv knobs keep JAX's names, defaults and
+models (`models.model_kwargs`): `compute_dtype` ("f32" | "bf16": the
+DGCNN trunk, or with the seg trainer DGCNNSeg's edge blocks, in bf16 with
+float32 parameters and BatchNorm), `head_dtype`, `gather_dtype` ("" |
+"f32" | "bf16": the neighbour gather of the "moments" EdgeConv route) and
+`edge_impl` ("auto" | "fused" | "moments" | "direct", DGCNN's EdgeConv
+route per layer). JAX reads any other dtype string as float32 and any
+other `edge_impl` as "direct"; the port's models raise for them. Left
+out: `debug_aux` (`pointda_losses` and `pointsegda_losses` take the draws
+as inputs), refused as an unknown key. Added: `device`, where the entry
 points run ("" is the CUDA card, which they require unless given
 "cpu").
 """
@@ -88,7 +93,10 @@ class PointDAConfig:
     # runtime: "auto" runs the kernels for CUDA tensors, "torch" the plain
     # versions anywhere (the comparison path)
     knn_backend: str = "auto"
+    edge_impl: str = "auto"  # DGCNN's EdgeConv route (models/dgcnn.py)
+    compute_dtype: str = "f32"  # "bf16": the DGCNN trunk in bf16
     head_dtype: str = "bf16"  # the per-point heads; "f32" for full float32
+    gather_dtype: str = ""  # "bf16": round the "moments" route's gather
     scan_steps: int = 16  # train steps per captured-graph chunk (1 = off)
     # Test-only: forwards use the running BN statistics (eval-mode BN, no
     # statistics update), as the JAX package's `debug_bn_eval`.
@@ -156,7 +164,10 @@ class SPSTConfig:
     density_num_class: int = 16
     pergroup: float = 2.0
     knn_backend: str = "auto"
+    edge_impl: str = "auto"  # see PointDAConfig
+    compute_dtype: str = "f32"
     head_dtype: str = "bf16"  # see PointDAConfig
+    gather_dtype: str = ""
     scan_steps: int = 8  # see PointDAConfig
     synthetic: bool = False
     device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
@@ -208,6 +219,7 @@ class PointSegDAConfig:
     shift: int = 10
     density_radius: float = 0.081
     knn_backend: str = "auto"
+    compute_dtype: str = "f32"  # "bf16": DGCNNSeg's edge blocks and conv6
     scan_steps: int = 8  # see PointDAConfig
     synthetic: bool = False
     device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU
@@ -243,7 +255,9 @@ class EvalConfig:
     density_num_class: int = 16
     pergroup: float = 2.0
     knn_backend: str = "auto"
-    head_dtype: str = ""  # "" = float32 heads
+    compute_dtype: str = "f32"  # DGCNN only, as the JAX eval builds it
+    head_dtype: str = ""  # "" = the heads in compute_dtype
+    gather_dtype: str = ""
     synthetic: bool = False
     output: str = ""  # `infer` .npz, `export` model.pt or `aot` bundle directory
     device: str = ""  # "" = the CUDA card; "cpu" to run on the CPU

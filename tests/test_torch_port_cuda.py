@@ -813,11 +813,12 @@ def test_two_gloo_ranks_share_the_card(card):
 # ------------------------------------------------- step graphs (scan_steps)
 
 
-def _graph_setup(card, seed=0, n=256, b=8, lr=None, name="ADAM"):
+def _graph_setup(card, seed=0, n=256, b=8, lr=None, name="ADAM",
+                 compute_dtype="f32"):
     cfg = PointDAConfig(num_points=n, batch_size=b).paper_recipe
     model = make_model("dgcnn", 10, device=card,
                        generator=torch.Generator().manual_seed(seed),
-                       head_dtype="f32")
+                       head_dtype="f32", compute_dtype=compute_dtype)
     opt, sched = make_optimizer(model, cfg.lr if lr is None else lr, cfg.wd,
                                 2, 4, name)
     x, y = make_classification(3 * b, n, 10, seed=seed + 1)
@@ -826,32 +827,39 @@ def _graph_setup(card, seed=0, n=256, b=8, lr=None, name="ADAM"):
     return cfg, model, opt, sched, x, y
 
 
-def test_chunk_replays_match_eager_steps(card):
-    """A chunk of 3 replays of the captured paper step against 3 eager
-    steps from the same weights and generator seed, SGD at LR 0: each
-    replay must take its own batch and draws and give the eager step's
-    losses (within 1e-4; K2-bwd's atomics round the gradients ~1e-6
-    apart) and BN statistics (1e-4, relative); the generators end in the
-    same state, the schedule took 3 steps, and the launches are counted
-    through the replays. LR 0 keeps the weights as they are: DGCNN's
-    steps at a nonzero LR part at the rounding level even eager against
-    eager (the atomics' order, then near-tied kNN in feature space), so
-    the update itself is held on PointNet below."""
+@pytest.fixture
+def nccl_mesh(card):
+    """An NCCL world of one on the card (the CLI's `--mesh_data 1`), torn
+    down after the test."""
+    import torch.distributed as dist
+
+    from mlsp_tpu_torch import parallel
+
+    parallel.init_local_world("nccl")
+    try:
+        yield parallel.make_mesh(1, device=card)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dgcnn_chunk_vs_eager(card, mesh=None, compute_dtype="f32"):
+    """`test_chunk_replays_match_eager_steps`'s comparison, as a rank of
+    `mesh` and at `compute_dtype`."""
     from mlsp_tpu_torch.train.graphs import Graphs
     from mlsp_tpu_torch.train.steps import pointda_train_scan
 
     runs = []
     for route in ("graph", "eager"):
-        cfg, model, opt, sched, x, y = _graph_setup(card, lr=0.0,
-                                                    name="SGD")
+        cfg, model, opt, sched, x, y = _graph_setup(
+            card, lr=0.0, name="SGD", compute_dtype=compute_dtype)
         gen = torch.Generator(device=card).manual_seed(3)
         kernels.reset_launches()
         if route == "graph":
             m = pointda_train_scan(model, opt, sched, x, y, x.flip(1), gen,
-                                   cfg, Graphs())
+                                   cfg, Graphs(), mesh)
         else:
             steps = [pointda_train_step(model, opt, sched, x[i], y[i],
-                                        x[i].flip(0), gen, cfg)
+                                        x[i].flip(0), gen, cfg, mesh)
                      for i in range(3)]
             m = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         torch.cuda.synchronize()
@@ -875,6 +883,34 @@ def test_chunk_replays_match_eager_steps(card):
                 "knn_moments": 1, "fps": 1}
     assert l_g == l_e == in_g == {k: 3 * v for k, v in per_step.items()}
     assert not any(in_e.values())
+
+
+def test_chunk_replays_match_eager_steps(card):
+    """A chunk of 3 replays of the captured paper step against 3 eager
+    steps from the same weights and generator seed, SGD at LR 0: each
+    replay must take its own batch and draws and give the eager step's
+    losses (within 1e-4; K2-bwd's atomics round the gradients ~1e-6
+    apart) and BN statistics (1e-4, relative); the generators end in the
+    same state, the schedule took 3 steps, and the launches are counted
+    through the replays. LR 0 keeps the weights as they are: DGCNN's
+    steps at a nonzero LR part at the rounding level even eager against
+    eager (the atomics' order, then near-tied kNN in feature space), so
+    the update itself is held on PointNet below."""
+    _dgcnn_chunk_vs_eager(card)
+
+
+def test_bf16_chunk_replays_match_eager_steps(card):
+    """The same at `compute_dtype` bf16: the step graph of the bf16 trunk
+    (K1 on the bf16 features upcast, K2 on u upcast) against its eager
+    steps, with the launches of a float32 step."""
+    _dgcnn_chunk_vs_eager(card, compute_dtype="bf16")
+
+
+def test_nccl_chunk_replays_match_eager_mesh_steps(card, nccl_mesh):
+    """An NCCL world of one: a chunk of 3 replays of the captured mesh
+    step (global BatchNorm's, the gradients' and the loss terms'
+    all-reduces inside the graph) against 3 eager mesh steps, as above."""
+    _dgcnn_chunk_vs_eager(card, nccl_mesh)
 
 
 def _pointnet_setup(card, name="ADAM", lr=1e-3, seed=0, n=256, b=8):
@@ -910,6 +946,37 @@ def _assert_same_steps(got, want, state_got, state_want) -> None:
     assert state_got.keys() == state_want.keys()
     for k, v in state_want.items():
         assert torch.equal(state_got[k], v), k
+
+
+def test_nccl_chunks_take_the_eager_mesh_updates(card, nccl_mesh):
+    """An NCCL world of one at a nonzero LR on PointNet (bit-reproducible):
+    two chunks of 3 replays of the captured mesh step against 6 eager mesh
+    steps, everything bit-equal as in
+    `test_chunk_replays_take_the_eager_updates`."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+
+    runs = []
+    for route in ("graph", "eager"):
+        cfg, model, opt, sched, x, y = _pointnet_setup(card)
+        gen = torch.Generator(device=card).manual_seed(3)
+        if route == "graph":
+            graphs = Graphs()
+            chunks = [pointda_train_scan(model, opt, sched, x[c:c + 3],
+                                         y[c:c + 3], x[c:c + 3].flip(1), gen,
+                                         cfg, graphs, nccl_mesh)
+                      for c in (0, 3)]
+            assert len(graphs._graphs) == 1
+            m = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+        else:
+            steps = [pointda_train_step(model, opt, sched, x[i], y[i],
+                                        x[i].flip(0), gen, cfg, nccl_mesh)
+                     for i in range(6)]
+            m = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+        torch.cuda.synchronize()
+        runs.append((m, _train_state(model, opt, sched, gen)))
+    (mg, sg), (me, se) = runs
+    _assert_same_steps(mg, me, sg, se)
 
 
 @pytest.mark.parametrize("name,lr", [("ADAM", 1e-3), ("ADAMW", 1e-3),

@@ -17,6 +17,7 @@ plus 3 times its own change in the single process under input shifts of
 statistics over each rank's own rows, must leave these bounds.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -32,6 +33,7 @@ import torch.distributed as dist
 from mlsp_tpu_torch import make_model, parallel
 from mlsp_tpu_torch.data.synthetic import make_classification, make_segmentation
 from mlsp_tpu_torch.models.layers import batch_norm
+from mlsp_tpu_torch.train.pointda_trainer import graphs_route
 from mlsp_tpu_torch.testing import (
     free_port,
     grad_gaps,
@@ -248,6 +250,101 @@ def test_replicate_for_mesh_refuses_an_indivisible_batch():
     assert parallel.replicate_for_mesh(None, "state", 5) == "state"
     with pytest.raises(NotImplementedError, match="mesh_points"):
         parallel.make_mesh(points=2)
+
+
+class _Log:
+    def __init__(self):
+        self.lines = []
+
+    def cprint(self, line):
+        self.lines.append(line)
+
+
+@pytest.mark.parametrize("backend,device,on", [
+    ("gloo", "cuda", False), ("nccl", "cuda", True), ("nccl", "cpu", False)])
+def test_graphs_route_by_backend(backend, device, on):
+    """A mesh's chunks replay step graphs on the card under NCCL, whose
+    collectives a graph holds, and run eagerly under gloo, which the log
+    says; eval forwards stay eager under a mesh. A fake mesh: no process
+    group, no card."""
+    mesh = parallel.Mesh(rank=0, size=2, device=torch.device(device),
+                         backend=backend)
+    log = _Log()
+    got, graphs = graphs_route(PointDAConfig(scan_steps=4),
+                               torch.device(device), mesh, log)
+    assert got is on and (graphs is not None) is on
+    assert parallel.captures(mesh) is (backend == "nccl")
+    (line,) = log.lines
+    assert line.startswith(f"step graphs: {'on' if on else 'off'}")
+    assert "eval forwards eager under a mesh" in line
+    if on:
+        assert "NCCL collectives" in line
+    elif device == "cuda":
+        assert "gloo collectives cannot be captured" in line
+
+
+def _mesh_step_syncs(mesh, case: dict) -> dict:
+    """On a rank of `mesh`: the host syncs (`testing.host_syncs`) of 2
+    mesh steps, of a chunk of 2 through `pointda_train_scan`, of
+    `average_metrics` and of the same 2 steps in one process ("alone");
+    and whether the chunk takes the updates of the 2 eager mesh steps from
+    the same state, bit for bit (the gloo route)."""
+    from mlsp_tpu_torch.parallel import average_metrics
+    from mlsp_tpu_torch.testing import host_syncs
+    from mlsp_tpu_torch.train import make_optimizer, pointda_train_step
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+
+    cfg, b = case["cfg"], case["batch"]
+
+    def fresh():
+        model = make_model("dgcnn", 10, device="cpu", **case["kwargs"])
+        model.load_state_dict(case["state"])
+        opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs, 10)
+        return model, opt, sched, torch.Generator().manual_seed(case["seed"])
+
+    def two_steps(state, m, into):
+        for _ in range(2):
+            into.append(pointda_train_step(*state[:3], b["src_x"],
+                                           b["src_y"], b["trgt_x"], state[3],
+                                           cfg, m))
+
+    out, eager = {}, []
+    state = fresh()
+    out["step"] = host_syncs(two_steps, state, mesh, eager)
+    out["alone"] = host_syncs(two_steps, fresh(), None, [])
+    model = state[0]
+    chunk = [torch.stack([b[k]] * 2) for k in ("src_x", "src_y", "trgt_x")]
+    model2, opt2, sched2, gen2 = fresh()
+    scanned = []
+    out["scan"] = host_syncs(
+        lambda: scanned.append(pointda_train_scan(
+            model2, opt2, sched2, *chunk, gen2, cfg, None, mesh)))
+    m = {k: v[0] for k, v in scanned[0].items()}
+    out["average"] = host_syncs(average_metrics, m, mesh)
+    out["chunk_equals_steps"] = all(
+        torch.equal(scanned[0][k][i], eager[i][k])
+        for i in range(2) for k in eager[i]) and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                          model2.state_dict().values()))
+    return out
+
+
+def test_mesh_step_and_chunk_make_no_host_sync():
+    """What an NCCL step graph would hold makes no host sync of its own on
+    2 gloo ranks: the mesh step (global BatchNorm, the gradient
+    all-reduce, the averaged loss terms), 2 of them and a chunk of 2
+    through `pointda_train_scan` make those of 2 steps in one process,
+    and no other; `average_metrics` none. The step alone syncs on the CPU only
+    (its optimizer, not capturable there, and `one_hot`'s range check),
+    and the card captures it (`chip_smoke.py` `step_graphs`). A gloo
+    chunk, taken eagerly, equals its eager steps bit for bit."""
+    case = _case("pointda")
+    for r in run_ranks(2, _mesh_step_syncs, case):
+        alone = collections.Counter(r["alone"])
+        assert collections.Counter(r["step"]) == alone
+        assert collections.Counter(r["scan"]) == alone
+        assert r["average"] == []
+        assert r["chunk_equals_steps"]
 
 
 def _dead_peer(mesh):

@@ -293,13 +293,12 @@ def test_refusals(tmp_path):
 
 
 def test_config_fields_and_defaults_match_jax():
-    """Every field and default of the JAX `SPSTConfig` but the TPU-only
-    knobs, plus the port's `device`."""
+    """Every field and default of the JAX `SPSTConfig`, the precision and
+    EdgeConv-route knobs included, plus the port's `device`."""
     got = {f.name: f.default for f in dataclasses.fields(SPSTConfig)}
     want = {f.name: f.default for f in dataclasses.fields(JaxSPSTConfig)}
-    inert = {"edge_impl", "compute_dtype", "gather_dtype"}
-    assert set(got) == (set(want) - inert) | {"device"}
-    assert all(got[k] == want[k] for k in want if k not in inert)
+    assert set(got) == set(want) | {"device"}
+    assert all(got[k] == want[k] for k in want)
 
 
 _CLI = """
