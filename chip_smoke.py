@@ -243,6 +243,30 @@ one JSON line each; any failure exits non-zero before the last line:
                bf16` (exact launches); each EdgeConv route's forward and
                backward ms per layer at [32, 1024, C]; the bf16 step's
                replayed p50 and peak memory against float32's
+  points_mesh  the points axis (`--mesh_points`): K1's query range
+               against the whole K1's rows, index for index, at the DGCNN
+               layers' [32, 1024, C] (C = 3, 64, 64, 128) and the seg
+               layers' [16, 2048, C] (C = 3, 64), every rank's rows at P
+               = 2 and 4, q0 = 45 with 300 rows and the last 7 rows (nq <
+               k), on the forward's values, integer coordinates and a
+               quarter of exact-zero points, eagerly and from a CUDA
+               graph, with the ms of a rank's range, the whole launch's,
+               the plain version's and the bound; then 2 gloo ranks
+               sharing the card as data 1 x points 2 (NCCL refuses two
+               ranks on one device): the paper step (float32 heads,
+               eval- and train-mode BN) and the seg step, each against
+               the same ranks' unsplit step (draws bit-equal, gathered
+               graphs index-equal, losses 1e-4, gradients 1e-4) and
+               against one process replaying the gathered graphs
+               (`ddp_ingest`'s limits; under eval-mode BN its own K1
+               graphs equal too), per rank and step K1 10 ranges, K2-fwd
+               8, K2-bwd 8, K3 1, K4 1 (seg K1 8, K3 1, K4 1); one paper
+               trainer epoch and one SPST round, each rank the launches
+               of one process's run of the same (K1 115, K2-fwd 92,
+               K2-bwd 64, K3 8, K4 8; K1 185, K2-fwd 148, K2-bwd 64, K4
+               8), finite losses, epoch seconds beside one process's; a
+               PointNet++ eval forward at B=32, N=1024 (ball query split,
+               K4 2) within 1e-5 of one process's
   times        median kernel and plain-version times (CUDA events, the
                launches queued behind a sleep on the card) beside each
                kernel's bound, K2-bwd on the repeated-point graph too, K4
@@ -320,6 +344,7 @@ from mlsp_tpu_torch.testing import (
     grad_gaps,
     knn_set_gap,
     merge_rank_tapes,
+    points_step_cases,
     run_ranks,
     step_case,
     step_cases,
@@ -337,15 +362,17 @@ from mlsp_tpu_torch.train.pointda_trainer import (
     eval_batches,
     eval_logits,
     evaluate,
+    train_pointda,
 )
 from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
-from mlsp_tpu_torch.train.spst import select_pseudo_labels
+from mlsp_tpu_torch.train.spst import select_pseudo_labels, train_spst
 from mlsp_tpu_torch.train.state import torch_cosine_lr
 from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
 from mlsp_tpu_torch.utils import checkpoint, chipcal
 from mlsp_tpu_torch.utils.config import (
     PointDAConfig,
     PointSegDAConfig,
+    SPSTConfig,
     load_yaml,
 )
 from mlsp_tpu_torch.utils.logging import IOStream
@@ -481,11 +508,15 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def knn_cost(x: torch.Tensor, k: int = K) -> tuple[float, float]:
-    """Per pair of points: 2C for the dot product, 4 to form, clamp and
-    compare the distance; x read once, the indices written once."""
+def knn_cost(x: torch.Tensor, k: int = K,
+             nq: int | None = None) -> tuple[float, float]:
+    """Per pair of (query, point): 2C for the dot product, 4 to form, clamp
+    and compare the distance, B·nq·N·(2C + 4) for a query range of nq
+    (the whole cloud by default); x read once, the indices written
+    once."""
     b, n, c = x.shape
-    return b * n * n * (2 * c + 4), b * n * c * 4 + b * n * k * 8
+    nq = n if nq is None else nq
+    return b * nq * n * (2 * c + 4), b * n * c * 4 + b * nq * k * 8
 
 
 def edge_cost(u: torch.Tensor, idx: torch.Tensor,
@@ -2993,14 +3024,15 @@ def _rank_gaps(r0: dict, one: dict) -> dict:
 
 
 def _ddp_compare(r0: dict, r1: dict, plain: dict, batch: int,
-                 train_bn: bool) -> dict:
+                 train_bn: bool, points: int = 1) -> dict:
     """Rank 0's step against one process's on the plain route replaying
-    the ranks' kNN graphs and FPS orders, held to the limits of
-    `ddp_gloo_step`. With train-mode BN each loss term, gradient tensor
-    and running statistic has its own floor: its largest change in the
-    single process under input shifts of +-PERTURB. Returns the gaps,
-    the limits and what lies outside."""
-    one = step_case(None, plain, merge_rank_tapes((r0, r1), batch))
+    the ranks' kNN graphs and FPS orders (on a points mesh of `points`
+    ranks, their gathered rows), held to the limits of `ddp_gloo_step`.
+    With train-mode BN each loss term, gradient tensor and running
+    statistic has its own floor: its largest change in the single process
+    under input shifts of +-PERTURB. Returns the gaps, the limits and what
+    lies outside."""
+    one = step_case(None, plain, merge_rank_tapes((r0, r1), batch, points))
     gaps = _rank_gaps(r0, one)
     base = ({"loss": LOSS_RTOL, "grad": GRAD_RTOL_TRAIN,
              "running": DDP_RUNNING_RTOL} if train_bn else
@@ -3012,7 +3044,7 @@ def _ddp_compare(r0: dict, r1: dict, plain: dict, batch: int,
             sh = step_case(None, {**plain, "batch": {
                 k: v + d if v.is_floating_point() else v
                 for k, v in plain["batch"].items()}},
-                merge_rank_tapes((r0, r1), batch))
+                merge_rank_tapes((r0, r1), batch, points))
             for kind, g in _rank_gaps(sh, one).items():
                 for k, v in g.items():
                     floor[kind][k] = max(floor[kind][k], v)
@@ -4440,6 +4472,337 @@ def precision_routes(device, card: str, g: torch.Generator,
 
 # What each kernel entry sums over: the serving kernels (K1, K2-fwd) over
 # one B=32 serving forward, the train-only kernels over one B=32 train step.
+# ---------------------------------------------------------------------------
+# points_mesh: the points axis (`parallel.make_mesh(data, points)`) on one
+# card, as gloo ranks sharing it (NCCL refuses two ranks on one device).
+# ---------------------------------------------------------------------------
+
+POINTS = 2  # the steps' and trainers' mesh: data 1 x points 2
+RANGE_P = (2, 4)  # the points axes whose ranges K1 is checked and timed
+# (q0, nq) beyond the P ranks' own ranges, for N >= 1024: q0 off the
+# 32-query tile with a ragged last tile, and nq < k at the cloud's end
+RANGE_EXTRA = ((45, 300), (-7, 7))
+POINTS_TIMED_REPS = 20
+PN2_ATOL = 1e-5
+
+
+def range_rows(n: int, p: int) -> list:
+    """The (q0, nq) of each of p points ranks (`parallel.points_rows`)."""
+    from mlsp_tpu_torch.parallel import Mesh, points_rows
+
+    return [points_rows(n, Mesh(0, 1, torch.device("cpu"), points=p,
+                                points_rank=r)) for r in range(p)]
+
+
+def knn_ranges(device, card: str, g: torch.Generator, knn_in: list,
+               seg_in: list) -> dict:
+    """K1's query range against the whole K1 at the DGCNN layers' inputs
+    [32, 1024, C] (C = 3, 64, 64, 128) and the seg layers' [16, 2048, C]
+    (C = 3, 64): every rank's rows at P = 2 and 4, a q0 off the 32-query
+    tile and an nq below k at the cloud's end, on the forward's own
+    values, on integer coordinates and with a quarter of exact-zero points
+    (a scan batch's ties); each range index-equal to the whole launch's
+    rows, eagerly and launched from inside a CUDA graph (`Graphed`); then
+    the ms of a rank's range at P = 2 and 4 beside the whole launch, the
+    plain version and the bound (B·nq·N·(2C + 4) operations)."""
+    inputs = [(f"dgcnn {n}", t) for n, t in knn_in[1:]] + [
+        (f"seg {n}", t) for n, t in seg_in if n in ("edge1", "edge2")]
+    graphed = Graphed(knn_cuda)
+    checks, rows = [], []
+    for name, x in inputs:
+        n = x.shape[1]
+        ranges = [r for p in RANGE_P for r in range_rows(n, p)] + [
+            (q0 % n, nq) for q0, nq in RANGE_EXTRA]
+        zeros = x.clone()
+        zeros[:, ::4] = 0.0
+        for data, xd in (("forward", x),
+                         ("integer", integer_cloud(g, x.shape, device)),
+                         ("quarter exact zeros", zeros)):
+            whole = knn_cuda(xd, K)
+            unequal = {}
+            for q0, nq in ranges:
+                want = whole[:, q0:q0 + nq]
+                got = knn_cuda(xd, K, (q0, nq))
+                bad = int((got != want).any(-1).sum())
+                if data == "forward":
+                    bad += int((graphed(xd, K, (q0, nq)) != want
+                                ).any(-1).sum())
+                unequal[f"{q0}+{nq}"] = bad
+            res = {"input": name, "shape": list(x.shape), "data": data,
+                   "ranges": len(ranges),
+                   "rows_unequal": sum(unequal.values())}
+            emit("points_mesh", kernel="knn range", **res)
+            check(res["rows_unequal"] == 0,
+                  f"K1's query range differs from the whole launch's rows: "
+                  f"{res} {unequal}")
+            checks.append(res)
+        for p in RANGE_P:
+            q0, nq = range_rows(n, p)[0]
+            row = {"input": name, "shape": list(x.shape), "points": p,
+                   "rows": [q0, nq],
+                   "ms": median_ms(lambda: knn_cuda(x, K, (q0, nq)),
+                                   POINTS_TIMED_REPS),
+                   "whole_ms": median_ms(lambda: knn_cuda(x, K),
+                                         POINTS_TIMED_REPS),
+                   "plain_ms": median_ms(
+                       lambda: knn_indices_torch(x, K, (q0, nq)),
+                       POINTS_TIMED_REPS),
+                   **dict(zip(("bound_ms", "bound_by"),
+                              bound(*knn_cost(x, K, nq))))}
+            emit("times", what="points_mesh knn range", card=card, **row)
+            rows.append(row)
+    check(graphed.replays > 0, "no K1 range was launched from a graph")
+    return {"checks": checks, "rows": rows, "graph_replays": graphed.replays}
+
+
+def points_rank(mesh, cases: list, trainer_cfg, spst_cfg, pn2: dict,
+                log: str) -> dict:
+    """A rank of the points mesh (spawned by `points_mesh`): each case's
+    step split and whole (`testing.points_step_cases`), then, each with
+    the launch counts set to 0 just before and read just after, one epoch
+    of `train_pointda`, one SPST round (`train_spst`) and a PointNet++
+    eval forward under `points_sharding`; the trainers' lines go to
+    `log`.RANK."""
+    out = {"steps": points_step_cases(mesh, cases)}
+    rank = mesh.rank * mesh.points + mesh.points_rank
+    with open(f"{log}.{rank}", "w") as f, contextlib.redirect_stdout(f):
+        for name, run_one in (
+                ("trainer", lambda: train_pointda(trainer_cfg, mesh=mesh)),
+                ("spst", lambda: train_spst(spst_cfg, mesh=mesh))):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            _, res = run_one()
+            torch.cuda.synchronize()
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "launches": kernels.launches(),
+                         "test_acc": (res.get("test") or res["final"])["acc"]}
+    out["pn2"] = pn2_forward(mesh, pn2)
+    return out
+
+
+def pn2_forward(mesh, pn2: dict) -> dict:
+    """A full-width PointNet++ eval forward at B=32, N=1024 from seeded
+    weights and BatchNorm, under `points_sharding(mesh)` (None: one
+    process): its logits and launches."""
+    from mlsp_tpu_torch import parallel
+
+    device = torch.device(pn2["device"])
+    g = torch.Generator().manual_seed(SEED + 21)
+    model = make_model("pointnet2", NUM_CLASS, device=device, generator=g)
+    randomise_batch_norm(model, g)
+    model.eval()
+    x = torch.from_numpy(pn2["x"]).to(device)
+    kernels.reset_launches()
+    with torch.no_grad(), parallel.points_sharding(mesh):
+        logits = model(x)["cls"]
+    torch.cuda.synchronize()
+    return {"logits": logits.float().cpu().numpy(),
+            "launches": kernels.launches()}
+
+
+def points_cases(device) -> dict:
+    """The paper step (float32 heads, as `ddp_gloo_step`) with eval- and
+    train-mode BN, and the seg step (configs/pointsegda_mlsp.yaml plus
+    PCM, B=16, N=2048), from seeded weights and batches."""
+    cfg = dataclasses.replace(train_cfg(), head_dtype="f32")
+    src_x, src_y, trgt_x = (t.cpu() for t in train_batches(cfg, device)[0])
+    case = {"kind": "pointda", "model": "dgcnn", "num_class": NUM_CLASS,
+            "kwargs": {**model_kwargs(cfg), "k": K},
+            "state": {k: v.cpu() for k, v in
+                      train_model(cfg, device).state_dict().items()},
+            "cfg": cfg, "seed": SEED, "device": str(device),
+            "batch": {"src_x": src_x, "src_y": src_y, "trgt_x": trgt_x}}
+    scfg = seg_cfg()
+    sx, sy, tx = (t.cpu() for t in seg_batches(scfg, device)[0])
+    seg = {"kind": "seg", "model": "dgcnn_seg", "num_class": SEG_NUM_CLASS,
+           "kwargs": {"k": K, "dropout": scfg.dropout,
+                      "density_num_cls": scfg.density_num_class,
+                      "pergroup": scfg.pergroup},
+           "state": {k: v.cpu() for k, v in
+                     seg_model(scfg, device).state_dict().items()},
+           "cfg": scfg, "seed": SEED, "device": str(device),
+           "batch": {"src_x": sx, "src_y": sy, "trgt_x": tx}}
+    return {"paper_eval_bn": {**case, "cfg": dataclasses.replace(
+        cfg, debug_bn_eval=True)}, "paper_train_bn": case, "seg": seg}
+
+
+def points_steps(name: str, case: dict, split: list, whole: list) -> dict:
+    """One case's step on the points mesh against the same ranks' step
+    without the split and against one process: the ranks bit-equal; the
+    augmented batch and draws bit-equal to the unsplit step's and the
+    single process's; the gathered K1 graphs index-equal to the unsplit
+    step's whole K1 graphs (and, under eval-mode BN, to the single
+    process's); the split step's losses within LOSS_RTOL and gradients
+    within REPEAT_RTOL of the unsplit one's (K2-bwd's atomics add in
+    another order each run); K1's range graphs against the plain kNN of
+    their rows;
+    then rank 0 against one process on the plain route replaying the
+    gathered graphs and FPS orders, at `ddp_gloo_step`'s limits
+    (`_ddp_compare`). Returns the largest gaps and the launches."""
+    r0, r1 = split
+    train_bn = not getattr(case["cfg"], "debug_bn_eval", False)
+    batch = case["cfg"].batch_size
+    got = merge_rank_tapes(split, batch, POINTS)
+    want = merge_rank_tapes(whole, batch, POINTS)
+    one = step_case(None, case)
+    per_step = SEG_PER_STEP if case["kind"] == "seg" else PER_STEP
+    graphs_unequal = sum(int((a != b).any(-1).sum()) for a, b in zip(
+        got.graphs, want.graphs)) if len(got.graphs) == len(want.graphs) \
+        else -1
+    one_unequal = sum(int((a != torch.from_numpy(b)).any(-1).sum())
+                      for a, b in zip(got.graphs, one["graphs"]))
+    draws_equal = all(
+        r["draws"].keys() == r0["draws"].keys()
+        and all(np.array_equal(v, r["draws"][k])
+                for k, v in r0["draws"].items())
+        for r in (whole[0], one))
+    knn = r0["knn_against_plain"] + r1["knn_against_plain"]
+    plain = {**case, "cfg": dataclasses.replace(case["cfg"],
+                                                knn_backend="torch"),
+             "kwargs": {**case["kwargs"], "knn_backend": "torch"}}
+    res = _ddp_compare(r0, r1, plain, batch, train_bn, POINTS)
+    res.pop("one")
+    split_vs_whole = _rank_gaps(r0, whole[0])
+    sw = {"loss_max": max(split_vs_whole["loss"].values()),
+          "grad_max": max(split_vs_whole["grad"].values())}
+    res.update(
+        ranks_bit_equal=r0["metrics"] == r1["metrics"] and all(
+            np.array_equal(g, r1["grads"][k]) for k, g in r0["grads"].items()),
+        draws_bit_equal=draws_equal, graphs=len(got.graphs),
+        graph_rows_unequal_vs_unsplit=graphs_unequal,
+        graph_rows_unequal_vs_one_process=one_unequal,
+        split_vs_unsplit=sw,
+        launches_per_rank=[r0["launches"], r1["launches"]],
+        knn_vs_plain={"launches": len(knn),
+                      "rows": sorted({str(r["rows"]) for r in knn}),
+                      "max_gap_over_tol": max(r["max_gap_over_tol"]
+                                              for r in knn)},
+        losses=r0["metrics"])
+    emit("points_mesh", what=f"data 1 x points {POINTS} gloo ranks on the "
+         f"card vs the unsplit step and one process, {name}", **res)
+    check(res["ranks_bit_equal"], f"the points ranks disagree ({name})")
+    check(draws_equal, f"the draws differ on the points mesh ({name})")
+    check(graphs_unequal == 0, f"the gathered K1 graphs differ from the "
+          f"whole K1's ({name}): {graphs_unequal} rows")
+    check(sw["loss_max"] <= LOSS_RTOL and sw["grad_max"] <= REPEAT_RTOL,
+          f"the split step differs from the unsplit one ({name}): {sw}")
+    check(train_bn or one_unequal == 0, f"the gathered K1 graphs differ "
+          f"from one process's ({name}): {one_unequal} rows")
+    check(r0["launches"] == per_step and r1["launches"] == per_step,
+          f"a points rank's step launched {r0['launches']}, "
+          f"{r1['launches']} ({name})")
+    check(len(knn) == 2 * per_step["knn"]
+          and all(r["rows"] is not None for r in knn)
+          and res["knn_vs_plain"]["max_gap_over_tol"] <= 1.0,
+          f"K1's ranges on a rank disagree with the plain kNN: "
+          f"{res['knn_vs_plain']}")
+    check(not any(res["plain_launches"].values()) and res["same_grad_set"],
+          f"the plain route launched {res['plain_launches']} or another "
+          "gradient set")
+    check(not res["outside_count"], f"the points mesh differs from one "
+          f"process ({name}): {res['outside']}")
+    return res
+
+
+def points_mesh(device, card: str, g: torch.Generator, tmp: str,
+                model_file: str, knn_in: list, seg_in: list) -> dict:
+    """The points axis on one card: K1's query ranges (`knn_ranges`); then
+    2 gloo ranks sharing the card as data 1 x points 2 (`points_rank`, one
+    spawn): the paper and seg steps (`points_steps`), one epoch of the
+    paper trainer and one SPST round (3 PCM epochs' worth of the spst
+    phase's launches: exact launches, each rank the one-process count, as
+    each rank launches one range a kNN build), finite losses, wall time
+    beside one process's run of the same; and a PointNet++ eval forward at
+    B=32, N=1024 (ball query split, K4 whole) within PN2_ATOL of one
+    process's. Returns the launches by path."""
+    kr = knn_ranges(device, card, g, knn_in, seg_in)
+    cases = points_cases(device)
+    out = os.path.join(tmp, "runs")
+    trainer_cfg = PointDAConfig(synthetic=True, epochs=1, out_path=out,
+                                exp_name="points_trainer",
+                                device=str(device)).paper_recipe
+    spst_cfg = SPSTConfig(synthetic=True, model_file=model_file, rounds=1,
+                          epochs=1, threshold=SPST_THRESHOLD, apply_PCM=True,
+                          out_path=out, exp_name="points_spst",
+                          device=str(device))
+    pn2 = {"device": str(device), "x": make_classification(
+        B, N, NUM_CLASS, seed=SEED + 22)[0]}
+    t0 = time.perf_counter()
+    ranks = run_ranks(POINTS, points_rank, list(cases.values()), trainer_cfg,
+                      spst_cfg, pn2, os.path.join(tmp, "points_rank.log"),
+                      backend="gloo", device=str(device), timeout_s=600,
+                      points=POINTS)
+    spawn_s = time.perf_counter() - t0
+    steps = {}
+    for i, (name, case) in enumerate(cases.items()):
+        steps[name] = points_steps(name, case,
+                                   [r["steps"]["split"][i] for r in ranks],
+                                   [r["steps"]["whole"][i] for r in ranks])
+    # one process: the same trainer epoch and SPST round, then PointNet++
+    alone = {}
+    for name, cfg, run_one in (
+            ("trainer", dataclasses.replace(trainer_cfg,
+                                            exp_name="points_alone"),
+             lambda c: train_pointda(c)),
+            ("spst", dataclasses.replace(spst_cfg, exp_name="points_alone"),
+             lambda c: train_spst(c))):
+        with open(os.path.join(tmp, f"points_{name}_alone.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            kernels.reset_launches()
+            t = time.perf_counter()
+            run_one(cfg)
+            torch.cuda.synchronize()
+            alone[name] = {"seconds": time.perf_counter() - t,
+                           "launches": kernels.launches()}
+    with open(os.path.join(out, "points_trainer", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(out, "points_alone", "metrics.jsonl")) as f:
+        alone_records = [json.loads(line) for line in f]
+    pn2_one = pn2_forward(None, pn2)
+    pn2_gap = max(float(np.abs(r["pn2"]["logits"] - pn2_one["logits"]).max())
+                  for r in ranks)
+    res = {"mesh": {"data": 1, "points": POINTS}, "backend": "gloo",
+           "seconds_spawn_to_results": spawn_s,
+           "trainer": {"per_rank": [r["trainer"] for r in ranks],
+                       "alone": alone["trainer"],
+                       "epoch_seconds": records[0]["seconds"],
+                       "alone_epoch_seconds": alone_records[0]["seconds"],
+                       "losses": records[0]["train"]},
+           "spst": {"per_rank": [r["spst"] for r in ranks],
+                    "alone": alone["spst"]},
+           "pn2": {"launches_per_rank": [r["pn2"]["launches"] for r in ranks],
+                   "alone_launches": pn2_one["launches"],
+                   "max_logit_gap": pn2_gap, "atol": PN2_ATOL}}
+    emit("points_mesh", what="trainer epoch, SPST round and PointNet++ eval "
+         "forward on data 1 x points 2 vs one process", card=card, **res)
+    for name in ("trainer", "spst"):
+        for r in ranks:
+            check(r[name]["launches"] == alone[name]["launches"],
+                  f"a points rank's {name} launched {r[name]['launches']}, "
+                  f"one process {alone[name]['launches']}")
+    check(all(np.isfinite(v) for v in records[0]["train"].values()),
+          f"non-finite trainer losses on the points mesh: {records[0]}")
+    check(alone["trainer"]["launches"] == trainer_launches(1),
+          f"the one-process trainer epoch launched "
+          f"{alone['trainer']['launches']}")
+    check(all(r["pn2"]["launches"] == pn2_one["launches"] for r in ranks)
+          and pn2_one["launches"]["fps"] == 2 and pn2_gap <= PN2_ATOL,
+          f"PointNet++ on the points mesh: {res['pn2']}")
+    check(alone["spst"]["launches"] == spst_launches(1),
+          f"the one-process SPST round launched {alone['spst']['launches']}")
+
+    def added(counts):
+        return {k: sum(c[k] for c in counts) for k in PER_STEP}
+
+    by_path = {
+        "points_steps": added([r["steps"]["split"][i]["launches"]
+                               for r in ranks for i in range(len(cases))]),
+        "points_trainer": added([r["trainer"]["launches"] for r in ranks]),
+        "points_spst": added([r["spst"]["launches"] for r in ranks]),
+        "points_pn2": added([r["pn2"]["launches"] for r in ranks])}
+    return {"by_path": by_path, "knn_ranges": kr, "steps": steps, **res}
+
+
 KERNELS = {
     "knn": ("mlsp_tpu_torch/csrc/knn.cu",
             "mlsp_tpu/ops/pallas/knn_pallas.py:69", "one B=32 serving forward"),
@@ -4536,6 +4899,8 @@ def run(device: torch.device, card: str) -> None:
         dg = ddp_graphs(device, card, tmp, ddp["cli"])
         sgr = step_graphs(device, card, g, tmp, trn["model_file"])
         pr = precision_routes(device, card, g, tmp)
+        pm = points_mesh(device, card, g, tmp, trn["model_file"], knn_in,
+                         seg["knn_in"])
 
         kt = kernel_times(device, card, knn_in, edge_in, g)
         serving_times(srv["served"], srv["plain"], device, card)
@@ -4613,7 +4978,8 @@ def run(device: torch.device, card: str) -> None:
                    **{path: n[kname] for path, n in ddp["by_path"].items()},
                    **{path: n[kname] for path, n in dg["by_path"].items()},
                    **{path: n[kname] for path, n in sgr["by_path"].items()},
-                   **{path: n[kname] for path, n in pr["by_path"].items()}}
+                   **{path: n[kname] for path, n in pr["by_path"].items()},
+                   **{path: n[kname] for path, n in pm["by_path"].items()}}
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -4627,6 +4993,12 @@ def run(device: torch.device, card: str) -> None:
             "per_launch_at_vit_shapes": vit["times"]["rows"].get(kname),
             "per_seg_train_step": (total(seg_step_rows[kname])
                                    if kname in seg_step_rows else None),
+            # K1's query-range form (a points rank's rows): every K1 launch
+            # on the points_mesh paths, and a rank's range at P = 2 and 4
+            "query_range": {
+                "launches": sum(n["knn"] for n in pm["by_path"].values()),
+                "per_launch": pm["knn_ranges"]["rows"]}
+            if kname == "knn" else None,
             "check": "passed",  # a failed check exits before this line
         })
     print(json.dumps({"kernels": entries}), flush=True)

@@ -88,39 +88,50 @@ def _add_mesh_args(parser: argparse.ArgumentParser) -> None:
                         help="data-parallel mesh axis size (0 = no mesh; "
                              "replaces the reference's nn.DataParallel)")
     parser.add_argument("--mesh_points", type=int, default=1,
-                        help="points-sharding mesh axis size (the JAX "
-                             "package shards the O(N^2) distance "
-                             "intermediates over it; not ported: values "
-                             "above 1 raise)")
+                        help="points-sharding mesh axis size: each cloud's "
+                             "O(N^2) work (kNN graphs, Chamfer, radius "
+                             "counts, ball queries) split by query rows "
+                             "over P ranks; with --mesh_data 0 the data "
+                             "axis is WORLD_SIZE / P")
 
 
-def _mesh_from_args(args: argparse.Namespace, device):
-    """The data-parallel mesh the flags ask for, or None. `--mesh_data R`
-    joins the world torchrun describes (WORLD_SIZE must be R) or, with
-    R = 1 and no torchrun, starts a world of one."""
+def _mesh_from_args(args: argparse.Namespace, device, batch_size: int):
+    """The (data, points) mesh the flags ask for, or None. `--mesh_data D
+    --mesh_points P` joins the world torchrun describes (WORLD_SIZE must
+    be D x P; D = 0 takes WORLD_SIZE / P, as JAX's `data=None`) or, with
+    D x P = 1 and no torchrun, starts a world of one. A `batch_size` that
+    does not split over D is refused before joining."""
     from mlsp_tpu_torch import parallel
 
-    if not (args.mesh_data or args.mesh_points > 1):
+    points = args.mesh_points
+    if not (args.mesh_data or points > 1):
         return None
-    if args.mesh_points > 1:
-        return parallel.make_mesh(points=args.mesh_points)  # raises
+    if points < 1 or args.mesh_data < 0:
+        raise ValueError(f"--mesh_data {args.mesh_data} --mesh_points "
+                         f"{points}: sizes must be positive")
     world = os.environ.get("WORLD_SIZE")
+    data = args.mesh_data or (int(world) // points if world else 1)
+    want = data * points
+    launch = (f"launch with torchrun --nproc_per_node {want} -m "
+              "mlsp_tpu_torch.cli ...")
+    if world is None and want != 1:
+        raise ValueError(f"--mesh_data {data} --mesh_points {points} needs "
+                         f"{want} processes: {launch}")
+    if world is not None and int(world) != want:
+        raise ValueError(f"--mesh_data {data} x --mesh_points {points} = "
+                         f"{want} but torchrun started WORLD_SIZE={world} "
+                         f"processes: {launch}")
+    if batch_size % data:  # the message of `parallel.replicate_for_mesh`
+        raise ValueError(f"batch_size {batch_size} not divisible by the "
+                         f"mesh data axis ({data} devices)")
     backend = "nccl" if device.type == "cuda" else "gloo"
-    if world is None and args.mesh_data != 1:
-        raise ValueError(
-            f"--mesh_data {args.mesh_data} needs {args.mesh_data} processes: "
-            f"launch with torchrun --nproc_per_node {args.mesh_data} -m "
-            "mlsp_tpu_torch.cli ...")
-    if world is not None and int(world) != args.mesh_data:
-        raise ValueError(f"--mesh_data {args.mesh_data} but torchrun started "
-                         f"WORLD_SIZE={world} processes")
     if world is None:
         parallel.init_local_world(backend)
     else:
         parallel.init_distributed(backend)
     if device.type == "cuda" and device.index is None:
         device = None  # cuda:LOCAL_RANK
-    return parallel.make_mesh(args.mesh_data, device=device)
+    return parallel.make_mesh(data, points, device=device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -204,7 +215,7 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"mlsp_tpu_torch: {e} (--device cpu)", file=sys.stderr)
         return 1
-    mesh = (_mesh_from_args(args, device)
+    mesh = (_mesh_from_args(args, device, cfg.batch_size)
             if args.command in ("trainer", "spst", "seg") else None)
     try:
         _run(args, cfg, mesh)

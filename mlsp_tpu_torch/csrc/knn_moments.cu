@@ -47,7 +47,7 @@ knn_moments_kernel(const float* __restrict__ x, float* __restrict__ s1,
   const int u = lane < 3 ? lane : lane < 6 ? 0 : lane < 8 ? 1 : 2;
   const int v = lane < 3 ? lane : lane < 6 ? lane - 3 : lane < 8 ? lane - 5 : 2;
   knn_topk::select(
-      xb, N, 3, k, tile * knn_topk::QB, smem,
+      xb, N, 3, k, tile * knn_topk::QB, N, smem,
       [&](int q, knn_topk::key_t key) {
         const size_t row = (size_t)b * N + q;
         const int j = (int)(uint32_t)key;

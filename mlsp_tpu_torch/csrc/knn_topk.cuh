@@ -226,18 +226,22 @@ __device__ __forceinline__ void fetch_slice(float* dst,
 }
 
 // Selects the k (1 <= k <= 32) nearest points of cloud xb [N, C] for the
-// block's queries q0 .. q0 + min(QB, N - q0) - 1 and, for each, calls
+// block's queries q0 .. min(q0 + QB, qend) - 1 (qend <= N: the end of the
+// caller's query range, N for a whole cloud) and, for each, calls
 //     emit(q, key)
 // on all 32 lanes of the warp that owns query q, lane i holding the key of
 // the i-th nearest point (lanes >= k hold larger keys or NONE). The index
-// is the key's low 32 bits. Every thread of the block must call it (it
-// synchronises the block); smem holds smem_bytes(C) bytes, 16-aligned.
+// is the key's low 32 bits. A query's work does not depend on q0 or on
+// which other queries share its block, so a range's keys are those of the
+// same queries in a whole-cloud launch. Every thread of the block must
+// call it (it synchronises the block); smem holds smem_bytes(C) bytes,
+// 16-aligned.
 template <class Emit>
 __device__ __forceinline__ void select(const float* __restrict__ xb, int N,
-                                       int C, int k, int q0,
+                                       int C, int k, int q0, int qend,
                                        unsigned char* smem, Emit emit) {
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const int nq = min(QB, N - q0);
+  const int nq = min(QB, qend - q0);
   const int qp = pitch(C);
   float* dist = reinterpret_cast<float*>(smem);  // [QB][DP]
   float* slices = dist + QB * DP;                // 2 x [np][xp]

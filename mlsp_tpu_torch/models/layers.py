@@ -154,7 +154,8 @@ def linear_in(layer: nn.Module, x) -> torch.Tensor:
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm over every axis but the last (channels-last), in at least
     float32; the result keeps x's dtype. In train mode inside
-    `data_parallel`, over the rows of every rank (`global_batch_norm`)."""
+    `data_parallel`, over the rows of every data rank
+    (`global_batch_norm`)."""
     wide = torch.promote_types(x.dtype, torch.float32)
     rows = x.reshape(-1, x.shape[-1]).to(wide)
     if bn.training and active_mesh() is not None:
@@ -181,9 +182,9 @@ def global_batch_norm(bn: nn.BatchNorm1d, rows: torch.Tensor) -> torch.Tensor:
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
-    """BatchNorm over the rows of every rank of `mesh`, differentiated by
-    hand so that each direction takes one all-reduce and the large
-    tensors go through fused kernels.
+    """BatchNorm over the rows of every data rank of `mesh` (its data
+    group), differentiated by hand so that each direction takes one
+    all-reduce and the large tensors go through fused kernels.
 
     Forward: each rank's count, mean and sum of squared deviations from
     its own mean (`torch.var_mean`, which sums no squares of raw values,
@@ -206,14 +207,14 @@ class _GlobalBatchNorm(torch.autograd.Function):
         slots = rows.new_zeros(mesh.size, 2 * c + 1)
         slots[mesh.rank] = torch.cat([mean_r, var_r * rows.shape[0],
                                       rows.new_full((1,), rows.shape[0])])
-        dist.all_reduce(slots)
+        dist.all_reduce(slots, group=mesh.group)
         means, m2s, counts = slots[:, :c], slots[:, c:2 * c], slots[:, -1:]
         n = float(mesh.size * rows.shape[0])
         mean = (counts * means).sum(0) / n
         var = (m2s.sum(0) + (counts * (means - mean).square()).sum(0)) / n
         y = F.batch_norm(rows, mean, var, weight, bias, False, 0.0, eps)
         ctx.save_for_backward(rows, weight, mean, var)
-        ctx.eps, ctx.n = eps, n
+        ctx.eps, ctx.n, ctx.group = eps, n, mesh.group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -227,7 +228,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
             dy.contiguous(), rows, weight, mean, var, mean, invstd, False,
             ctx.eps, [True, True, True])
         sums = torch.cat([db, dw])
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         c = rows.shape[1]
         scale = weight * invstd / ctx.n
         dx = dx.sub_(scale * sums[:c]).addcmul_(

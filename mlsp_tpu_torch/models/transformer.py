@@ -43,6 +43,7 @@ from mlsp_tpu_torch.models.layers import (
 from mlsp_tpu_torch.ops.fps import fps, fps_gather
 from mlsp_tpu_torch.ops.knn import knn_gather, knn_indices
 from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
+from mlsp_tpu_torch.parallel.mesh import split_points
 
 HEADS = ("defrec",)
 LN_EPS = 1e-6  # flax nn.LayerNorm
@@ -70,14 +71,19 @@ def feature_propagation(xyz_dst: torch.Tensor, xyz_src: torch.Tensor,
     """3-NN inverse-distance interpolation of feats_src [B, S, C] at
     xyz_src [B, S, 3] onto xyz_dst [B, N, 3] -> [B, N, C]; k = min(k, S),
     ties to the lower index (a stable sort, as `lax.top_k`), weights
-    1 / (d + 1e-8) normalised."""
+    1 / (d + 1e-8) normalised. Under an active points mesh the rows of
+    xyz_dst are split over the points group (`parallel.split_points`)."""
     k = min(k, xyz_src.shape[1])
-    d = pairwise_sqdist(xyz_dst, xyz_src)  # [B, N, S]
-    dk, idx = torch.sort(d, dim=-1, stable=True)
-    dk, idx = dk[..., :k], idx[..., :k]
-    w = 1.0 / (dk + 1e-8)
-    w = w / w.sum(-1, keepdim=True)
-    return (knn_gather(feats_src, idx) * w[..., None]).sum(2)
+
+    def rows(dst, src, feats):
+        d = pairwise_sqdist(dst, src)  # [B, M, S]
+        dk, idx = torch.sort(d, dim=-1, stable=True)
+        dk, idx = dk[..., :k], idx[..., :k]
+        w = 1.0 / (dk + 1e-8)
+        w = w / w.sum(-1, keepdim=True)
+        return (knn_gather(feats, idx) * w[..., None]).sum(2)
+
+    return split_points(rows, xyz_dst, xyz_src, feats_src)
 
 
 def _conv_stage(cin: int, cmid: int, cout: int) -> nn.ModuleList:

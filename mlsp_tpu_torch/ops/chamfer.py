@@ -4,7 +4,8 @@
 The reference's mask trick: points outside the deformed region get +100
 added to their column, so the row minimum never picks them, and the row
 terms are weighted by the mask, so only deformed points count. Points are
-[B, N, 3], masks [B, N].
+[B, N, 3], masks [B, N]. Under an active points mesh each direction's
+query rows are split over the points group (`parallel.split_points`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
+from mlsp_tpu_torch.parallel.mesh import split_points
 
 _BIG = 100.0
 
@@ -31,7 +33,8 @@ def masked_chamfer(p1: torch.Tensor, p2: torch.Tensor,
     `amin` shares the gradient among tied minima, as `jnp.min` does
     (`min(dim)` would send it all to one).
     """
-    mind = _masked_sqdist(p1, p2, mask).amin(-1)
+    mind = split_points(lambda q, p, m: _masked_sqdist(q, p, m).amin(-1),
+                        p1, p2, mask)
     # A cloud with an empty mask would divide 0/0 in the reference; it
     # contributes 0 here, as in the JAX package.
     denom = torch.clamp_min(mask.sum(-1), 1.0)
@@ -54,7 +57,10 @@ def nearest_index_pair(pred: torch.Tensor, gold: torch.Tensor,
 
     Returns (pred -> gold [B, N], gold -> pred [B, N]), int64, no
     gradient."""
+    def nearest(q, p, m):
+        return _masked_sqdist(q, p, m).argmin(-1)
+
     with torch.no_grad():
         pred, gold = pred.detach(), gold.detach()
-        return (_masked_sqdist(pred, gold, mask).argmin(-1),
-                _masked_sqdist(gold, pred, mask).argmin(-1))
+        return (split_points(nearest, pred, gold, mask),
+                split_points(nearest, gold, pred, mask))

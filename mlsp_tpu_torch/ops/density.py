@@ -3,8 +3,9 @@
 The reference counts, per point, the neighbours within a radius with a
 PCL kd-tree search capped at K=100 returned points, then builds a soft
 two-hot class vector over `num_cls` bins of width `pergroup`. Brute force
-here: one pairwise-distance matrix, a compare and a row sum. Plain
-PyTorch: the JAX package has no kernel for it.
+here: one pairwise-distance matrix, a compare and a row sum (under an
+active points mesh, this rank's rows of it, gathered). Plain PyTorch: the
+JAX package has no kernel for it.
 
 Quirks of the reference kept:
   * counts are capped at `cap` (=100) returned neighbours;
@@ -18,14 +19,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mlsp_tpu_torch.ops.pairwise import self_sqdist
+from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
+from mlsp_tpu_torch.parallel.mesh import split_points
 
 
 def radius_count(xyz: torch.Tensor, radius: float,
                  cap: int = 100) -> torch.Tensor:
     """Neighbours within `radius` per point of xyz [B, N, 3], self included,
     with the two quirks above: float32 [B, N]."""
-    d = self_sqdist(xyz)  # [B, N, N]
+    return split_points(lambda q: _radius_count_rows(q, xyz, radius, cap),
+                        xyz)
+
+
+def _radius_count_rows(q: torch.Tensor, xyz: torch.Tensor, radius: float,
+                       cap: int) -> torch.Tensor:
+    """`radius_count` of the query points q [B, M, 3] among xyz."""
+    d = pairwise_sqdist(q, xyz)  # [B, M, N]
     # a fill, not a host copy: a step graph captures it
     r2 = torch.full((), radius, dtype=torch.float32, device=d.device) ** 2
     within = d <= r2

@@ -4,7 +4,8 @@ PointNet++-style set abstraction: for each sampled centroid, the first
 `nsample` point indices within `radius`, short balls padded with their
 first hit, an empty ball taking index 0; then the neighbourhoods gathered
 and centred. Plain PyTorch on any device: the JAX package runs both on
-XLA, with no Pallas kernel.
+XLA, with no Pallas kernel. Under an active points mesh the ball query
+splits the centers over the points group (`parallel.split_points`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from mlsp_tpu_torch.ops.knn import knn_gather
 from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
+from mlsp_tpu_torch.parallel.mesh import split_points
 
 
 def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
@@ -37,7 +39,15 @@ def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     N = xyz.shape[1]
     if not 1 <= nsample <= N:
         raise ValueError(f"ball_query: nsample={nsample} outside [1, {N}]")
-    d = pairwise_sqdist(centers, xyz)  # [B, S, N]
+    return split_points(lambda c: _ball_rows(xyz, c, radius, nsample),
+                        centers)
+
+
+def _ball_rows(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
+               nsample: int) -> torch.Tensor:
+    """`ball_query` of the given centers [B, M, 3]."""
+    N = xyz.shape[1]
+    d = pairwise_sqdist(centers, xyz)  # [B, M, N]
     # a fill, not a host copy: a step graph captures it
     r2 = torch.full((), radius, dtype=torch.float32, device=d.device) ** 2
     ranks = torch.arange(N, device=d.device).expand_as(d)

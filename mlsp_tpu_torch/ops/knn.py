@@ -3,6 +3,10 @@
 `knn_indices` runs the hand-written CUDA kernel (`ops/kernels/knn.py`) on a
 CUDA tensor and its plain PyTorch version, below, on a CPU tensor. The plain
 version is also what the tests and `chip_smoke.py` hold the kernel against.
+Inside `parallel.points_sharding` each rank builds the graph of its rows of
+the queries (K1's query range on the card) and the rows are gathered over
+the points group: the JAX package partitions the same work there through its
+distance matrix, on XLA.
 """
 
 from __future__ import annotations
@@ -11,6 +15,12 @@ import torch
 
 from mlsp_tpu_torch.ops.kernels.knn import knn_cuda
 from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
+from mlsp_tpu_torch.parallel.mesh import (
+    active_points_mesh,
+    gather_points,
+    points_rows,
+    split_points,
+)
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -34,9 +44,14 @@ def use_kernel(t: torch.Tensor, backend: str) -> bool:
         f"backend={backend!r} has no path for a tensor on {t.device}")
 
 
-def knn_indices_torch(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain version of the kNN kernel: int64 [B, N, k]."""
-    return knn_indices_cross(x, x, k)
+def knn_indices_torch(x: torch.Tensor, k: int,
+                      rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """Plain version of the kNN kernel: int64 [B, N, k], or with
+    `rows=(q0, nq)` [B, nq, k], the graph of the queries [q0, q0 + nq)."""
+    if rows is None:
+        return knn_indices_cross(x, x, k)
+    q0, nq = rows
+    return knn_indices_cross(x[:, q0:q0 + nq], x, k)
 
 
 def knn_indices_cross(x: torch.Tensor, y: torch.Tensor, k: int) -> torch.Tensor:
@@ -58,7 +73,9 @@ def knn_indices(x: torch.Tensor, k: int, y: torch.Tensor | None = None,
     Self-matches are included, distances are clamped at 0 and ties go to
     the lower index, as in the JAX package's XLA path. The self-kNN runs
     the K1 kernel on a CUDA tensor; the cross-set kNN (`y` given) is plain
-    PyTorch on any device, as JAX runs it on XLA.
+    PyTorch on any device, as JAX runs it on XLA. Under an active points
+    mesh each rank builds its rows of x (the self-kNN through K1's query
+    range on the card) and the graph is gathered over the points group.
 
     Args:
       x: [B, N, C] query points or features.
@@ -79,10 +96,14 @@ def knn_indices(x: torch.Tensor, k: int, y: torch.Tensor | None = None,
         raise ValueError(f"knn_indices: k={k} exceeds the {m} database points")
     if y is not None:
         use_kernel(x, backend)  # validates the backend name and device
-        return knn_indices_cross(x, y, k)
-    if use_kernel(x, backend):
-        return knn_cuda(x, k)
-    return knn_indices_torch(x, k)
+        return split_points(lambda q: knn_indices_cross(q, y, k), x)
+    kernel = use_kernel(x, backend)
+    mesh = active_points_mesh()
+    if mesh is None:
+        return knn_cuda(x, k) if kernel else knn_indices_torch(x, k)
+    rows = points_rows(x.shape[1], mesh)
+    idx = knn_cuda(x, k, rows) if kernel else knn_indices_torch(x, k, rows)
+    return gather_points(idx, x.shape[1], mesh)
 
 
 def knn_gather(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Data-parallel training over `torch.distributed` (counterpart of
-`mlsp_tpu/parallel/mesh.py`).
+"""Data- and points-parallel training over `torch.distributed`
+(counterpart of `mlsp_tpu/parallel/mesh.py`).
 
 The JAX package shards each batch over the `data` axis of a device mesh
 and replicates the parameters; XLA all-reduces the gradients, and a mean
@@ -31,8 +31,27 @@ cross-rank sums. Eval forwards split their batches over the ranks and
 gather the logits on every rank (`fetch_global`), so metrics, model
 selection and SPST's pseudo-labels are the same everywhere.
 
-A `points` axis (the JAX package's sharding of one cloud's O(N^2)
-distances over chips) has no port: `make_mesh(points>1)` raises.
+The `points` axis (`make_mesh(data=D, points=P)`, a world of D x P
+ranks) splits each cloud's O(N^2) work by query rows, as the JAX
+package's `P("data", "points")` constraint on the distance matrix does.
+Rank r has data index r // P and points index r % P (JAX's device
+layout); the ranks of one data index form a points group, and those of
+one points index a data group. `Mesh.rank` and `Mesh.size` are the data
+index and axis: every data collective (BatchNorm's statistics, the loss
+normalisers, the metrics, the eval gathers) runs over the data group,
+and every rank of a points group holds the same model, batch rows and
+draws. Inside `points_sharding(mesh)` each O(N^2) producer (the kNN
+graphs, radius counts, Chamfer and its indices, the ball query, the
+collapse deformation, 3-NN interpolation) takes its rows of the queries
+(`points_rows`: blocks of ceil(N / P)) and gathers the result over the
+points group (`split_points`); a differentiable one goes through
+`copy_to_points` (identity forward, cotangents summed over the group)
+and `gather_from_points` (all-gather forward, this rank's rows of the
+cotangent backward), so every rank ends its backward with the single
+process's gradient. The gradients are then averaged over the whole world
+(`all_reduce_grads`), which keeps the replicas of a points group bit-
+equal where the card's atomics round their gradients apart. A run on a
+points mesh computes what one process computes, up to rounding.
 """
 
 from __future__ import annotations
@@ -42,6 +61,7 @@ import dataclasses
 import datetime
 import os
 import socket
+from typing import Any
 
 import numpy as np
 import torch
@@ -50,17 +70,26 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data-parallel world as one rank sees it, with its process
-    group's backend ("nccl" or "gloo")."""
+    """The (data, points) world as one rank sees it: its data index
+    `rank` of `size`, its points index `points_rank` of `points`, the
+    process group's backend ("nccl" or "gloo"), and its data group
+    `group` (the ranks of its points index; None, the default world, when
+    points is 1) and points group `points_group` (the ranks of its data
+    index)."""
 
     rank: int
     size: int
     device: torch.device
     backend: str = "gloo"
+    points: int = 1
+    points_rank: int = 0
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    points_group: Any = dataclasses.field(default=None, compare=False,
+                                          repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"data": self.size, "points": 1}
+        return {"data": self.size, "points": self.points}
 
 
 def captures(mesh: Mesh | None) -> bool:
@@ -108,24 +137,36 @@ def init_local_world(backend: str, timeout_s: int = 30) -> None:
 
 def make_mesh(data: int | None = None, points: int = 1,
               device: str | torch.device | None = None) -> Mesh:
-    """The mesh of the initialised process group. `data` must equal the
-    world size (None takes it); `device` is this rank's (default
-    cuda:LOCAL_RANK)."""
-    if points != 1:
-        raise NotImplementedError(
-            "a points mesh axis (--mesh_points > 1) is not ported: it shards "
-            "one cloud's O(N^2) distances over chips, which no cloud of the "
-            "recipes needs on one card (see ROADMAP.md)")
+    """The (data, points) mesh of the initialised process group: data x
+    points must equal the world size (`data` None takes world // points).
+    Every rank builds every data and points group, in the same order.
+    `device` is this rank's (default cuda:LOCAL_RANK)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: torch.distributed is not initialised "
                            "(init_distributed)")
-    size = dist.get_world_size()
-    if data is not None and data != size:
-        raise ValueError(f"mesh data axis {data} != world size {size}")
+    world = dist.get_world_size()
+    if points < 1:
+        raise ValueError(f"mesh points axis {points} < 1")
+    if data is None:
+        data = world // points
+    if data * points != world:
+        raise ValueError(f"mesh data x points = {data}x{points} != world "
+                         f"size {world}")
+    rank = dist.get_rank()
+    group = points_group = None
+    if points > 1:
+        for p in range(points):
+            g = dist.new_group([d * points + p for d in range(data)])
+            if p == rank % points:
+                group = g
+        for d in range(data):
+            g = dist.new_group([d * points + p for p in range(points)])
+            if d == rank // points:
+                points_group = g
     if device is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    return Mesh(dist.get_rank(), size, torch.device(device),
-                dist.get_backend())
+    return Mesh(rank // points, data, torch.device(device),
+                dist.get_backend(), points, rank % points, group, points_group)
 
 
 def _tree_map(fn, tree):
@@ -158,8 +199,8 @@ def shard_batch(mesh: Mesh | None, tree):
 
 @torch.no_grad()
 def replicate(mesh: Mesh | None, model: torch.nn.Module) -> torch.nn.Module:
-    """Broadcast every parameter and buffer of `model` from rank 0, in
-    place. The identity without a mesh."""
+    """Broadcast every parameter and buffer of `model` from global rank 0
+    over the world, in place. The identity without a mesh."""
     if mesh is not None:
         for t in list(model.parameters()) + list(model.buffers()):
             dist.broadcast(t.data, src=0)
@@ -182,13 +223,14 @@ def replicate_for_mesh(mesh: Mesh | None, state: torch.nn.Module,
 
 
 def fetch_global(x: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
-    """Every rank's rows of `x`, concatenated in rank order, on every rank
-    (an all-gather); `x` itself without a mesh."""
+    """Every data rank's rows of `x`, concatenated in rank order, on every
+    rank (an all-gather over the data group); `x` itself without a
+    mesh."""
     if mesh is None:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x)
+    dist.all_gather(parts, x, group=mesh.group)
     return torch.cat(parts)
 
 
@@ -215,15 +257,16 @@ def active_mesh() -> Mesh | None:
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the ranks of the active mesh, differentiable
-    (the backward sums the cotangents over the ranks); `t` itself outside
-    `data_parallel`."""
+    """The sum of `t` over the data ranks of the active mesh,
+    differentiable (the backward sums the cotangents over them); `t`
+    itself outside `data_parallel`."""
     mesh = _ACTIVE
     if mesh is None:
         return t
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(t)
+    return all_reduce(t, group=dist.group.WORLD if mesh.group is None
+                      else mesh.group)
 
 
 def global_count(count: torch.Tensor, floor: float) -> torch.Tensor:
@@ -239,9 +282,11 @@ def global_count(count: torch.Tensor, floor: float) -> torch.Tensor:
 
 @torch.no_grad()
 def all_reduce_grads(model: torch.nn.Module, mesh: Mesh | None) -> None:
-    """Average every gradient that is not None over the ranks, in one
-    flattened all-reduce. Which gradients are None is the same on every
-    rank: the recipe is."""
+    """Average every gradient that is not None over every rank of the
+    world, in one flattened all-reduce. Which gradients are None is the
+    same on every rank: the recipe is. The ranks of a points group hold
+    the same gradient (up to the rounding of the card's atomics), so this
+    is the data ranks' average, and it leaves their replicas bit-equal."""
     if mesh is None:
         return
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -249,7 +294,7 @@ def all_reduce_grads(model: torch.nn.Module, mesh: Mesh | None) -> None:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat)
-    flat /= mesh.size
+    flat /= mesh.size * mesh.points
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -259,25 +304,124 @@ def all_reduce_grads(model: torch.nn.Module, mesh: Mesh | None) -> None:
 @torch.no_grad()
 def average_metrics(m: dict, mesh: Mesh | None) -> dict:
     """The step's 0-d loss terms (tensors on the device) averaged over the
-    ranks (one all-reduce): the single-process values, the same on every
-    rank. Nothing here reads a value on the host, so a step graph holds
-    it."""
+    data ranks (one all-reduce): the single-process values, the same on
+    every rank. Nothing here reads a value on the host, so a step graph
+    holds it."""
     if mesh is None or not m:
         return m
     names = list(m)
     vals = torch.stack([m[k].float() for k in names])
-    dist.all_reduce(vals)
+    dist.all_reduce(vals, group=mesh.group)
     vals /= mesh.size
     return dict(zip(names, vals.unbind()))
 
 
-class points_sharding(contextlib.nullcontext):
-    """The JAX package's points-axis context; a no-op here (no points
-    axis)."""
-
-    def __init__(self, mesh: Mesh | None = None):
-        super().__init__(None)
+# The points mesh whose O(N^2) producers split their rows now: the ops
+# read it (`split_points`), as the JAX package's `pairwise_sqdist` reads
+# its `points_sharding` context while a step traces.
+_ACTIVE_POINTS: Mesh | None = None
 
 
-def active_points_mesh() -> None:
-    return None
+@contextlib.contextmanager
+def points_sharding(mesh: Mesh | None):
+    """Split the block's O(N^2) producers over the points axis of `mesh`
+    (nothing changes with None or a points axis of 1)."""
+    global _ACTIVE_POINTS
+    active = mesh if mesh is not None and mesh.points > 1 else None
+    prev, _ACTIVE_POINTS = _ACTIVE_POINTS, active
+    try:
+        yield active
+    finally:
+        _ACTIVE_POINTS = prev
+
+
+def active_points_mesh() -> Mesh | None:
+    return _ACTIVE_POINTS
+
+
+def points_rows(n: int, mesh: Mesh) -> tuple[int, int]:
+    """(q0, nq): this rank's rows [q0, q0 + nq) of n, in blocks of
+    ceil(n / points) in points order (the last blocks may be short or
+    empty)."""
+    per = -(-n // mesh.points)
+    q0 = min(mesh.points_rank * per, n)
+    return q0, min(per, n - q0)
+
+
+def gather_points(t: torch.Tensor, n: int, mesh: Mesh) -> torch.Tensor:
+    """The points group's rows of t [B, nq, ...] (each rank's
+    `points_rows(n, mesh)`) along dim 1: each padded to ceil(n / points)
+    so that every rank sends one shape, all-gathered in points order and
+    trimmed to n. No gradient (`gather_from_points` has one)."""
+    per = -(-n // mesh.points)
+    dtype = t.dtype
+    t = (t.to(torch.uint8) if dtype == torch.bool else t).contiguous()
+    if t.shape[1] < per:
+        t = torch.cat([t, t.new_zeros((t.shape[0], per - t.shape[1],
+                                       *t.shape[2:]))], 1)
+    parts = [torch.empty_like(t) for _ in range(mesh.points)]
+    dist.all_gather(parts, t, group=mesh.points_group)
+    return torch.cat(parts, 1)[:, :n].to(dtype)
+
+
+class _CopyToPoints(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the points
+    group (each rank's holds the part its rows produced)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.mesh.points_group)
+        return g, None
+
+
+class _GatherFromPoints(torch.autograd.Function):
+    """All-gather of the rows forward; the backward keeps this rank's
+    rows of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, rows, n, mesh):
+        ctx.q0, ctx.nq = points_rows(n, mesh)
+        return gather_points(rows, n, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.q0:ctx.q0 + ctx.nq].contiguous(), None, None
+
+
+def copy_to_points(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _CopyToPoints.apply(x, mesh)
+
+
+def gather_from_points(rows: torch.Tensor, n: int,
+                       mesh: Mesh) -> torch.Tensor:
+    return _GatherFromPoints.apply(rows, n, mesh)
+
+
+def split_points(fn, x: torch.Tensor, *rest) -> torch.Tensor:
+    """`fn(x, *rest)`, with each query row of x [B, N, ...] computed once
+    over the active points mesh: each rank takes `fn(x[:, q0:q0 + nq],
+    *rest)` on its rows (`points_rows`), a tensor [B, nq, ...], and the
+    rows are all-gathered along dim 1 over the points group.
+    Differentiable: the inputs go through `copy_to_points` and the result
+    through `gather_from_points` where a gradient is recorded. Without an
+    active points mesh, `fn(x, *rest)`."""
+    mesh = _ACTIVE_POINTS
+    if mesh is None:
+        return fn(x, *rest)
+    n = x.shape[1]
+    q0, nq = points_rows(n, mesh)
+    grad = torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in (x, *rest))
+    if grad:
+        x, *rest = (copy_to_points(t, mesh) if isinstance(t, torch.Tensor)
+                    and t.requires_grad else t for t in (x, *rest))
+    out = fn(x[:, q0:q0 + nq], *rest)
+    if grad and out.requires_grad:
+        return gather_from_points(out, n, mesh)
+    return gather_points(out, n, mesh)

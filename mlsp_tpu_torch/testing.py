@@ -29,20 +29,25 @@ _normals = importlib.import_module("mlsp_tpu_torch.ops.normals")
 U32 = 2.0 ** -24  # float32 unit roundoff
 
 
-def knn_set_gap(x: torch.Tensor, got: torch.Tensor,
-                want: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def knn_set_gap(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor,
+                rows: tuple[int, int] | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(gap, tol), each [B, N], for two neighbour-index sets [B, N, k] of
-    x [B, N, C]: the largest difference of the rows' sorted float64
+    x [B, N, C] (with `rows=(q0, nq)`, [B, nq, k] sets of the queries
+    [q0, q0 + nq)): the largest difference of the rows' sorted float64
     distances, and the float32 rounding bound of the distance formula,
     4 (C + 3) u (‖q‖² + max_j ‖x_j‖²). Two correct float32 programs may
     pick different near ties, so rows within tol hold the same
     neighbourhood."""
     xd = x.double()
+    q0, nq = (0, x.shape[1]) if rows is None else rows
     sq = xd.square().sum(-1)
-    d = sq[:, :, None] + sq[:, None, :] - 2 * xd @ xd.transpose(1, 2)
+    sq_q = sq[:, q0:q0 + nq]
+    d = (sq_q[:, :, None] + sq[:, None, :]
+         - 2 * xd[:, q0:q0 + nq] @ xd.transpose(1, 2))
     gap = (torch.sort(torch.gather(d, -1, got), -1).values
            - torch.sort(torch.gather(d, -1, want), -1).values).abs().amax(-1)
-    tol = 4 * (x.shape[-1] + 3) * U32 * (sq + sq.amax(-1, keepdim=True))
+    tol = 4 * (x.shape[-1] + 3) * U32 * (sq_q + sq.amax(-1, keepdim=True))
     return gap, tol
 
 
@@ -88,15 +93,18 @@ def grad_gaps(got: dict, want: dict) -> dict[str, float]:
 
 class Tape:
     """The discrete choices of one run, in call order: the kNN graphs it
-    builds (K1's, K3's selection or the plain version's) and its FPS
-    orders. `record()` takes them from a run; `replay()` hands them to a
-    second run on the plain versions in the same order, and counts how
-    many of that run's own choices differed."""
+    builds (K1's, K3's selection or the plain version's; on a points mesh
+    a rank's query rows, `rows` (q0, nq), else None) and its FPS orders.
+    `record()` takes them from a run; `replay()` hands them to a second
+    run on the plain versions in the same order, and counts how many of
+    that run's own choices differed."""
 
     def __init__(self, graphs=(), orders=()):
         self.graphs, self.orders = list(graphs), list(orders)
+        self.rows = [None] * len(self.graphs)
         self.own_graph_rows_differ = self.own_order_entries_differ = 0
-        self.knn_launches = []  # (x, k, K1's graph) of each recorded K1 call
+        # (x, k, K1's graph, rows) of each recorded K1 call
+        self.knn_launches = []
 
     @contextlib.contextmanager
     def record(self):
@@ -107,12 +115,19 @@ class Tape:
                 return out
             return wrapped
 
-        knn_cuda = _knn.knn_cuda
+        knn_cuda, knn_torch = _knn.knn_cuda, _knn.knn_indices_torch
 
-        def knn(x, k):
-            idx = knn_cuda(x, k)
+        def knn(x, k, *rows):
+            idx = knn_cuda(x, k, *rows)
             self.graphs.append(idx)
-            self.knn_launches.append((x, k, idx))
+            self.rows.append(rows[0] if rows else None)
+            self.knn_launches.append((x, k, idx, self.rows[-1]))
+            return idx
+
+        def plain(x, k, *rows):
+            idx = knn_torch(x, k, *rows)
+            self.graphs.append(idx)
+            self.rows.append(rows[0] if rows else None)
             return idx
 
         moments_cuda = _normals.knn_moments_cuda
@@ -120,11 +135,11 @@ class Tape:
         def moments(x, k):
             s1, s2, idx = moments_cuda(x, k, return_indices=True)
             self.graphs.append(idx)
+            self.rows.append(None)
             return s1, s2
 
         with mock.patch.object(_knn, "knn_cuda", knn), \
-                mock.patch.object(_knn, "knn_indices_torch",
-                                  keep(_knn.knn_indices_torch, self.graphs)), \
+                mock.patch.object(_knn, "knn_indices_torch", plain), \
                 mock.patch.object(_normals, "knn_moments_cuda", moments), \
                 mock.patch.object(_fps, "fps_cuda",
                                   keep(_fps.fps_cuda, self.orders)), \
@@ -134,14 +149,14 @@ class Tape:
 
     def knn_against_plain(self) -> list[dict]:
         """Each recorded K1 graph against the plain kNN of the same input
-        (`knn_set_gap`): its shape, k, the share of rows with equal
-        indices and the largest distance gap over its rounding bound (a
-        correct graph stays at or under 1)."""
+        and rows (`knn_set_gap`): its shape, rows, k, the share of rows
+        with equal indices and the largest distance gap over its rounding
+        bound (a correct graph stays at or under 1)."""
         out = []
-        for x, k, idx in self.knn_launches:
-            plain = _knn.knn_indices_torch(x, k)
-            gap, tol = knn_set_gap(x, idx, plain)
-            out.append({"shape": list(x.shape), "k": k,
+        for x, k, idx, rows in self.knn_launches:
+            plain = _knn.knn_indices_torch(x, k, rows)
+            gap, tol = knn_set_gap(x, idx, plain, rows)
+            out.append({"shape": list(x.shape), "rows": rows, "k": k,
                         "rows_same_indices": float(
                             (idx == plain).all(-1).float().mean()),
                         "max_gap_over_tol": float((gap / tol).max())})
@@ -160,8 +175,8 @@ class Tape:
                                    f"recorded run did not build")
             return want.to(device=like.device, dtype=like.dtype)
 
-        def knn(x, k):
-            own = knn_torch(x, k)
+        def knn(x, k, *rows):
+            own = knn_torch(x, k, *rows)
             want = take(graphs, "kNN graph", own)
             self.own_graph_rows_differ += int(
                 (own.sort(-1).values != want.sort(-1).values).any(-1).sum())
@@ -230,7 +245,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, world, port, backend, device, timeout_s, fn, args, q):
+def _rank_main(rank, world, points, port, backend, device, timeout_s, fn,
+               args, q):
     from mlsp_tpu_torch import parallel
 
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
@@ -238,7 +254,7 @@ def _rank_main(rank, world, port, backend, device, timeout_s, fn, args, q):
     try:
         torch.set_num_threads(1)
         parallel.init_distributed(backend, timeout_s=timeout_s)
-        mesh = parallel.make_mesh(world, device=device)
+        mesh = parallel.make_mesh(world // points, points, device=device)
         q.put((rank, True, fn(mesh, *args)))
     except BaseException:  # reported to the parent, which raises
         q.put((rank, False, traceback.format_exc()))
@@ -248,16 +264,18 @@ def _rank_main(rank, world, port, backend, device, timeout_s, fn, args, q):
 
 
 def run_ranks(world: int, fn, *args, backend: str = "gloo",
-              device: str = "cpu", timeout_s: int = 60) -> list:
+              device: str = "cpu", timeout_s: int = 60,
+              points: int = 1) -> list:
     """`fn(mesh, *args)` on `world` spawned processes joined in one process
-    group (`backend`, each on `device`); their results (picklable, no
-    tensors) by rank. A rank that raises makes this raise with its
-    traceback; every process is joined or killed before returning."""
+    group (`backend`, each on `device`) as a mesh of world / points data x
+    `points` points ranks; their results (picklable, no tensors) by
+    global rank. A rank that raises makes this raise with its traceback;
+    every process is joined or killed before returning."""
     ctx = torch.multiprocessing.get_context("spawn")
     q = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, args=(
-        r, world, port, backend, device, timeout_s, fn, args, q))
+        r, world, points, port, backend, device, timeout_s, fn, args, q))
         for r in range(world)]
     for p in procs:
         p.start()
@@ -293,20 +311,53 @@ def _numpy(t) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def step_case(mesh, case: dict, tape: "Tape | None" = None) -> dict:
+@contextlib.contextmanager
+def _loss_inputs(into: dict):
+    """Keep the tensors the first call of a step's loss function is given
+    (the augmented global batch, the draws, the labels) in `into`, as
+    numpy, by argument position and key."""
+    mods = [importlib.import_module(f"mlsp_tpu_torch.train.{m}")
+            for m in ("steps", "seg_steps", "spst")]
+    names = ("pointda_losses", "pointsegda_losses", "spst_losses")
+
+    def keep(fn):
+        def wrapped(model, cfg, *args, **kwargs):
+            if not into:
+                for i, a in enumerate(args):
+                    for k, v in (a.items() if isinstance(a, dict)
+                                 else [("", a)]):
+                        if isinstance(v, torch.Tensor):
+                            into[f"{i}.{k}"] = _numpy(v)
+            return fn(model, cfg, *args, **kwargs)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for mod, name in zip(mods, names):
+            stack.enter_context(mock.patch.object(mod, name,
+                                                  keep(getattr(mod, name))))
+        yield into
+
+
+def step_case(mesh, case: dict, tape: "Tape | None" = None,
+              split_points: bool = True) -> dict:
     """One train step of `case["kind"]` ("pointda", "seg" or "spst") from
     `case`'s model ("model", "num_class", "kwargs", "state": a CPU
     state_dict), config ("cfg"), global batch ("batch": CPU tensors) and
     generator seed ("seed"), on `case["device"]`, as a rank of `mesh` or,
     with None, as one process. With `tape` the run replays its kNN graphs
-    and FPS orders; without, a rank records its own and returns them.
+    and FPS orders; without, a rank records its own and returns them. On
+    a points mesh the step runs under `points_sharding`; with
+    `split_points` False every rank of a points group does the whole
+    O(N^2) work itself (the data-parallel step).
 
     Returns numpy: "metrics" (the loss terms), "grads" (the gradients the
     update used, by parameter), "state" (the state_dict after it),
-    "launches" (this process's kernel launches in the step) and with
-    recording "graphs", "orders" and "knn_against_plain" (each K1 launch
-    of the step against the plain kNN of its input, `Tape.knn_against_plain`;
-    empty without a card)."""
+    "launches" (this process's kernel launches in the step), "draws"
+    (the augmented batch and the draws the losses took, `_loss_inputs`)
+    and with recording "graphs", "graph_rows", "orders" and
+    "knn_against_plain" (each K1 launch of the step against the plain kNN
+    of its input, `Tape.knn_against_plain`; empty without a card)."""
+    from mlsp_tpu_torch import parallel
     from mlsp_tpu_torch.models import make_model
     from mlsp_tpu_torch.ops import kernels
     from mlsp_tpu_torch.train import make_optimizer
@@ -324,7 +375,9 @@ def step_case(mesh, case: dict, tape: "Tape | None" = None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(case["seed"])
     record = Tape() if tape is None else None
     kernels.reset_launches()
-    with (record.record() if record is not None else tape.replay()):
+    with (record.record() if record is not None else tape.replay()), \
+            parallel.points_sharding(mesh if split_points else None), \
+            _loss_inputs({}) as draws:
         if case["kind"] == "spst":
             opt = make_epoch_lr_optimizer(model, cfg.optimizer, cfg.lr,
                                           cfg.wd, cfg.momentum)
@@ -344,23 +397,33 @@ def step_case(mesh, case: dict, tape: "Tape | None" = None) -> dict:
            "grads": {n: _numpy(p.grad) for n, p in model.named_parameters()
                      if p.grad is not None},
            "state": {k: _numpy(v) for k, v in model.state_dict().items()},
-           "launches": kernels.launches()}
+           "launches": kernels.launches(), "draws": draws}
     if record is not None:
         out["graphs"] = [g.cpu().numpy() for g in record.graphs]
+        out["graph_rows"] = record.rows
         out["orders"] = [o.cpu().numpy() for o in record.orders]
         out["knn_against_plain"] = record.knn_against_plain()
     return out
 
 
-def step_cases(mesh, cases: list, planted: list | None = None) -> list:
+def step_cases(mesh, cases: list, planted: list | None = None,
+               split_points: bool = True) -> list:
     """`step_case` of each case in turn (one spawn for several). A case
     whose entry of `planted` is true runs under `local_batch_norm`."""
     planted = planted or [False] * len(cases)
     out = []
     for case, fault in zip(cases, planted):
         with (local_batch_norm(mesh) if fault else contextlib.nullcontext()):
-            out.append(step_case(mesh, case))
+            out.append(step_case(mesh, case, split_points=split_points))
     return out
+
+
+def points_step_cases(mesh, cases: list) -> dict:
+    """On a rank of a points mesh: "split", `step_cases` of `cases`, and
+    "whole", the same steps with every rank of a points group doing the
+    whole O(N^2) work itself."""
+    return {"split": step_cases(mesh, cases),
+            "whole": step_cases(mesh, cases, split_points=False)}
 
 
 @contextlib.contextmanager
@@ -391,7 +454,7 @@ def losses_case(mesh, case: dict) -> dict:
     model = make_model(case["model"], case["num_class"], device=dev,
                        **case["kwargs"])
     model.load_state_dict(case["state"])
-    with parallel.data_parallel(mesh):
+    with parallel.data_parallel(mesh), parallel.points_sharding(mesh):
         total, m = pointda_losses(model, case["cfg"], case["batch"],
                                   case["draws"], None)
         total.backward()
@@ -402,16 +465,25 @@ def losses_case(mesh, case: dict) -> dict:
                       if p.grad is not None}}
 
 
-def merge_rank_tapes(results: list, batch: int) -> "Tape":
-    """The single-process Tape of a data-parallel run's recorded choices:
-    a graph the ranks built on the global batch (`batch` clouds: the
-    normal labels) is taken from rank 0, one built on each rank's rows
-    (the forwards) is the ranks' graphs concatenated in rank order; the
-    FPS orders (PCM, on the global batch) are rank 0's."""
+def merge_rank_tapes(results: list, batch: int, points: int = 1) -> "Tape":
+    """The single-process Tape of a data-parallel run's recorded choices
+    (`results` by global rank): on a points mesh the query rows of each
+    graph (`graph_rows`) are first joined over the `points` ranks of a
+    data index, in points order; then a graph the ranks built on the
+    global batch (`batch` clouds: the normal labels) is taken from rank
+    0, one built on each rank's rows (the forwards) is the data ranks'
+    graphs concatenated in rank order; the FPS orders (PCM, on the global
+    batch) are rank 0's."""
+    whole = []
+    for d in range(0, len(results), points):
+        group = results[d:d + points]
+        whole.append([
+            parts[0] if rows is None else np.concatenate(parts, 1)
+            for rows, *parts in zip(group[0]["graph_rows"],
+                                    *(r["graphs"] for r in group))])
     graphs = []
-    for parts in zip(*(r["graphs"] for r in results)):
+    for parts in zip(*whole):
         g = (parts[0] if parts[0].shape[0] == batch
              else np.concatenate(parts))
         graphs.append(torch.from_numpy(g))
     return Tape(graphs, [torch.from_numpy(o) for o in results[0]["orders"]])
-

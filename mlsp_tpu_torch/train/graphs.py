@@ -43,6 +43,10 @@ refuse CPU tensors: on the CPU the scan functions take their steps
 eagerly. The kernels' launchers need no change to be captured: their
 per-launch `cudaFuncSetAttribute` is host-side and legal while a stream
 captures in torch's global mode (`scripts/torch_capture_probe.py`).
+Under an NCCL (data, points) mesh the step graph holds the points
+group's collectives (the gathered kNN rows, Chamfer's cotangent sums)
+beside the data group's: the warm-up step runs every one of them, so
+each group's communicator exists before the capture.
 """
 
 from __future__ import annotations

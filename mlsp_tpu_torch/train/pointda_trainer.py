@@ -55,6 +55,7 @@ from mlsp_tpu_torch.parallel.mesh import (
     Mesh,
     captures,
     fetch_global,
+    points_sharding,
     replicate_for_mesh,
     shard_batch,
 )
@@ -109,7 +110,8 @@ def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
     one copy of the indices in, one of the logits out. The model's mode is
     restored afterwards. With a mesh each rank forwards its rows of every
     batch eagerly (padded with the batch's last index to a multiple of the
-    ranks) and every rank gets all the logits (`fetch_global`)."""
+    data ranks; on a points mesh under `points_sharding`) and every rank
+    gets all the logits (`fetch_global`)."""
     device = next(model.parameters()).device
     x = torch.as_tensor(data, device=device)
     idx = torch.from_numpy(np.stack(sels)).to(device)
@@ -125,7 +127,7 @@ def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
     was_training = model.training
     model.eval()
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), points_sharding(mesh):
             out = torch.stack([model(x[i])[output] for i in idx])
     finally:
         model.train(was_training)
@@ -262,7 +264,8 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
     replicated from rank 0, each step takes the global batch and forwards
     the rank's rows with the gradients averaged over the ranks, evaluation
     is split over the ranks and gathered on each, and only rank 0 writes
-    files."""
+    files. On a points axis the steps and eval forwards run under
+    `points_sharding(mesh)`."""
     cfg = cfg.resolved()
     device = resolve_device(cfg.device or None)
     all_heads = validate_heads(cfg)
@@ -317,12 +320,17 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
     def gather(s, t):
         return src_x[s], src_y[s], trgt_x[t]
 
+    # the steps split their O(N^2) work over a points axis, as JAX's
+    # trainer traces them under `points_sharding`
     def scan(*chunk):
-        return pointda_train_scan(model, opt, sched, *chunk, gen, cfg, graphs,
-                                  mesh)
+        with points_sharding(mesh):
+            return pointda_train_scan(model, opt, sched, *chunk, gen, cfg,
+                                      graphs, mesh)
 
     def step(*batch):
-        return pointda_train_step(model, opt, sched, *batch, gen, cfg, mesh)
+        with points_sharding(mesh):
+            return pointda_train_step(model, opt, sched, *batch, gen, cfg,
+                                      mesh)
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()

@@ -39,7 +39,11 @@ import torch
 
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.models import make_model, model_kwargs
-from mlsp_tpu_torch.parallel.mesh import Mesh, replicate_for_mesh
+from mlsp_tpu_torch.parallel.mesh import (
+    Mesh,
+    points_sharding,
+    replicate_for_mesh,
+)
 from mlsp_tpu_torch.train.graphs import Graphs
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.pointda_trainer import (
@@ -172,12 +176,14 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
         return src_x[s], src_y[s], trgt_x[t]
 
     def scan(*chunk):
-        return pointsegda_train_scan(model, opt, sched, *chunk, gen, cfg,
-                                     graphs, mesh)
+        with points_sharding(mesh):
+            return pointsegda_train_scan(model, opt, sched, *chunk, gen, cfg,
+                                         graphs, mesh)
 
     def step(*batch):
-        return pointsegda_train_step(model, opt, sched, *batch, gen, cfg,
-                                     mesh)
+        with points_sharding(mesh):
+            return pointsegda_train_step(model, opt, sched, *batch, gen, cfg,
+                                         mesh)
 
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()

@@ -53,6 +53,7 @@ from mlsp_tpu_torch.parallel.mesh import (
     all_reduce_grads,
     average_metrics,
     data_parallel,
+    points_sharding,
     replicate_for_mesh,
     shard_batch,
 )
@@ -354,15 +355,18 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
                 if pairs:
                     sel = torch.from_numpy(np.asarray(pairs)).to(device)
                     weights = (spl_weight, cls_weight)
-                    steps = train_epoch(  # sel: [P, 2, B], (target, source)
-                        sel,
-                        lambda t, s: (pcs[t], plabels[t], src_x[s], src_y[s]),
-                        lambda *chunk: spst_train_scan(
-                            model, opt, *chunk, *weights, gen, cfg, graphs,
-                            mesh),
-                        lambda *batch: spst_train_step(
-                            model, opt, *batch, *weights, gen, cfg, mesh),
-                        cfg.scan_steps)
+                    with points_sharding(mesh):
+                        steps = train_epoch(  # sel: [P, 2, B], (trgt, src)
+                            sel,
+                            lambda t, s: (pcs[t], plabels[t], src_x[s],
+                                          src_y[s]),
+                            lambda *chunk: spst_train_scan(
+                                model, opt, *chunk, *weights, gen, cfg,
+                                graphs, mesh),
+                            lambda *batch: spst_train_step(
+                                model, opt, *batch, *weights, gen, cfg,
+                                mesh),
+                            cfg.scan_steps)
                 meters = MeterDict()
                 for m in fetch_metrics(steps):
                     meters.update(m, n=B)

@@ -15,9 +15,15 @@ JAX package's draws to the apply and hold it exactly.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from mlsp_tpu_torch.ops.pairwise import self_sqdist
+from mlsp_tpu_torch.ops.pairwise import pairwise_sqdist
+from mlsp_tpu_torch.parallel.mesh import (
+    active_points_mesh,
+    gather_points,
+    points_rows,
+)
 
 NREGIONS = 3
 MIN_PTS = 40  # deform_input's local min_pts (mlsp.py:27)
@@ -89,12 +95,30 @@ def collapse_to_point_batch(x: torch.Tensor, gumbel: torch.Tensor,
     within RADIUS that maximises `gumbel` (a uniform choice among them) and
     collapse its RADIUS ball to GAUSS_STD·noise around it.
 
+    Under an active points mesh each rank takes its rows of the distance
+    matrix: the eligible points are gathered, and the picked point's row
+    of `within` comes from the rank that holds it (one all-reduce over
+    the points group), bit for bit the row of the whole matrix.
+
     Returns (deformed [B, N, 3], mask [B, N])."""
-    within = self_sqdist(x) <= RADIUS ** 2
+    B, N = x.shape[:2]
+    mesh = active_points_mesh()
+    q0, nq = (0, N) if mesh is None else points_rows(N, mesh)
+    within = pairwise_sqdist(x[:, q0:q0 + nq], x) <= RADIUS ** 2
     eligible = within.sum(-1) >= RADIUS_MIN_POINTS
+    if mesh is not None:
+        eligible = gather_points(eligible, N, mesh)
     pick = torch.where(eligible, gumbel, float("-inf")).argmax(-1)  # [B]
-    rows = torch.arange(x.shape[0], device=x.device)
+    rows = torch.arange(B, device=x.device)
     point = x[rows, pick][:, None, :]
-    mask = within[rows, pick]  # [B, N]
+    if mesh is None:
+        mask = within[rows, pick]  # [B, N]
+    else:
+        mine = torch.zeros((B, N), dtype=torch.int32, device=x.device)
+        if nq:
+            own = ((pick >= q0) & (pick < q0 + nq))[:, None]
+            mine = (within[rows, (pick - q0).clamp(0, nq - 1)] & own).int()
+        dist.all_reduce(mine, group=mesh.points_group)
+        mask = mine > 0
     deformed = torch.where(mask[..., None], point + GAUSS_STD * noise, x)
     return deformed, mask.to(x.dtype)

@@ -7,7 +7,8 @@
 #               and checkpoint interop (`vit_interop`), segmentation and
 #               AOT bundles (`serving_g2`), data-parallel training, native
 #               ingest and calibrate (`ddp_ingest`), the step graphs of
-#               `scan_steps` (`step_graphs`), the times
+#               `scan_steps` (`step_graphs`), the points axis as gloo
+#               ranks sharing the card (`points_mesh`), the times
 #   cuda_tests  the card-only tests (pytest -m cuda; --noconftest, since
 #               tests/conftest.py imports JAX), among them the AOT bundle
 #               moved to the card and two gloo ranks sharing it

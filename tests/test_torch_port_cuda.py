@@ -103,6 +103,36 @@ def test_knn_kernel_exact_order_on_integer_points(card, k, C, N):
                            want)
 
 
+# (N, q0, nq, k) of K1's query range (a points mesh rank's rows): halves
+# and quarters of the DGCNN clouds, a q0 off the 32-query tile, a ragged
+# last tile, nq below k and one query, the range ending at the cloud's end
+KNN_RANGES = [(1024, 0, 512, 20), (1024, 512, 512, 20), (1024, 768, 256, 20),
+              (1024, 45, 300, 20), (1000, 500, 500, 20), (1024, 1017, 7, 20),
+              (2048, 33, 5, 20), (64, 63, 1, 32), (37, 19, 18, 9)]
+
+
+@pytest.mark.parametrize("N,q0,nq,k", KNN_RANGES)
+@pytest.mark.parametrize("C", [3, 64, 128])
+@pytest.mark.parametrize("cloud", ["random", "integer", "zeros"])
+def test_knn_kernel_query_range_equals_whole_rows(card, N, q0, nq, k, C,
+                                                  cloud):
+    """K1 on the queries [q0, q0 + nq) equals rows q0 .. q0 + nq - 1 of the
+    whole launch, index for index, on random clouds, integer clouds (many
+    exact ties) and clouds with a quarter of exact-zero points (a scan
+    batch's ties); a range outside the cloud raises."""
+    shape = (3, N, C)
+    x = (_int_cloud(N + q0 + C, shape, card) if cloud == "integer"
+         else _x(N + q0 + C, shape, card))
+    if cloud == "zeros":
+        x[:, ::4] = 0.0
+    whole = knn_cuda(x, k)
+    got = knn_cuda(x, k, (q0, nq))
+    assert got.shape == (3, nq, k)
+    assert torch.equal(got, whole[:, q0:q0 + nq])
+    with pytest.raises(ValueError, match="outside"):
+        knn_cuda(x, k, (q0, N - q0 + 1))
+
+
 @pytest.mark.parametrize("C", [3, 64])
 def test_knn_kernel_one_repeated_point(card, C):
     """Every distance 0: each row is 0 .. k-1 (ties to the lower index)."""

@@ -241,15 +241,24 @@ def test_global_batch_norm_equals_one_process_batch_norm():
                                        err_msg=k)
 
 
+def _points_refusal(mesh) -> str:
+    """make_mesh(points=3) on a rank of a world of 2: the error."""
+    with pytest.raises(ValueError) as e:
+        parallel.make_mesh(points=3)
+    return str(e.value)
+
+
 def test_replicate_for_mesh_refuses_an_indivisible_batch():
-    """The JAX package's message, word for word."""
+    """The JAX package's message, word for word; and a points axis that
+    does not divide the world (3 over 2 ranks) raises ValueError on every
+    rank."""
     mesh = parallel.Mesh(rank=0, size=2, device=torch.device("cpu"))
     with pytest.raises(ValueError, match=r"batch_size 5 not divisible by the "
                        r"mesh data axis \(2 devices\)"):
         parallel.replicate_for_mesh(mesh, torch.nn.Linear(2, 2), 5)
     assert parallel.replicate_for_mesh(None, "state", 5) == "state"
-    with pytest.raises(NotImplementedError, match="mesh_points"):
-        parallel.make_mesh(points=2)
+    for msg in run_ranks(2, _points_refusal):
+        assert "0x3 != world size 2" in msg, msg
 
 
 class _Log:
