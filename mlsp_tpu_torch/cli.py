@@ -11,6 +11,7 @@
     python -m mlsp_tpu_torch.cli eval --from_torch True --model_file model.pt
     python -m mlsp_tpu_torch.cli aot --model_file experiments/MLSP/model.ckpt
     python -m mlsp_tpu_torch.cli calibrate
+    python -m mlsp_tpu_torch.cli download --task pointda --dataroot ./data
     torchrun --nproc_per_node 2 -m mlsp_tpu_torch.cli trainer --mesh_data 2
 
 Every config field but the test-only `debug_*` ones is a flag; booleans
@@ -22,9 +23,9 @@ takes the port's checkpoints and the JAX package's `.ckpt` files, and with
 `--from_torch True` a reference `model.pt`. `--mesh_data R` trains
 data-parallel on R processes started by torchrun (NCCL between cards,
 gloo with `--device cpu`; R = 1 without torchrun starts a world of one);
-each rank runs on cuda:LOCAL_RANK unless `--device` says otherwise. Not
-ported (ROADMAP.md): `download` (it fetches over the network) and
-`--mesh_points > 1`.
+each rank runs on cuda:LOCAL_RANK unless `--device` says otherwise;
+`--mesh_points P` splits each cloud's points over P of them. `download`
+fetches a dataset with gdown and needs a network.
 """
 
 from __future__ import annotations
@@ -178,6 +179,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "(a torch.export eval program with its weights; loads "
                     "and runs with NO model code)")
     _add_config_args(p_aot, EvalConfig)
+    p_dl = sub.add_parser(
+        "download", help="fetch and extract a benchmark dataset (as the "
+                         "reference's download scripts; needs a network "
+                         "and gdown)")
+    p_dl.add_argument("--task", choices=("pointda", "pointsegda"),
+                      default="pointda")
+    p_dl.add_argument("--dataroot", default="./data")
     p_cal = sub.add_parser(
         "calibrate", help="time this card's EdgeConv neighbourhood "
                           "statistics, the gather route against the kernels, "
@@ -198,6 +206,13 @@ def main(argv=None) -> int:
     from mlsp_tpu_torch.utils.device import resolve_device
 
     args = build_parser().parse_args(argv)
+    if args.command == "download":
+        from mlsp_tpu_torch.data import download
+
+        fetch = (download.download_pointda if args.task == "pointda"
+                 else download.download_pointsegda)
+        print(f"dataset extracted under {fetch(args.dataroot)}")
+        return 0
     if args.command == "calibrate":
         from mlsp_tpu_torch.utils import chipcal
 

@@ -6,8 +6,10 @@ on request, sum and sum of squares of u over its k nearest neighbours in
 xg. The TPU kernel rebuilt the kNN selection as a mask and reduced with
 mask matmuls because Mosaic has no in-kernel gather; on the card the graph
 comes from the kNN kernel (K1), a second kernel gathers the neighbour rows
-(K2-fwd) and a third scatters the gradient back (K2-bwd), tied together as
-a `torch.autograd.Function`. The graph features get no gradient, as in the
+(K2-fwd) and a third scatters the gradient back (K2-bwd), in fixed point so
+that its sums do not depend on their order: the same inputs give the same
+du on every run, as on the TPU. The three are tied together as a
+`torch.autograd.Function`. The graph features get no gradient, as in the
 JAX package: the selection is piecewise constant in xg.
 """
 

@@ -4,8 +4,9 @@ the forward (K2-fwd) and the backward (K2-bwd) of `edge_pallas.edge_moments`.
 Each launches its kernel on CUDA tensors or raises; neither falls back.
 `ops.edge.edge_moments` ties them together as a `torch.autograd.Function`;
 the plain version is `ops.edge.edge_moments_torch`, differentiated by
-autograd. `plan` picks each launch's shape; it launches nothing, so the
-CPU tests call it.
+autograd. `plan` picks each launch's shape and `fixed_point_split` is
+K2-bwd's pre-pass in plain PyTorch; neither launches anything, so the CPU
+tests call them.
 """
 
 from __future__ import annotations
@@ -20,10 +21,17 @@ from mlsp_tpu_torch.ops.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+MAX_THREADS = 1024  # threads a block (`csrc`'s MAX_THREADS)
 # Largest cloud: a block holds an [N, cs] slice of u (and, backward, of
 # du) in shared memory, at least one channel wide. 4x PointSegDA's 2048.
 N_MAX = 8192
-_TILE_LIMIT = 160 * 1024  # the tiles' share; the index chunks get the rest
+BWD_MAX_EDGES = 1 << 28  # N k of one cloud in K2-bwd (`csrc`'s limit)
+# The tiles' share; the index chunks get the rest. The backward's three
+# tiles may take more: 16-channel slices at N = 1024, with index chunks,
+# took 9.48 ms of K2-bwd an all-branch step on an H100 against 10.22 for
+# 8-channel slices with the whole index at once (the paper step: 2.31 and
+# 2.26, profiled).
+_TILE_LIMIT, _TILE_LIMIT_BWD = 160 * 1024, 200 * 1024
 _IDX_TARGET = 64 * 1024  # the index chunk's share, for the occupancy guess
 # Used only to size the grid: the H100's SMs, shared memory per SM and
 # the shared memory the runtime keeps per block.
@@ -49,9 +57,16 @@ def _tile_bytes(rows: int, cs: int) -> int:
     return (rows * cs * 4 + 15) // 16 * 16
 
 
+# The backward's block scratch after its tiles: 8 ints (`BWD_SCRATCH`)
+_BWD_SCRATCH_BYTES = 32
+
+
 def _tiles_bytes(N: int, cs: int, backward: bool) -> int:
-    """The u tile, or (backward) the u and du tiles with a spare row."""
-    return 2 * _tile_bytes(N + 1, cs) if backward else _tile_bytes(N, cs)
+    """The u tile, or (backward) the u tile and du's two 32-bit
+    accumulator tiles, each with a spare row, and the block scratch."""
+    if backward:
+        return 3 * _tile_bytes(N + 1, cs) + _BWD_SCRATCH_BYTES
+    return _tile_bytes(N, cs)
 
 
 def _idx_row_bytes(kc: int, backward: bool) -> int:
@@ -71,8 +86,21 @@ def plan(B: int, N: int, C: int, k: int, backward: bool) -> Plan:
                          f"shared memory")
     if min(B, C, k) < 1:
         raise ValueError(f"edge_moments: empty input B={B}, C={C}, k={k}")
+    if backward and N * k > BWD_MAX_EDGES:
+        raise ValueError(f"edge_moments_bwd: N k = {N * k} edges a cloud "
+                         f"above {BWD_MAX_EDGES}: its 32-bit sums could "
+                         f"overflow")
     cs = min(16 if backward else 32, 1 << (C - 1).bit_length())
-    while cs > 1 and _tiles_bytes(N, cs, backward) > _TILE_LIMIT:
+
+    def fits(cs: int) -> bool:
+        tiles = _tiles_bytes(N, cs, backward)
+        if not backward:
+            return tiles <= _TILE_LIMIT
+        # beside its tiles, a wave of whole index rows (kNN's k <= 32)
+        wave_rows = MAX_THREADS // cs * _idx_row_bytes(min(k, 32), True)
+        return tiles <= _TILE_LIMIT_BWD and tiles + wave_rows <= SMEM_LIMIT
+
+    while cs > 1 and not fits(cs):
         cs //= 2
     tile = _tiles_bytes(N, cs, backward)
     slices = -(-C // cs)
@@ -106,12 +134,52 @@ def plan(B: int, N: int, C: int, k: int, backward: bool) -> Plan:
                 tile + qc * _idx_row_bytes(kc, backward))
 
 
+def fixed_point_split(u: torch.Tensor, idx: torch.Tensor,
+                      dmx: torch.Tensor | None, dmn: torch.Tensor | None,
+                      ds1: torch.Tensor | None = None,
+                      ds2: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2-bwd's pre-pass in plain PyTorch: its fixed point per (cloud,
+    channel slice of `plan`), as (s int64 [B, slices], L int64 [B, 1]).
+    K2-bwd adds every term as an integer q in units of 2^-s, split as
+    q = h 2^L + l, 0 <= l < 2^L, into 32-bit sums of h and of l (the
+    comment above the kernel in `csrc/edge_moments.cu`). With D a cloud's
+    largest in-degree, L = 32 - bits(3D); s is the largest integer with
+    D (|ds1| + 2 |ds2| U + |dmx| + |dmn|) 2^s < 2^(30 + L), each maximum
+    over the slice's finite values and U the largest finite |u| of it.
+    The arguments are those of `edge_moments_bwd_cuda`, on any device."""
+    B, N, C = u.shape
+    cs = plan(B, N, C, idx.shape[-1], True).cs
+    slices = -(-C // cs)
+
+    def slice_max(t, scale=1.0):
+        if t is None:
+            return torch.zeros(B, slices, dtype=torch.float64,
+                               device=u.device)
+        a = (t.float() * scale).abs()
+        a = torch.where(torch.isfinite(a), a, torch.zeros_like(a))
+        a = torch.nn.functional.pad(a, (0, slices * cs - C))
+        return a.reshape(B, N, slices, cs).amax((1, 3)).double()
+
+    ok = (idx >= 0) & (idx < N)
+    degree = torch.zeros(B, N + 1, dtype=torch.long, device=u.device)
+    degree.scatter_add_(1, torch.where(ok, idx, N).reshape(B, -1),
+                        torch.ones_like(idx).reshape(B, -1))
+    d = degree[:, :N].amax(1, keepdim=True).clamp_min(1)
+    lbits = torch.tensor([[32 - (3 * v).bit_length()] for v in d.flatten()
+                          .tolist()], device=u.device)
+    most = d.double() * (slice_max(ds1) + slice_max(ds2, 2.0) * slice_max(u)
+                         + slice_max(dmx) + slice_max(dmn))
+    _, e2 = torch.frexp(most)  # most < 2^e2; 0 for most == 0
+    return 30 + lbits - e2.long(), lbits
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("edge_moments")
     lib.mlsp_edge_moments.argtypes = [_P] * 6 + [_I] * 11 + [_P]
     lib.mlsp_edge_moments.restype = _I
-    lib.mlsp_edge_moments_bwd.argtypes = [_P] * 9 + [_I] * 9 + [_P]
+    lib.mlsp_edge_moments_bwd.argtypes = [_P] * 10 + [_I] * 9 + [_P]
     lib.mlsp_edge_moments_bwd.restype = _I
     return lib
 
@@ -174,7 +242,8 @@ def edge_moments_bwd_cuda(u: torch.Tensor, idx: torch.Tensor,
     """du [B, N, C] float32 from the cotangents of (mx, mn, s1, s2), each
     [B, N, C] or None (no cotangent: its term is skipped); mx and mn are
     the forward's outputs for u and idx. Max and min cotangents are shared
-    equally among tied neighbours."""
+    equally among tied neighbours. The kernel sums in fixed point: the same
+    inputs give bit-equal du on every launch."""
     _check_graph("edge_moments_bwd_cuda", u, idx)
     B, N, C = u.shape
     k = idx.shape[-1]
@@ -193,13 +262,14 @@ def edge_moments_bwd_cuda(u: torch.Tensor, idx: torch.Tensor,
     cots = [operand(t) for t in (dmx, dmn, ds1, ds2)]
     idx = idx.contiguous()
     du = torch.empty_like(u)  # the kernel writes every element
+    degree = torch.empty(B, dtype=torch.int32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(_lib().mlsp_edge_moments_bwd(
             u.data_ptr(), idx.data_ptr(), mx.data_ptr(), mn.data_ptr(),
             *[None if t is None else t.data_ptr() for t in cots],
-            du.data_ptr(), B, N, C, k, *_plan_args(p, True), stream),
-            "edge_moments")
+            degree.data_ptr(), du.data_ptr(), B, N, C, k,
+            *_plan_args(p, True), stream), "edge_moments")
     edge_moments_bwd_cuda.launches += 1
     return du
 

@@ -49,9 +49,11 @@ points group (`split_points`); a differentiable one goes through
 and `gather_from_points` (all-gather forward, this rank's rows of the
 cotangent backward), so every rank ends its backward with the single
 process's gradient. The gradients are then averaged over the whole world
-(`all_reduce_grads`), which keeps the replicas of a points group bit-
-equal where the card's atomics round their gradients apart. A run on a
-points mesh computes what one process computes, up to rounding.
+(`all_reduce_grads`). The ranks of a points group reach it from the same
+inputs through the same kernels, each summing in a fixed order, so an
+average over the data group alone would give the same; one all-reduce
+over the world is kept. A run on a points mesh computes what one process
+computes, up to rounding.
 """
 
 from __future__ import annotations
@@ -285,8 +287,9 @@ def all_reduce_grads(model: torch.nn.Module, mesh: Mesh | None) -> None:
     """Average every gradient that is not None over every rank of the
     world, in one flattened all-reduce. Which gradients are None is the
     same on every rank: the recipe is. The ranks of a points group hold
-    the same gradient (up to the rounding of the card's atomics), so this
-    is the data ranks' average, and it leaves their replicas bit-equal."""
+    the same gradient (the same inputs through kernels that sum in a fixed
+    order), so this is the data ranks' average, and every replica ends
+    the step with the same bits."""
     if mesh is None:
         return
     grads = [p.grad for p in model.parameters() if p.grad is not None]

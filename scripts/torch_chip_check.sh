@@ -1,6 +1,6 @@
 #!/bin/bash
 # Check the PyTorch/CUDA port (mlsp_tpu_torch) on one CUDA card, from the
-# root of a checkout. Seven steps:
+# root of a checkout. Eight steps:
 #   smoke       python3 chip_smoke.py: every kernel against its plain
 #               version, the serving, train step, data pipeline, trainer
 #               CLI and eval/infer paths, the other families, Point-ViT
@@ -19,6 +19,8 @@
 #               (--all_branches)
 #   mesh_profile the PointDA step as the rank of an NCCL world of one
 #               beside the same step without a mesh (--mesh_data 1)
+#   repro       scripts/torch_step_repro.py: every recipe's and family's
+#               train step taken twice, eagerly and replayed, bit-equal
 #   alone       chip_smoke.py copied alone into an empty directory: it
 #               must exit non-zero, since it cannot run without the package
 #
@@ -26,8 +28,8 @@
 #
 # Each step's output goes to LOG_DIR/<step>.log; stdout gets one
 # "<step> rc=<exit code> seconds=<s>" line per step and the last lines of
-# the smoke and test logs. Exits 0 only when smoke, cuda_tests and the
-# four profiles exit 0 and alone does not.
+# the smoke and test logs. Exits 0 only when smoke, cuda_tests, the four
+# profiles and repro exit 0 and alone does not.
 set -u
 out=$(mkdir -p "${1:?usage: bash scripts/torch_chip_check.sh LOG_DIR}" \
       && cd "$1" && pwd) || exit 2
@@ -55,6 +57,8 @@ step all_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py \
   --all_branches || status=1
 step mesh_profile env PYTHONPATH=. python3 scripts/torch_train_profile.py \
   --mesh_data 1 || status=1
+step repro python3 scripts/torch_step_repro.py || status=1
+tail -n 1 "$out/repro.log"
 
 alone=$(mktemp -d)
 cp chip_smoke.py "$alone/"
