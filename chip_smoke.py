@@ -55,11 +55,13 @@ one JSON line each; any failure exits non-zero before the last line:
                True --epochs 2 --save_every 1` (full width, B=32, N=1024);
                launches counted over the run (K1 100E+15, K2-fwd 80E+12,
                K2-bwd 64E, K3 8E, K4 8E for E epochs), finite losses, the
-               files and log lines it leaves; then `--epochs 3 --resume
-               last.ckpt` with `--profile_dir` must resume at epoch 2 and
-               take one epoch (its trace gives the device's busy share),
-               and match `--epochs 3` run without a break: last.ckpt's
-               tensors and every epoch's losses bit-equal
+               files and log lines it leaves; a run resumed from epoch
+               0's last.ckpt matches the uninterrupted one: last.ckpt's
+               tensors and epoch 1's losses bit-equal; then `--epochs 4
+               --resume last.ckpt` with `--profile_dir` must resume at
+               epoch 2 and take epochs 2 and 3 (the first captures the
+               run's graphs; epoch 3's trace gives the device's busy
+               share)
   eval, infer  the CLI's `eval` and `infer` on the target test split from
                the trainer's model.ckpt, through the kernels and with
                `--knn_backend torch`: classes agree on >= 99% of clouds,
@@ -180,9 +182,10 @@ one JSON line each; any failure exits non-zero before the last line:
                coordinates of those shapes; `torchrun --standalone
                --nproc_per_node 1` of
                `trainer --mesh_data 1 --paper_recipe True --scan_steps 8`
-               (2 epochs, NCCL, the single-process trainer's launches, the
-               train steps' inside replays of the captured mesh step,
-               "step graphs: on" and "step_graphs" true in every record);
+               (2 epochs, NCCL, the single-process trainer's launches, all
+               inside replays: the captured mesh step's and the rank's
+               captured eval forwards', "step graphs: on" and
+               "step_graphs" true in every record);
                `standardize_files` over 96 seeded .npy clouds of 1,000-16,384 points through the
                native C++ ingest (K4 per bucket chunk), bitwise against the
                same ingest with the plain FPS, its unit cube within 1e-6 of
@@ -210,16 +213,19 @@ one JSON line each; any failure exits non-zero before the last line:
                the kernel phases' checks, K2-bwd's replays bit-equal to its
                eager launches; 2 chunks of 3 replays against 6 eager steps
                (twice: bit-equal) for PointNet (PCM, DefRec) and the DGCNN
-               paper recipe at their LRs, within 1e-4; the CLIs `trainer
-               --scan_steps 3`
-               (2 epochs: 2 chunks and 2 single steps an epoch), `seg
-               --scan_steps 2` and `spst --scan_steps 2` with the exact
-               launches of their eager runs, counted through the replays,
-               finite losses and "step_graphs" true in every record; the
-               trainer's epoch at `--scan_steps` 1 and 8, interleaved (the
-               two runs at one scan_steps bit-equal, epoch-0 losses within
-               5% across them), and a profiled epoch at 8 (the device's
-               busy share); the scanned
+               paper recipe at their LRs, within 1e-4; the paper trainer
+               CLI at `--scan_steps` 1, 3 (2 chunks and a tail of 2 an
+               epoch), 8 and 16 (the epoch one tail) and on its eager
+               route, 3 epochs, each twice, interleaved: exact launches,
+               all inside replays but the eager route's steps, every
+               epoch's losses and validation metrics bit-equal to the
+               eager route's, epoch times by scan_steps; `seg` and `spst`
+               at their default scan_steps with exact launches, all inside
+               replays, finite losses and "step_graphs" true in every
+               record; PCM at `--mixup_params 0.4`: eager steps at
+               `--scan_steps 1` (the log says so), refused at 16; PointNet
+               at 3 against 1; a profiled epoch at 8 (the device's busy
+               share); the scanned
                eval against the eager forwards; step p50 of replayed
                chunks of 8 against eager steps, interleaved, for the
                paper, all-branch and seg recipes, with peak memory
@@ -233,9 +239,13 @@ one JSON line each; any failure exits non-zero before the last line:
                and the generators bit-equal, losses within 1e-4, the last
                gradients within the train-mode bounds, launches (per step
                K1 10, K2-fwd 8, K2-bwd 8, K3 1, K4 1) all inside the
-               replays; the world's step p50 replayed against eager; the
-               torchrun trainer's epochs against the same trainer in one
-               process (same launches)
+               replays; the world's step p50 replayed against eager; its
+               eval forwards as the rank (its rows through its own
+               captured forward, gathered after the replays) bit-equal to
+               the eager mesh forwards and to one process's replays, all
+               launches inside; the torchrun trainer's epochs against the
+               same trainer in one process (same launches, all inside
+               replays)
   precision_routes  the calibration record and the route "auto" resolves
                to at each layer of the default DGCNN: "fused" (K1 + K2) on
                all four, or the phase fails with the record; K1 on a bf16
@@ -1311,11 +1321,12 @@ def trainer(tmp: str) -> dict:
           f"the run resumed from epoch 0 differs from the uninterrupted "
           f"one: {vs_whole}")
 
-    # resume from the last epoch's checkpoint, profiled
+    # resume from the last epoch's checkpoint for 2 epochs, profiled: the
+    # first captures the run's graphs, the second is read
     last = os.path.join(exp, "last.ckpt")
     trace_dir = os.path.join(tmp, "trace")
     resume = ["trainer", "--paper_recipe", "True", "--synthetic", "True",
-              "--epochs", str(TRAINER_EPOCHS + 1), "--resume", last,
+              "--epochs", str(TRAINER_EPOCHS + 2), "--resume", last,
               "--save_every", "1", "--out_path", out, "--exp_name",
               "smoke", "--profile_dir", trace_dir]
     run_cli(resume, os.path.join(tmp, "resume.log"))
@@ -1323,7 +1334,7 @@ def trainer(tmp: str) -> dict:
         after = [json.loads(line) for line in f]
     with open(os.path.join(exp, "run.log")) as f:
         said = f"resumed from {last} at epoch {TRAINER_EPOCHS - 1}" in f.read()
-    epoch = TRAINER_EPOCHS
+    epoch = TRAINER_EPOCHS + 1
     busy = busy_share(os.path.join(trace_dir, "trace.json"),
                       f"mlsp/epoch {epoch}")
     rres = {"argv": resume, "resumed_message": said,
@@ -1333,9 +1344,10 @@ def trainer(tmp: str) -> dict:
             "profiled_epoch": {"epoch": epoch, **busy,
                                "seconds": after[-1]["seconds"]}}
     emit("trainer", what="resume", **rres)
-    check(said and rres["epochs_run"] == [epoch]
+    check(said and rres["epochs_run"] == [epoch - 1, epoch]
           and rres["last_epoch"] == epoch,
-          f"the resumed run did not take exactly epoch {epoch}: {rres}")
+          f"the resumed run did not take exactly epochs {epoch - 1} and "
+          f"{epoch}: {rres}")
     return {**res, "resume": rres, "vs_uninterrupted": vs_whole,
             "model_file": os.path.join(exp, "model.ckpt")}
 
@@ -2125,6 +2137,12 @@ FAM_STEPS, FAM_TIMED = 2, 6
 FAM_TRAINER_EPOCHS = {"point_transformer": 2, "hengshuang": 1, "vit": 2}
 FAM_SEG_EPOCHS = 1
 FAM_REQUESTS = (32, 32, 32)
+
+
+def added_launches(counts) -> dict:
+    """Launch counts (dicts by kernel name) summed."""
+    counts = list(counts)
+    return {k: sum(c[k] for c in counts) for k in PER_STEP}
 
 
 def launch_sum(*parts) -> dict:
@@ -3290,8 +3308,8 @@ def ddp_cli(tmp: str) -> dict:
     epochs at full width, each epoch's 8 steps one chunk of replays of the
     captured mesh step ("step graphs: on" in the log, "step_graphs" true
     in every record), exact launches (those of the single-process
-    trainer), the train steps' inside the replays and the eval forwards'
-    (eager under a mesh) outside."""
+    trainer), every one inside graph replays: the train steps' and the
+    eval forwards' (the rank's rows through its own captured forward)."""
     out = os.path.join(tmp, "ddp_cli.json")
     argv = ["trainer", "--mesh_data", "1", "--paper_recipe", "True",
             "--synthetic", "True", "--epochs", str(TRAINER_EPOCHS),
@@ -3314,10 +3332,8 @@ def ddp_cli(tmp: str) -> dict:
     with open(os.path.join(exp, "run.log")) as f:
         routes = [ln.split("step graphs: ", 1)[-1]
                   for ln in f.read().splitlines() if "step graphs:" in ln]
-    steps = GRAPH_EPOCH * TRAINER_EPOCHS
     res = {"argv": argv, "seconds_with_startup": seconds, **rank,
            "launches_expected": trainer_launches(TRAINER_EPOCHS),
-           "in_graphs_expected": {k: steps * v for k, v in PER_STEP.items()},
            "records": len(records), "route_line": routes,
            "step_graphs": [r["step_graphs"] for r in records],
            "epoch_seconds": [r["seconds"] for r in records],
@@ -3328,13 +3344,14 @@ def ddp_cli(tmp: str) -> dict:
     emit("ddp_ingest", what="torchrun trainer --mesh_data 1", **res)
     check(rank.get("backend") == "nccl" and rank.get("world_size") == 1,
           f"the trainer ran on {rank}")
-    check(rank["launches"] == res["launches_expected"]
-          and rank["in_graphs"] == res["in_graphs_expected"],
+    check(rank["launches"] == res["launches_expected"] == rank["in_graphs"],
           f"the data-parallel trainer launched {rank['launches']} "
           f"({rank['in_graphs']} inside graph replays)")
     check(res["finite"] and res["records"] == TRAINER_EPOCHS,
           f"the data-parallel trainer left {res['records']} records")
     check(len(routes) == 1 and routes[0].startswith("on (")
+          and routes[0].endswith("eval forwards replay captured graphs of "
+                                 "the rank's rows)")
           and all(res["step_graphs"]),
           f"the NCCL world did not replay step graphs: {routes}, "
           f"{res['step_graphs']}")
@@ -3506,9 +3523,11 @@ def ddp_ingest(device, card: str, tmp: str) -> dict:
 # hold through the replays.
 # ---------------------------------------------------------------------------
 
-GRAPH_TRAINER_SCAN = 3  # 8 steps an epoch: 2 chunks of 3, then 2 single steps
-GRAPH_SEG_SCAN = 2  # 3 seg steps an epoch: 1 chunk of 2, then 1 single step
-GRAPH_SPST_SCAN = 2  # 8 SPST steps an epoch: 4 chunks of 2
+GRAPH_TRAINER_SCAN = 3  # 8 steps an epoch: 2 chunks of 3, then a tail of 2
+# The paper trainer's scan_steps, each run twice, interleaved, beside its
+# eager route twice: 1 (a replay a step), 3 (chunks and a tail), 8 (the
+# epoch as one chunk), 16 (the default: the epoch as one tail of 8)
+GRAPH_TIMED_SCANS = (1, GRAPH_TRAINER_SCAN, 8, 16)
 GRAPH_EPOCH = 8  # scan_steps of one chunk an epoch (8 synthetic steps)
 GRAPH_TIMED_EPOCHS = 3  # the interleaved trainer runs' epochs
 GRAPH_CHUNKS, GRAPH_STEPS = 4, 16  # timed chunks of GRAPH_EPOCH, eager steps
@@ -3523,13 +3542,9 @@ GRAPH_PARAM_SLACK = 2.5
 # must take the eager steps' updates within LOSS_RTOL (whether bit for bit
 # is reported).
 GRAPH_CHUNK_CHECK = 3
-# The paper trainer's epoch-0 mean losses, scan_steps 1 against 3 and 8,
-# within 5%: before K2-bwd summed in a fixed order even two eager runs
-# parted by ~1.4% there (on an H100 80GB HBM3 at 700 W, totals 8.260 and
-# 8.324 at scan_steps 1, 8.279 and 8.379 at 3), rounding gaps flipping
-# near-tied kNN choices in feature space. Two runs at one scan_steps must
-# be bit-equal; whether the scan_steps agree bit for bit is reported.
-EPOCH0_LOSS_RTOL = 5e-2
+# PCM at this mixup_params draws its Beta ratio on the host: a graph cannot
+# hold its step, so scan_steps 1 takes it eagerly and more is refused
+GRAPH_HOST_MIXUP = 0.4
 
 
 class Graphed:
@@ -3881,34 +3896,88 @@ def graph_cli(tmp: str, argv: list, name: str) -> dict:
             "records": records, "log": log, "exp": exp}
 
 
+def eval_launches(launches: dict, steps: int) -> dict:
+    """The launches of a trainer run but those of its `steps` train steps
+    (PER_STEP each): its eval forwards'."""
+    return {k: launches[k] - steps * PER_STEP[k] for k in PER_STEP}
+
+
 def graph_trainers(tmp: str, model_file: str) -> dict:
-    """The trainer CLI with scan_steps GRAPH_TRAINER_SCAN (2 epochs: 2
-    chunks and 2 single steps an epoch), the seg CLI with GRAPH_SEG_SCAN
-    and the SPST CLI with GRAPH_SPST_SCAN: exact launches through the
-    replays, finite losses, "step_graphs" true in every record; then the
-    trainer's epoch wall time with scan_steps 1 and GRAPH_EPOCH,
-    interleaved, and a profiled run."""
+    """The paper trainer CLI at each of GRAPH_TIMED_SCANS and on its eager
+    route (`steps.replays_steps` patched to refuse every recipe: eager
+    steps, the eval forwards still replayed), each GRAPH_TIMED_EPOCHS
+    epochs and twice, interleaved: exact launches, every one inside graph
+    replays but the eager route's steps, "step_graphs" true, and every
+    epoch's losses and validation metrics bit-equal to the eager route's
+    (a replayed step, chunked, a tail or single, is the eager step); the
+    epoch times by scan_steps beside the eager route's. The seg and SPST
+    CLIs at their default scan_steps (the seg epoch's 3 steps one tail):
+    exact launches, all inside replays. PCM at GRAPH_HOST_MIXUP: eager
+    steps at scan_steps 1, said in the log, its eval forwards replayed,
+    and refused at 16. PointNet (DefRec, PCM) at scan_steps 3 against 1;
+    a profiled run."""
     out = os.path.join(tmp, "graph_runs")
     common = ["--synthetic", "True", "--out_path", out]
+    paper = ["trainer", "--paper_recipe", "True", "--epochs",
+             str(GRAPH_TIMED_EPOCHS), *common]
+    eager_route = mock.patch.object(steps_mod, "replays_steps",
+                                    lambda cfg: False)
+    order = ["eager", *GRAPH_TIMED_SCANS, *GRAPH_TIMED_SCANS[::-1], "eager"]
+    timed, res = [], {}
+    for i, S in enumerate(order):
+        argv = [*paper, "--scan_steps", str(16 if S == "eager" else S),
+                "--exp_name", f"graph_timed_{i}"]
+        with eager_route if S == "eager" else contextlib.nullcontext():
+            timed.append(graph_cli(tmp, argv, f"graph_timed_{i}"))
+    want = trainer_launches(GRAPH_TIMED_EPOCHS)
+    steps = GRAPH_EPOCH * GRAPH_TIMED_EPOCHS
+    ref = [{k: rec[k] for k in ("train", "src_val", "trgt_val")}
+           for rec in timed[0]["records"]]
     runs = {}
-    runs["trainer"] = graph_cli(tmp, [
-        "trainer", "--paper_recipe", "True", "--epochs",
-        str(TRAINER_EPOCHS), "--scan_steps", str(GRAPH_TRAINER_SCAN),
-        "--exp_name", "graph_trainer", *common], "graph_trainer")
-    runs["seg"] = graph_cli(tmp, [
-        "seg", "--config", repo_file(SEG_CONFIG), "--apply_PCM", "True",
-        "--epochs", str(SEG_TRAINER_EPOCHS), "--scan_steps",
-        str(GRAPH_SEG_SCAN), "--exp_name", "graph_seg", *common], "graph_seg")
-    runs["spst"] = graph_cli(tmp, [
-        "spst", "--model_file", model_file, "--rounds", str(SPST_ROUNDS),
-        "--epochs", "1", "--threshold", str(SPST_THRESHOLD), "--apply_PCM",
-        "True", "--scan_steps", str(GRAPH_SPST_SCAN), "--exp_name",
-        "graph_spst", *common], "graph_spst")
-    expected = {"trainer": trainer_launches(TRAINER_EPOCHS),
-                "seg": seg_trainer_launches(SEG_TRAINER_EPOCHS),
+    for S, r in zip(order, timed):
+        metrics = [{k: rec[k] for k in ("train", "src_val", "trgt_val")}
+                   for rec in r["records"]]
+        runs.setdefault(f"scan_steps_{S}", []).append({
+            "launches": r["launches"], "launches_in_graphs": r["in_graphs"],
+            "step_graphs": [rec["step_graphs"] for rec in r["records"]],
+            "bit_equal_to_eager_route": metrics == ref,
+            "finite": all(np.isfinite(v) for m in metrics
+                          for v in m["train"].values()),
+            "epoch_seconds": [rec["seconds"] for rec in r["records"]],
+            "route_line": [ln.split(": ", 1)[-1] for ln in
+                           r["log"].splitlines() if "step graphs:" in ln]})
+        inside = (eval_launches(r["launches"], steps) if S == "eager"
+                  else r["launches"])
+        check(r["launches"] == want and r["in_graphs"] == inside,
+              f"the paper trainer at scan_steps {S} launched "
+              f"{r['launches']} ({r['in_graphs']} inside graph replays), "
+              f"not {want} ({inside})")
+        check(metrics == ref and runs[f"scan_steps_{S}"][-1]["finite"],
+              f"the paper trainer at scan_steps {S} parts from its eager "
+              f"route: {metrics} against {ref}")
+    res["paper"] = runs
+    res["epochs"] = {
+        name: {"epoch_s_median": statistics.median(
+                   t["epoch"] for r in rs for t in r["epoch_seconds"][1:]),
+               "train_s_median": statistics.median(
+                   t["train"] for r in rs for t in r["epoch_seconds"][1:]),
+               "epochs": sum(len(r["epoch_seconds"]) - 1 for r in rs)}
+        for name, rs in runs.items()}
+    emit("step_graphs", what="paper_trainer_by_scan_steps", **runs)
+    emit("step_graphs", what="trainer_epochs", epochs=res["epochs"])
+
+    seg = ["seg", "--config", repo_file(SEG_CONFIG), "--apply_PCM", "True",
+           "--epochs", str(SEG_TRAINER_EPOCHS), *common]
+    cli_runs = {
+        "seg": graph_cli(tmp, [*seg, "--exp_name", "graph_seg"], "graph_seg"),
+        "spst": graph_cli(tmp, [
+            "spst", "--model_file", model_file, "--rounds", str(SPST_ROUNDS),
+            "--epochs", "1", "--threshold", str(SPST_THRESHOLD),
+            "--apply_PCM", "True", "--exp_name", "graph_spst", *common],
+            "graph_spst")}
+    expected = {"seg": seg_trainer_launches(SEG_TRAINER_EPOCHS),
                 "spst": spst_launches(SPST_ROUNDS)}
-    res = {}
-    for name, r in runs.items():
+    for name, r in cli_runs.items():
         losses = [rec["train"] for rec in r["records"]]
         res[name] = {"launches": r["launches"],
                      "launches_expected": expected[name],
@@ -3924,15 +3993,63 @@ def graph_trainers(tmp: str, model_file: str) -> dict:
                                     for ln in r["log"].splitlines()
                                     if "step graphs:" in ln]}
         emit("step_graphs", what=f"{name}_cli", **res[name])
-        check(r["launches"] == expected[name],
-              f"{name} with step graphs launched {r['launches']}, not "
-              f"{expected[name]}")
-        check(res[name]["finite"] and all(res[name]["step_graphs"])
-              and r["in_graphs"]["knn"] > 0,
+        check(r["launches"] == expected[name] == r["in_graphs"],
+              f"{name} with step graphs launched {r['launches']} "
+              f"({r['in_graphs']} inside graph replays), not "
+              f"{expected[name]}, all inside")
+        check(res[name]["finite"] and all(res[name]["step_graphs"]),
               f"{name} with step graphs: {res[name]}")
+    # the seg epoch's tail of 3 replays against its eager route
+    with eager_route:
+        se = graph_cli(tmp, [*seg, "--exp_name", "graph_seg_eager"],
+                       "graph_seg_eager")
+    res["seg"]["eager_route"] = {
+        "launches_in_graphs": se["in_graphs"],
+        "epoch_seconds": [rec["seconds"] for rec in se["records"]],
+        "bit_equal": [rec["train"] for rec in se["records"]]
+        == res["seg"]["losses"] and [
+            {k: rec[k] for k in ("src_val", "trgt_val")}
+            for rec in se["records"]] == [
+            {k: rec[k] for k in ("src_val", "trgt_val")}
+            for rec in cli_runs["seg"]["records"]]}
+    emit("step_graphs", what="seg_cli_eager_route", **res["seg"]["eager_route"])
+    check(se["launches"] == expected["seg"]
+          and res["seg"]["eager_route"]["bit_equal"],
+          f"the seg CLI's replays part from its eager route: "
+          f"{res['seg']['eager_route']}")
 
-    # the trainer's chunks and single steps against its eager steps, on the
-    # recipe whose steps are reproducible (`chunk_cfg`): 2 epochs
+    # the host-drawn recipe: eager steps at scan_steps 1, refused above
+    host = ["trainer", "--paper_recipe", "True", "--mixup_params",
+            str(GRAPH_HOST_MIXUP), "--epochs", "1", *common]
+    hr = graph_cli(tmp, [*host, "--scan_steps", "1", "--exp_name",
+                         "graph_host"], "graph_host")
+    route = [ln.split("step graphs: ", 1)[-1]
+             for ln in hr["log"].splitlines() if "step graphs:" in ln]
+    try:
+        with open(os.path.join(tmp, "graph_host_refused.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            cli.main([*host, "--scan_steps", "16", "--exp_name",
+                      "graph_host_refused"])
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    res["host_mixup"] = {"launches": hr["launches"],
+                         "launches_in_graphs": hr["in_graphs"],
+                         "step_graphs": [rec["step_graphs"]
+                                         for rec in hr["records"]],
+                         "route_line": route, "refused_at_16": refused}
+    emit("step_graphs", what="host_drawn_pcm", **res["host_mixup"])
+    check(hr["launches"] == trainer_launches(1)
+          and hr["in_graphs"] == eval_launches(hr["launches"], GRAPH_EPOCH)
+          and not any(res["host_mixup"]["step_graphs"])
+          and len(route) == 1 and route[0].startswith(
+              f"off (scan_steps 1: eager steps, mixup_params="
+              f"{GRAPH_HOST_MIXUP}")
+          and f"mixup_params={GRAPH_HOST_MIXUP}" in refused,
+          f"the host-drawn PCM recipe: {res['host_mixup']}")
+
+    # PointNet's trainer (reproducible since the first kernels) at
+    # scan_steps 3 against 1: 2 epochs
     pn = {S: graph_cli(tmp, [
         "trainer", "--model", "pointnet", "--DefRec_on_trgt", "True",
         "--epochs", "2", "--scan_steps", str(S), "--exp_name",
@@ -3944,60 +4061,29 @@ def graph_trainers(tmp: str, model_file: str) -> dict:
     res["pointnet_cli"] = {"losses": pn_losses, "loss_rel_gap_max": gap,
                            "step_graphs": [rec["step_graphs"]
                                            for rec in pn[GRAPH_TRAINER_SCAN]]}
-    emit("step_graphs", what="pointnet_cli_scan_vs_eager",
+    emit("step_graphs", what="pointnet_cli_scan_3_vs_1",
          **res["pointnet_cli"])
     check(len(pn_losses[1]) == 2 and gap <= LOSS_RTOL
           and all(res["pointnet_cli"]["step_graphs"]),
-          f"the trainer's chunks part from its eager steps: "
+          f"the trainer's chunks part from its single steps: "
           f"{res['pointnet_cli']}")
 
-    # epoch wall time: scan_steps 1 (eager) against GRAPH_EPOCH (the epoch
-    # as one chunk), interleaved
-    times = {1: [], GRAPH_EPOCH: []}
-    epoch0 = {f"scan_steps_{GRAPH_TRAINER_SCAN}":
-              runs["trainer"]["records"][0]["train"]["total"]}
-    train_losses = {}
-    for i, S in enumerate((1, GRAPH_EPOCH, GRAPH_EPOCH, 1)):
-        r = graph_cli(tmp, [
-            "trainer", "--paper_recipe", "True", "--epochs",
-            str(GRAPH_TIMED_EPOCHS), "--scan_steps", str(S), "--exp_name",
-            f"graph_timed_{i}", *common], f"graph_timed_{i}")
-        times[S] += [rec["seconds"] for rec in r["records"][1:]]
-        epoch0[f"scan_steps_{S}_run_{i}"] = r["records"][0]["train"]["total"]
-        train_losses[i] = [rec["train"] for rec in r["records"]]
-    spread = (max(epoch0.values()) - min(epoch0.values())) / min(
-        abs(v) for v in epoch0.values())
-    # two runs at one scan_steps: every epoch's mean losses bit-equal (JSON
-    # floats round-trip their bits)
-    same_runs = {f"scan_steps_{S}": train_losses[a] == train_losses[b]
-                 for S, (a, b) in ((1, (0, 3)), (GRAPH_EPOCH, (1, 2)))}
-    res["epoch0_total"] = {"totals": epoch0, "spread": spread,
-                           "bound": EPOCH0_LOSS_RTOL,
-                           "runs_at_one_scan_steps_bit_equal": same_runs,
-                           "scan_steps_1_and_8_bit_equal":
-                               train_losses[0] == train_losses[1]}
-    emit("step_graphs", what="trainer_epoch0_losses", **res["epoch0_total"])
-    check(spread <= EPOCH0_LOSS_RTOL,
-          f"the paper trainer's epoch-0 losses part by scan_steps: "
-          f"{res['epoch0_total']}")
-    check(all(same_runs.values()),
-          f"two paper trainer runs at one scan_steps part: "
-          f"{res['epoch0_total']}, {train_losses}")
     trace_dir = os.path.join(tmp, "graph_trace")
-    r = graph_cli(tmp, ["trainer", "--paper_recipe", "True", "--epochs", "2",
-                        "--scan_steps", str(GRAPH_EPOCH), "--exp_name",
-                        "graph_profiled", "--profile_dir", trace_dir, *common],
-                  "graph_profiled")
+    prof = graph_cli(tmp, [
+        "trainer", "--paper_recipe", "True", "--epochs", "2", "--scan_steps",
+        str(GRAPH_EPOCH), "--exp_name", "graph_profiled", "--profile_dir",
+        trace_dir, *common], "graph_profiled")
     busy = busy_share(os.path.join(trace_dir, "trace.json"), "mlsp/epoch 1")
-    res["epochs"] = {
-        f"scan_steps_{S}": {
-            "epoch_s_median": statistics.median(t["epoch"] for t in ts),
-            "train_s_median": statistics.median(t["train"] for t in ts),
-            "epochs": len(ts)} for S, ts in times.items()}
     res["profiled"] = {"scan_steps": GRAPH_EPOCH, "epoch": 1, **busy,
-                       "seconds": r["records"][-1]["seconds"]}
-    emit("step_graphs", what="trainer_epochs", epochs=res["epochs"],
-         profiled=res["profiled"])
+                       "seconds": prof["records"][-1]["seconds"]}
+    emit("step_graphs", what="trainer_profiled", **res["profiled"])
+    res["by_path"] = {
+        "graph_paper_trainers": added_launches(r["launches"] for r in timed),
+        **{f"graph_{n}": r["launches"] for n, r in cli_runs.items()},
+        "graph_seg_eager_route": se["launches"],
+        "graph_host_mixup": hr["launches"]}
+    res["in_graphs"] = added_launches(
+        r["in_graphs"] for r in [*timed, *cli_runs.values(), se, hr])
     return res
 
 
@@ -4100,12 +4186,9 @@ def step_graphs(device, card: str, g: torch.Generator, tmp: str,
     tr = graph_trainers(tmp, model_file)
     ev = graph_eval(device, model_file)
     times = graph_step_times(device, card)
-    by_path = {f"graph_{n}": tr[n]["launches"] for n in ("trainer", "seg",
-                                                          "spst")}
-    by_path["graph_replay_vs_eager"] = rv["launches_graph"]
-    in_graphs = {k: sum(tr[n]["launches_in_graphs"][k]
-                        for n in ("trainer", "seg", "spst"))
-                 + rv["launches_in_graph"][k] for k in PER_STEP}
+    by_path = {**tr["by_path"],
+               "graph_replay_vs_eager": rv["launches_graph"]}
+    in_graphs = added_launches([tr["in_graphs"], rv["launches_in_graph"]])
     return {"by_path": by_path, "in_graphs": in_graphs, "kernel_checks": kc,
             "replay_vs_eager": rv, "chunks_vs_eager": ce, "trainers": tr,
             "eval": ev,
@@ -4118,6 +4201,7 @@ def step_graphs(device, card: str, g: torch.Generator, tmp: str,
 # ---------------------------------------------------------------------------
 
 MESH_CHUNK = 8  # the world-of-one chunk held to eager mesh steps
+MESH_EVAL_REPS = 5  # timed eval splits a route, as a rank of the world
 MESH_TIMED_CHUNKS, MESH_TIMED_STEPS = 4, 16  # timed, interleaved
 # The bf16 bounds of the CPU tests (tests/test_torch_port_precision.py),
 # here for the kernel route against the plain one on the same card: loss
@@ -4245,18 +4329,58 @@ def mesh_chunk(out: str) -> int:
     res["times"] = {"graph_step_p50_ms": statistics.median(ms["graph"]),
                     "eager_step_p50_ms": statistics.median(ms["eager"]),
                     "graph_ms": ms["graph"], "eager_ms": ms["eager"]}
+    res["eval"] = mesh_eval(device, mesh, model)
     with open(out, "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
     return 0
 
 
+def mesh_eval(device, mesh, model) -> dict:
+    """The eval forwards as a rank of `mesh` (`eval_logits`: the rank's
+    rows of every batch through its own captured forward, the logits
+    gathered after the replays) against the eager mesh forwards
+    (`steps.captures` patched to refuse the mesh) and one process's
+    replayed forwards, on the same weights and a split of 256 clouds."""
+    ds = load_pointda("scannet", ".", "train", N, True, 1, device=device)
+    x = torch.from_numpy(ds.data).to(device)
+    sels, _ = eval_batches(len(ds), B)
+    graphs = Graphs()
+    kernels.reset_launches()
+    got = eval_logits(model, x, sels, mesh=mesh, graphs=graphs)
+    launches, in_graphs = kernels.launches(), kernels.launches_in_graphs()
+    eager_route = mock.patch.object(steps_mod, "captures", lambda m: False)
+    with eager_route:
+        eager = eval_logits(model, x, sels, mesh=mesh)
+    one = eval_logits(model, x, sels, graphs=Graphs())
+    # ms of the split's forwards and gathers, replayed against eager,
+    # interleaved
+    ms = {"replayed": [], "eager": []}
+    for _ in range(MESH_EVAL_REPS):
+        for route in ms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with eager_route if route == "eager" else contextlib.nullcontext():
+                eval_logits(model, x, sels, mesh=mesh, graphs=graphs)
+            ms[route].append((time.perf_counter() - t0) * 1e3)
+    return {"batches": len(sels), "launches": launches,
+            "launches_in_graphs": in_graphs,
+            "split_ms_median": {k: statistics.median(v)
+                                for k, v in ms.items()}, "split_ms": ms,
+            "bit_equal_to_eager_mesh_forwards": bool(np.array_equal(got,
+                                                                    eager)),
+            "bit_equal_to_one_process": bool(np.array_equal(got, one)),
+            "max_abs_diff_eager": float(np.abs(got - eager).max()),
+            "max_abs_diff_one_process": float(np.abs(got - one).max())}
+
+
 def ddp_graphs(device, card: str, tmp: str, dc: dict) -> dict:
     """NCCL capture of the data-parallel step: the NCCL version; the
     `mesh_chunk` process (a subprocess with a timeout of its own: a hung
     peer inside a replay is bounded by no process-group timeout, see
-    PERF.md); the world-of-one trainer's epochs (`ddp_cli`, step graphs
-    on) against the same trainer in one process."""
+    PERF.md), its mesh step chunk and its eval forwards replayed as the
+    world's rank; the world-of-one trainer's epochs (`ddp_cli`, steps and
+    eval forwards replayed) against the same trainer in one process."""
     emit("ddp_graphs", what="nccl", version=nccl_version(), card=card)
     out = os.path.join(tmp, "mesh_chunk.json")
     done = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -4267,8 +4391,15 @@ def ddp_graphs(device, card: str, tmp: str, dc: dict) -> dict:
           f"{done.stderr[-4000:]}")
     with open(out) as f:
         mc = json.load(f)
-    times = mc.pop("times")
+    times, me = mc.pop("times"), mc.pop("eval")
     emit("ddp_graphs", what="chunk_vs_eager_mesh_steps", **mc)
+    emit("ddp_graphs", what="mesh_eval_replayed_vs_eager", **me)
+    forwards = {**dict.fromkeys(PER_STEP, 0), "knn": 5 * me["batches"],
+                "edge_moments": 4 * me["batches"]}
+    check(me["bit_equal_to_eager_mesh_forwards"]
+          and me["bit_equal_to_one_process"]
+          and me["launches"] == me["launches_in_graphs"] == forwards,
+          f"the NCCL rank's replayed eval forwards: {me}")
     steps = {k: MESH_CHUNK * v for k, v in PER_STEP.items()}
     check(all(mc["draws_bit_equal"].values())
           and mc["generator_state_equal"],
@@ -4287,10 +4418,10 @@ def ddp_graphs(device, card: str, tmp: str, dc: dict) -> dict:
         "--epochs", str(TRAINER_EPOCHS), "--scan_steps", str(GRAPH_EPOCH),
         "--out_path", os.path.join(tmp, "runs"), "--exp_name",
         "one_process"], "one_process")
-    # one process also replays its eval forwards (EvalGraph); a mesh
-    # evaluates eagerly
-    check(one["launches"] == dc["launches"]
-          == one["in_graphs"],
+    # one process and the NCCL world both replay their steps and eval
+    # forwards
+    check(one["launches"] == dc["launches"] == one["in_graphs"]
+          == dc["in_graphs"],
           f"one process launched {one['launches']} ({one['in_graphs']} "
           f"inside graph replays), the NCCL world {dc['launches']}")
     res = {"card": card, "nccl": mc["nccl"], "batch": mc["batch"],
@@ -4298,13 +4429,20 @@ def ddp_graphs(device, card: str, tmp: str, dc: dict) -> dict:
            "epoch_seconds": {"nccl_world_of_one": dc["epoch_seconds"],
                              "one_process": [r["seconds"]
                                              for r in one["records"]]},
+           # epoch 1 of each: epoch 0 holds the captures
+           "epoch_1_seconds": {"nccl_world_of_one":
+                               dc["epoch_seconds"][-1]["epoch"],
+                               "one_process":
+                               one["records"][-1]["seconds"]["epoch"]},
            "scan_steps": GRAPH_EPOCH}
     emit("times", what="ddp_graphs", **res)
     return {"by_path": {"ddp_graphs_chunk": {
         k: mc["launches_graph"][k] + mc["launches_eager"][k]
-        for k in PER_STEP}, "ddp_graphs_one_process": one["launches"]},
-        "in_graphs": {k: mc["launches_in_graphs"][k] + dc["in_graphs"][k]
-                      + one["in_graphs"][k] for k in PER_STEP},
+        for k in PER_STEP}, "ddp_graphs_mesh_eval": me["launches"],
+        "ddp_graphs_one_process": one["launches"]},
+        "in_graphs": added_launches([mc["launches_in_graphs"],
+                                     me["launches_in_graphs"],
+                                     dc["in_graphs"], one["in_graphs"]]),
         "times": res}
 
 
@@ -4925,15 +5063,12 @@ def points_mesh(device, card: str, g: torch.Generator, tmp: str,
     check(alone["spst"]["launches"] == spst_launches(1),
           f"the one-process SPST round launched {alone['spst']['launches']}")
 
-    def added(counts):
-        return {k: sum(c[k] for c in counts) for k in PER_STEP}
-
     by_path = {
-        "points_steps": added([r["steps"]["split"][i]["launches"]
-                               for r in ranks for i in range(len(cases))]),
-        "points_trainer": added([r["trainer"]["launches"] for r in ranks]),
-        "points_spst": added([r["spst"]["launches"] for r in ranks]),
-        "points_pn2": added([r["pn2"]["launches"] for r in ranks])}
+        "points_steps": added_launches(
+            r["steps"]["split"][i]["launches"]
+            for r in ranks for i in range(len(cases))),
+        **{f"points_{n}": added_launches(r[n]["launches"] for r in ranks)
+           for n in ("trainer", "spst", "pn2")}}
     return {"by_path": by_path, "knn_ranges": kr, "steps": steps, **res}
 
 

@@ -16,15 +16,18 @@ step counter on the card: each replay takes the counter's slice of the
 inputs, runs `fn` on it (with static 0-d inputs that every step reads
 alike) and writes its outputs into stacked [S, ...] buffers, then
 advances the counter. A chunk of r <= S is then its inputs copied in and
-r replays with no Python work between them.
+r replays with no Python work between them: a full chunk of `scan_steps`,
+an epoch's tail of fewer, or the single step of `scan_steps` 1 (the
+counterpart of JAX's jitted single step) all replay one graph.
 
 A `StepGraph` is the ChunkGraph of one train step (zero_grad with
 set_to_none, forward, backward, the optimizer update) over a chunk's
 clouds and labels, with SPST's loss weights as static 0-d inputs. Each
 replay reads the optimizer's LR tensors as they are: every schedule of
 the port is constant within an epoch and a chunk never crosses an epoch,
-so the scheduler is stepped S times after the replays (`steps.run_chunk`)
-and its count and the next LR are those of S eager steps. Its warm-up
+so the scheduler is stepped r times after the r replays
+(`steps.run_chunk`) and its count and the next LR are those of r eager
+steps. Its warm-up
 step is undone before the capture: the model's parameters and buffers
 (BN statistics), the optimizer's state and LRs and the generator are put
 back as they were, state that the warm-up created zeroed (a fresh Adam
@@ -35,10 +38,12 @@ graph: each replay draws from the generator's Philox stream where an
 eager step would, and leaves its offset where the eager step leaves it.
 
 An `EvalGraph` is the ChunkGraph of one eval forward (eval mode, no
-dropout, no statistics update) over [chunk, B, ...] batches. `Graphs`
-keeps a run's graphs in one memory pool; a graph is captured again when
-the state it reads moved (the optimizer's state tensors after
-`load_state_dict`, another model, optimizer or generator). The graphs
+dropout, no statistics update) over [chunk, B, ...] batches; a rank of an
+NCCL mesh captures its own rows (under a points axis with the points
+group's gathers inside). `Graphs` keeps a run's graphs in one memory
+pool; a graph is captured again when the state it reads moved (the
+optimizer's state tensors after `load_state_dict`, another model,
+optimizer or generator) or a chunk outgrows it. The graphs
 refuse CPU tensors: on the CPU the scan functions take their steps
 eagerly. The kernels' launchers need no change to be captured: their
 per-launch `cudaFuncSetAttribute` is host-side and legal while a stream
@@ -58,16 +63,33 @@ from mlsp_tpu_torch.ops import kernels
 from mlsp_tpu_torch.train.state import lr_tensors
 
 
-def check_capturable(cfg) -> None:
-    """Raise ValueError for a recipe a step graph cannot hold: PCM with
-    `mixup_params` other than 1 (or <= 0) draws λ from a numpy Beta
-    seeded on the host (`steps.draw_pcm`)."""
+def capturable(cfg) -> bool:
+    """Whether a step graph can hold cfg's step: not PCM with
+    `mixup_params` other than 1 (or <= 0), which draws λ from a numpy
+    Beta seeded on the host (`steps.draw_pcm`)."""
     a = getattr(cfg, "mixup_params", 1.0)
-    if getattr(cfg, "apply_PCM", False) and a > 0 and a != 1.0:
+    return not (getattr(cfg, "apply_PCM", False) and a > 0 and a != 1.0)
+
+
+def check_capturable(cfg) -> None:
+    """Raise ValueError for a recipe a step graph cannot hold
+    (`capturable`)."""
+    if not capturable(cfg):
+        a = cfg.mixup_params
         raise ValueError(
             f"mixup_params={a}: PCM draws its Beta({a}, {a}) mixing ratio "
             "on the host, which a step graph cannot capture; set "
             "scan_steps 1 (eager steps) or mixup_params 1.0")
+
+
+def replays_steps(cfg) -> bool:
+    """Whether the card takes cfg's train steps as replays of a step
+    graph: every recipe a graph can hold, at any `scan_steps`. A recipe it
+    cannot hold (`capturable`) takes eager steps at `scan_steps` 1 and
+    raises ValueError at more (`check_capturable`)."""
+    if cfg.scan_steps > 1:
+        check_capturable(cfg)
+    return capturable(cfg)
 
 
 def stack_steps(outs: list):
@@ -160,20 +182,25 @@ class ChunkGraph:
     Args:
       fn: takes one step's slice of each input, then the consts; returns
         a pytree of tensors.
-      inputs: the stacked [S, ...] CUDA tensors; the graph keeps copies.
+      inputs: stacked [r, ...] CUDA tensors, r >= 1; the graph keeps
+        copies in [steps, ...] buffers (the warm-up and the capture read
+        the first step).
       consts: 0-d CUDA tensors `fn` reads at every step.
       pool, generator: as `capture`.
       restore: called after the warm-up call, to undo what it did.
+      steps: the longest chunk it replays (default r).
     """
 
     def __init__(self, fn, inputs, consts=(), pool=None, generator=None,
-                 restore=None):
+                 restore=None, steps: int | None = None):
         dev = _check_cuda([*inputs, *consts], type(self).__name__)
-        self.inputs = [t.clone() for t in inputs]
+        steps = max(steps or 0, inputs[0].shape[0])
+        self.inputs = [t.new_empty((steps, *t.shape[1:])) for t in inputs]
+        for buf, t in zip(self.inputs, inputs):
+            buf[:t.shape[0]].copy_(t)
         self.consts = [t.clone() for t in consts]
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.outs = None
-        steps = self.inputs[0].shape[0]
 
         def one_step():
             i = self.slot.view(1)
@@ -222,19 +249,20 @@ class StepGraph(ChunkGraph):
       step: `step(*batch, *consts)` takes one step on one batch (the
         chunk's inputs sliced at a step) and returns its outputs, a
         pytree of tensors; it calls `opt.step()` and never the scheduler.
-      inputs: the stacked [S, ...] CUDA tensors of a chunk.
+      inputs: the stacked [r, ...] CUDA tensors of a chunk.
       consts: 0-d CUDA tensors the step reads, the same for every step of
         a chunk.
       model, opt, generator: what the step updates and draws from.
       pool: a graph memory pool to share.
+      steps: the longest chunk it replays (default r).
     """
 
     def __init__(self, step, inputs, consts, model, opt, generator,
-                 pool=None):
+                 pool=None, steps: int | None = None):
         _check_cuda([*inputs, *consts], "StepGraph")
         snap = _snapshot(model, opt, generator)
         super().__init__(step, inputs, consts, pool, generator,
-                         lambda: _restore(snap, opt, generator))
+                         lambda: _restore(snap, opt, generator), steps)
         # the graph writes the gradients here at every replay: keep them
         # out of the shared pool whatever later eager steps do to .grad
         self._grads = [p.grad for p in model.parameters()]
@@ -248,9 +276,7 @@ class EvalGraph(ChunkGraph):
 
     def __init__(self, forward, example: torch.Tensor, chunk: int,
                  pool=None):
-        inputs = example.new_empty((chunk, *example.shape))
-        inputs[0].copy_(example)
-        super().__init__(forward, [inputs], pool=pool)
+        super().__init__(forward, [example[None]], pool=pool, steps=chunk)
 
     def run(self, xs: torch.Tensor) -> torch.Tensor:
         return super().run([xs])
@@ -258,19 +284,22 @@ class EvalGraph(ChunkGraph):
 
 class Graphs:
     """The step and eval graphs of one run, in one memory pool: a train
-    step graph per key (the caller's: the step's kind, recipe and input
-    shapes), an eval graph per (model, output, batch shape, chunk)."""
+    step graph per key (the caller's: the step's kind, recipe and one
+    step's input shapes), which serves every chunk up to its length; an
+    eval graph per (model, output, batch shape, chunk, mesh)."""
 
     def __init__(self):
         self._graphs: dict = {}
         self._pool = None
 
-    def _get(self, key, fingerprint, build):
+    def _get(self, key, fingerprint, build, steps: int = 1):
         """The graph of `key`, captured now by `build(pool)` if there is
-        none or the state it holds moved (`fingerprint()`, taken after the
-        capture: its warm-up may create optimizer state)."""
+        none, the state it holds moved (`fingerprint()`, taken after the
+        capture: its warm-up may create optimizer state) or it holds fewer
+        than `steps` steps."""
         g = self._graphs.get(key)
-        if g is not None and g.fingerprint == fingerprint():
+        if (g is not None and g.fingerprint == fingerprint()
+                and g.inputs[0].shape[0] >= steps):
             return g
         self._graphs.pop(key, None)
         if self._pool is None:
@@ -281,15 +310,20 @@ class Graphs:
         return g
 
     def train_step(self, key, step, inputs, consts, model, opt,
-                   generator) -> StepGraph:
+                   generator, steps: int = 1) -> StepGraph:
+        """The StepGraph of `key` for chunks of up to max(steps, r)."""
+        steps = max(steps, inputs[0].shape[0])
         return self._get(
             ("train", key), lambda: _fingerprint(model, opt, generator),
             lambda pool: StepGraph(step, inputs, consts, model, opt,
-                                   generator, pool))
+                                   generator, pool, steps), steps)
 
-    def eval_forward(self, model, output: str, forward, example, chunk: int
-                     ) -> EvalGraph:
+    def eval_forward(self, model, output: str, forward, example, chunk: int,
+                     mesh=None) -> EvalGraph:
+        """The EvalGraph of `forward` on batches like `example` (a mesh
+        rank's rows), its own for each mesh: under a points axis it holds
+        the points group's gathers."""
         return self._get(
-            ("eval", id(model), output, tuple(example.shape), chunk),
+            ("eval", id(model), output, tuple(example.shape), chunk, mesh),
             lambda: _fingerprint(model),
             lambda pool: EvalGraph(forward, example, chunk, pool))

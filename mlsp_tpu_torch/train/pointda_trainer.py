@@ -3,24 +3,27 @@
 `PointDA/trainer.py:341-611`).
 
 Each epoch zips shuffled source and target batches through
-`train.steps.pointda_train_step`, validates on both domains and keeps the
+`train.steps.pointda_train_scan`, validates on both domains and keeps the
 best model by *source* validation accuracy; the final test runs on the
 target test split with the best epoch's weights.
 
 Device and host: every split is staged on the device once; batches are
 gathered there with the epoch's numpy-shuffled indices (copied once per
-epoch). The epoch runs as chunks of `scan_steps` steps
-(`steps.pointda_train_scan`: on the card the replays of one captured
-CUDA graph of the step, captured at the first chunk of the run, after
-any `--resume`), then the remaining steps one at a time, as the JAX
-trainer does; `scan_steps` 1 takes every step eagerly. Under an NCCL
-mesh the graph holds the step's collectives; a gloo mesh takes its chunks
-eagerly: the log and every `metrics.jsonl` record say whether step
-graphs ran ("step_graphs"). The log names each EdgeConv layer's route.
-Each step's loss terms stay on the device until the end of the epoch,
-when they are fetched in one copy and fed to `MeterDict` in step order.
-Evaluation runs through the scanned eval forward (`steps.eval_scan`, a
-captured graph on the card) and fetches its logits once per split.
+epoch). The epoch runs as chunks of `scan_steps` steps, then the
+remaining steps as one shorter chunk, as the JAX trainer runs its scan
+and then its jitted single steps (`steps.pointda_train_scan`: on the card
+every step, the tail's and `scan_steps` 1's too, is a replay of one
+captured CUDA graph of the step, captured at the first chunk of the run,
+after any `--resume`). Under an NCCL mesh the graph holds the step's
+collectives; a gloo mesh takes its steps eagerly, and so does the card at
+`scan_steps` 1 for the one recipe a graph cannot hold
+(`graphs.replays_steps`): the log and every `metrics.jsonl` record say
+whether step graphs ran ("step_graphs"). The log names each EdgeConv
+layer's route. Each step's loss terms stay on the device until the end
+of the epoch, when they are fetched in one copy and fed to `MeterDict` in
+step order. Evaluation runs through the scanned eval forward
+(`steps.eval_scan`, a captured graph on the card, a rank's own under an
+NCCL mesh) and fetches its logits once per chunk of batches.
 
 Each epoch is one `torch.profiler` range, "mlsp/epoch {epoch}" (a trace
 taken with the CLI's --profile_dir shows it beside the kernels), and its
@@ -59,18 +62,13 @@ from mlsp_tpu_torch.parallel.mesh import (
     replicate_for_mesh,
     shard_batch,
 )
-from mlsp_tpu_torch.train.graphs import (
-    Graphs,
-    check_capturable,
-    unstack_steps,
-)
+from mlsp_tpu_torch.train.graphs import Graphs, replays_steps, unstack_steps
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.state import make_optimizer
 from mlsp_tpu_torch.train.steps import (
     check_recipe,
     eval_scan,
     pointda_train_scan,
-    pointda_train_step,
     scan_in_chunks,
 )
 from mlsp_tpu_torch.utils import checkpoint, metrics
@@ -99,6 +97,18 @@ def eval_batches(n_examples: int, batch_size: int,
     return sels, counts
 
 
+def eval_index(sels: list[np.ndarray], mesh: Mesh | None) -> np.ndarray:
+    """The eval batches' indices [S, B'] as this rank forwards them:
+    `sels` stacked; with a mesh, each batch padded with its last index to
+    a multiple of the data ranks, then the rank's rows (`shard_batch`)."""
+    idx = np.stack(sels)
+    if mesh is None:
+        return idx
+    pad = -idx.shape[1] % mesh.size
+    idx = np.concatenate([idx, np.repeat(idx[:, -1:], pad, 1)], 1)
+    return shard_batch(mesh, idx.T).T
+
+
 def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
                 output: str = "cls", mesh: Mesh | None = None,
                 graphs: Graphs | None = None) -> np.ndarray:
@@ -107,32 +117,22 @@ def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
     forwarded in eval mode (running BN statistics, no dropout) on the
     model's device through the scanned eval (`steps.scan_in_chunks` of
     `eval_scan`: on the card a captured eval forward, kept in `graphs`);
-    one copy of the indices in, one of the logits out. The model's mode is
-    restored afterwards. With a mesh each rank forwards its rows of every
-    batch eagerly (padded with the batch's last index to a multiple of the
-    data ranks; on a points mesh under `points_sharding`) and every rank
-    gets all the logits (`fetch_global`)."""
+    one copy of the indices in, one of the logits out per chunk. The
+    model's mode is restored afterwards. With a mesh each rank forwards
+    its rows of every batch (`eval_index`; a rank of an NCCL mesh through
+    its own captured forward, a gloo rank eagerly; on a points mesh under
+    `points_sharding`) and every rank gets all the logits (`fetch_global`
+    once a chunk, after its forwards)."""
     device = next(model.parameters()).device
     x = torch.as_tensor(data, device=device)
-    idx = torch.from_numpy(np.stack(sels)).to(device)
-    B = idx.shape[1]
-    if mesh is None:
-        def scan(m, xs, graphs):
-            return eval_scan(m, xs, graphs, output)
+    idx = torch.from_numpy(eval_index(sels, mesh)).to(device)
 
-        return scan_in_chunks(scan, model, x[idx], graphs=graphs)
-    pad = -B % mesh.size
-    idx = torch.cat([idx, idx[:, -1:].expand(-1, pad)], 1)
-    idx = shard_batch(mesh, idx.T).T
-    was_training = model.training
-    model.eval()
-    try:
-        with torch.inference_mode(), points_sharding(mesh):
-            out = torch.stack([model(x[i])[output] for i in idx])
-    finally:
-        model.train(was_training)
-    out = fetch_global(out.transpose(0, 1), mesh).transpose(0, 1)[:, :B]
-    return out.float().cpu().numpy()
+    def scan(m, xs, graphs):
+        out = eval_scan(m, xs, graphs, output, mesh)
+        return fetch_global(out.transpose(0, 1), mesh).transpose(0, 1)
+
+    out = scan_in_chunks(scan, model, x[idx], graphs=graphs)
+    return out[:, :len(sels[0])]
 
 
 def evaluate(model: torch.nn.Module, data, label: np.ndarray,
@@ -187,51 +187,55 @@ def seed_epoch(generator: torch.Generator, seed: int,
     return generator.manual_seed(s)
 
 
-def train_epoch(pairs: torch.Tensor, gather, scan, step,
-                scan_steps: int) -> list:
+def train_epoch(pairs: torch.Tensor, gather, scan, scan_steps: int) -> list:
     """An epoch's steps in the JAX trainer's order: chunks of `scan_steps`
     batches through `scan(*stacked)`, whose outputs are stacked over the
-    chunk, then the remaining batches one at a time through
-    `step(*batch)` (every batch, for `scan_steps` 1). `pairs` [P, 2, B]
-    are the (first, second) index rows on the device; `gather(first,
-    second)` makes a batch, or a stacked chunk, of them. Returns the
+    chunk, the remaining batches as one shorter chunk (every batch, when
+    the epoch is shorter; one batch a chunk at `scan_steps` 1). `pairs`
+    [P, 2, B] are the (first, second) index rows on the device;
+    `gather(first, second)` makes a stacked chunk of them. Returns the
     per-step outputs."""
-    S = scan_steps
-    full = (len(pairs) // S) * S if S > 1 else 0
+    S = max(scan_steps, 1)
     out = []
-    for c in range(0, full, S):
+    for c in range(0, len(pairs), S):
         out += unstack_steps(scan(*gather(pairs[c:c + S, 0],
                                           pairs[c:c + S, 1])))
-    for first, second in pairs[full:]:
-        out.append(step(*gather(first, second)))
     return out
 
 
 def graphs_route(cfg, device: torch.device, mesh: Mesh | None,
                  io: IOStream) -> tuple[bool, Graphs | None]:
-    """Whether the trainer's chunks replay step graphs (on the card, with
-    no mesh or an NCCL one, `parallel.mesh.captures`, and `scan_steps` >
-    1), said in the log, and the run's graphs (`Graphs`; None where
-    nothing is captured: the CPU, a gloo mesh). Under a mesh the eval
-    forwards run eagerly (`eval_logits`), which the log says too. Raises
-    for a recipe a graph cannot hold (`graphs.check_capturable`)."""
+    """Whether the trainer's steps replay step graphs (on the card, with
+    no mesh or an NCCL one, `parallel.mesh.captures`: chunks, the epoch's
+    tail and `scan_steps` 1's single steps alike, but for a recipe a graph
+    cannot hold at `scan_steps` 1, `graphs.replays_steps`), said in the
+    log with the eval forwards' route, and the run's graphs (`Graphs`;
+    None where nothing is captured: the CPU, a gloo mesh). Raises for a
+    recipe a graph cannot hold at `scan_steps` > 1."""
     S = cfg.scan_steps
     capture = device.type == "cuda" and captures(mesh)
-    on = capture and S > 1
+    on = capture and replays_steps(cfg)
+    eager = (f"on the {device.type}" if device.type != "cuda"
+             else f"under {mesh.backend} (its collectives cannot be captured)"
+             if not capture else "")
     if on:
-        check_capturable(cfg)
-        how = f"chunks of {S} steps replay one captured graph"
+        how = (f"chunks of {S} steps and the epoch's tail replay one "
+               "captured graph" if S > 1
+               else "scan_steps 1: each step replays one captured graph")
         if mesh is not None:
             how += " with the mesh's NCCL collectives"
-    elif S <= 1:
-        how = "scan_steps 1: eager steps"
-    elif mesh is not None:
-        how = (f"chunks of {S} steps run eagerly: {mesh.backend} "
-               "collectives cannot be captured")
+    elif capture:
+        how = (f"scan_steps 1: eager steps, mixup_params={cfg.mixup_params} "
+               "draws PCM's Beta ratio on the host, which a graph cannot "
+               "hold")
     else:
-        how = f"chunks of {S} steps run eagerly on the {device.type}"
-    if mesh is not None:
-        how += "; eval forwards eager under a mesh"
+        how = f"steps run eagerly {eager}"
+    if capture:
+        how += "; eval forwards replay captured graphs"
+        if mesh is not None:
+            how += " of the rank's rows"
+    else:
+        how += f"; eval forwards run eagerly {eager}"
     io.cprint(f"step graphs: {'on' if on else 'off'} ({how})")
     return on, Graphs() if capture else None
 
@@ -327,11 +331,6 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
             return pointda_train_scan(model, opt, sched, *chunk, gen, cfg,
                                       graphs, mesh)
 
-    def step(*batch):
-        with points_sharding(mesh):
-            return pointda_train_step(model, opt, sched, *batch, gen, cfg,
-                                      mesh)
-
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         with torch.profiler.record_function(f"mlsp/epoch {epoch}"):
@@ -340,7 +339,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
             steps = []
             if pairs:
                 sel = torch.from_numpy(np.asarray(pairs)).to(device)  # [P, 2, B]
-                steps = train_epoch(sel, gather, scan, step, cfg.scan_steps)
+                steps = train_epoch(sel, gather, scan, cfg.scan_steps)
             meters = MeterDict()
             for m in fetch_metrics(steps):
                 meters.update(m, n=B)

@@ -11,13 +11,15 @@ the best epoch's weights. There is no resume, as in the JAX trainer.
 Device and host, as the PointDA trainer (`train.pointda_trainer`): every
 split is staged on the device once, batches are gathered there with the
 epoch's indices (one copy an epoch), the epoch runs as chunks of
-`scan_steps` steps (`seg_steps.pointsegda_train_scan`: replays of one
-captured step graph on the card; eagerly under a mesh), then single
-steps, and each step's loss terms, predictions and labels stay on the
-device until one fetch at the end of the epoch, where the train mIoU is
-computed step by step as the JAX trainer does. Evaluation runs through
-the scanned eval (`seg_steps.seg_eval_scan`) and fetches its logits once
-per split.
+`scan_steps` steps, then its tail as one shorter chunk
+(`seg_steps.pointsegda_train_scan`: on the card every step a replay of
+one captured step graph, under an NCCL mesh with its collectives;
+eagerly on the CPU and under gloo), and each step's loss terms,
+predictions and labels stay on the device until one fetch at the end of
+the epoch, where the train mIoU is computed step by step as the JAX
+trainer does. Evaluation runs through the scanned eval (`eval_logits`,
+a captured forward on the card) and fetches its logits once per chunk
+of batches.
 
 Random streams per epoch from (seed, epoch): the batch order from one
 numpy generator shared by the source and then the target iterator (the
@@ -58,7 +60,6 @@ from mlsp_tpu_torch.train.pointda_trainer import (
 from mlsp_tpu_torch.train.seg_steps import (
     check_seg_recipe,
     pointsegda_train_scan,
-    pointsegda_train_step,
 )
 from mlsp_tpu_torch.train.state import make_optimizer
 from mlsp_tpu_torch.utils import checkpoint, metrics
@@ -180,11 +181,6 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
             return pointsegda_train_scan(model, opt, sched, *chunk, gen, cfg,
                                          graphs, mesh)
 
-    def step(*batch):
-        with points_sharding(mesh):
-            return pointsegda_train_step(model, opt, sched, *batch, gen, cfg,
-                                         mesh)
-
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
         with torch.profiler.record_function(f"mlsp/epoch {epoch}"):
@@ -193,7 +189,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
             steps = []
             if pairs:
                 sel = torch.from_numpy(np.asarray(pairs)).to(device)  # [P, 2, B]
-                steps = train_epoch(sel, gather, scan, step, cfg.scan_steps)
+                steps = train_epoch(sel, gather, scan, cfg.scan_steps)
             meters = MeterDict()
             for m, (p, y) in zip(fetch_metrics([m for m, _ in steps]),
                                  _fetch_preds([p for _, p in steps])):

@@ -16,12 +16,12 @@ checkpointed apart (`:524-539`).
 The learning rate is set once per epoch from torch's cosine in closed
 form at the global epoch `round * epochs + epoch`, unclamped, so round 2's
 LR rises again (`train.state.torch_cosine_lr`). An epoch's steps run in
-chunks of `scan_steps` (`spst_train_scan`: on the card replays of one
-captured step graph, whose loss weights are 0-d tensors on the card), the
-rest one by one, as the JAX package's scan does; the selection and every
-evaluation go through the scanned eval (`steps.scan_in_chunks`). One
-capture serves a run: the selection changes the number of steps, not
-their shapes.
+chunks of `scan_steps`, the rest as one shorter chunk, as the JAX
+package's scan and jitted single steps do (`spst_train_scan`: on the card
+every step a replay of one captured step graph, whose loss weights are
+0-d tensors on the card); the selection and every evaluation go through
+the scanned eval (`pointda_trainer.eval_logits`). One capture serves a
+run: the selection changes the number of steps, not their shapes.
 
 Randomness: one numpy generator from `seed` shuffles the target and then
 the source batches of every epoch (the JAX trainer's order); the step
@@ -363,9 +363,6 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
                             lambda *chunk: spst_train_scan(
                                 model, opt, *chunk, *weights, gen, cfg,
                                 graphs, mesh),
-                            lambda *batch: spst_train_step(
-                                model, opt, *batch, *weights, gen, cfg,
-                                mesh),
                             cfg.scan_steps)
                 meters = MeterDict()
                 for m in fetch_metrics(steps):

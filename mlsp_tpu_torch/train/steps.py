@@ -18,12 +18,13 @@ arrays as inputs, as the JAX step's `debug_aux` returns them, so a test
 can feed it the JAX step's own. Every PointDA family runs
 (`check_recipe`).
 
-Fused dispatch (`pointda_train_scan`, the JAX package's scan): S steps on
-stacked batches, on the card as S replays of one captured CUDA graph of
-the step (`train.graphs`; under an NCCL mesh with its collectives), on
-the CPU and under a gloo mesh as S eager steps;
-the eval forward likewise (`eval_scan`, `scan_in_chunks`). A replay takes
-the step an eager `pointda_train_step` takes from the same state.
+Fused dispatch (`pointda_train_scan`, the JAX package's scan and its
+jitted single step): r steps on stacked batches, on the card as r
+replays of one captured CUDA graph of the step (`train.graphs`; under an
+NCCL mesh with its collectives), on the CPU and under a gloo mesh as r
+eager steps; the eval forward likewise (`eval_scan`, `scan_in_chunks`).
+A replay takes the step an eager `pointda_train_step` takes from the
+same state.
 
 Data-parallel (`mesh=`, see `parallel.mesh`): every rank takes the global
 batch and the same generator, so the draws, augmentation, PCM (one FPS on
@@ -52,9 +53,10 @@ from mlsp_tpu_torch.parallel.mesh import (
     captures,
     data_parallel,
     global_count,
+    points_sharding,
     shard_batch,
 )
-from mlsp_tpu_torch.train.graphs import Graphs, check_capturable, stack_steps
+from mlsp_tpu_torch.train.graphs import Graphs, replays_steps, stack_steps
 from mlsp_tpu_torch.transforms import augment, deform
 from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
 
@@ -466,31 +468,35 @@ def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
 
 def run_chunk(kind: str, step, eager_step, inputs, consts, model, opt,
               sched, generator, cfg, graphs: Graphs | None, mesh):
-    """S steps on the stacked `inputs` [S, ...]: `eager_step(*batch)` S
-    times on the CPU or under a gloo mesh; on the card (without a mesh or
-    with NCCL's, `parallel.mesh.captures`) S replays of the graph of
-    `step(*batch, *consts)` (`graphs`' own, or a new one; a step of a
-    mesh holds its collectives), then S scheduler steps. The replays read
-    the LR as it is: a chunk whose steps the schedule gives different LRs
-    (one that crosses an epoch) raises ValueError. A capture that fails
-    raises: nothing falls back to eager steps. Returns the outputs stacked
-    over S."""
-    S = inputs[0].shape[0]
-    if not inputs[0].is_cuda or not captures(mesh):
+    """r steps on the stacked `inputs` [r, ...]: a chunk of
+    `cfg.scan_steps`, an epoch's tail of fewer, or one step. On the CPU,
+    under a gloo mesh, or for a recipe a graph cannot hold at scan_steps 1
+    (`graphs.replays_steps`), `eager_step(*batch)` r times; on the card
+    (without a mesh or with NCCL's, `parallel.mesh.captures`) r replays of
+    the graph of `step(*batch, *consts)` (`graphs`' own, or a new one; a
+    step of a mesh holds its collectives), then r scheduler steps. The
+    graph is keyed by one step's shapes and holds max(r, scan_steps)
+    steps, so an epoch's chunks and its tail share one capture. The
+    replays read the LR as it is: a chunk whose steps the schedule gives
+    different LRs (one that crosses an epoch) raises ValueError. A capture
+    that fails raises: nothing falls back to eager steps. Returns the
+    outputs stacked over r."""
+    r = inputs[0].shape[0]
+    if (not inputs[0].is_cuda or not captures(mesh)
+            or not replays_steps(cfg)):
         return stack_steps([eager_step(*batch) for batch in zip(*inputs)])
-    check_capturable(cfg)
     if sched is not None and any(
-            len({f(sched.last_epoch + i) for i in range(S)}) > 1
+            len({f(sched.last_epoch + i) for i in range(r)}) > 1
             for f in sched.lr_lambdas):
-        raise ValueError(f"a chunk of {S} steps from step "
+        raise ValueError(f"a chunk of {r} steps from step "
                          f"{sched.last_epoch} crosses a change of the LR "
                          "schedule; a step graph reads one LR a chunk")
-    key = (kind, cfg, tuple(tuple(t.shape) for t in inputs))
+    key = (kind, cfg, tuple(tuple(t.shape[1:]) for t in inputs))
     graph = (graphs or Graphs()).train_step(key, step, inputs, consts, model,
-                                            opt, generator)
+                                            opt, generator, cfg.scan_steps)
     out = graph.run(inputs, consts)
     if sched is not None:
-        for _ in range(S):
+        for _ in range(r):
             sched.step()
     return out
 
@@ -499,13 +505,12 @@ def pointda_train_scan(model, opt, sched, src_xs, src_ys, trgt_xs,
                        generator: torch.Generator, cfg,
                        graphs: Graphs | None = None, mesh=None) -> dict:
     """S PointDA train iterations (`mlsp_tpu/train/steps.py::
-    pointda_train_scan`): on the card S replays of one captured graph of
-    the step (under an NCCL mesh with its collectives), on the CPU and
-    under a gloo mesh S `pointda_train_step`s. The same steps either way:
-    the
-    draws come from `generator` in the same order, and the schedule's LR
-    is the same for every step of a chunk (chunks end at epochs; see
-    `run_chunk`).
+    pointda_train_scan`, and for S = 1 its jitted `pointda_train_step`):
+    on the card S replays of one captured graph of the step (under an
+    NCCL mesh with its collectives), on the CPU and under a gloo mesh S
+    `pointda_train_step`s. The same steps either way: the draws come from
+    `generator` in the same order, and the schedule's LR is the same for
+    every step of a chunk (chunks end at epochs; see `run_chunk`).
 
     Args:
       src_xs, trgt_xs: [S, B, N, 3]; src_ys: [S, B].
@@ -537,23 +542,27 @@ EVAL_SCAN_CHUNK = 64
 
 
 def eval_scan(model, xs: torch.Tensor, graphs: Graphs | None = None,
-              output: str = "cls") -> torch.Tensor:
+              output: str = "cls", mesh=None) -> torch.Tensor:
     """Scanned eval: xs [S, B, N, 3] -> the model's `output` [S, B, ...]
     ("cls" logits [S, B, C]) in eval mode (running BN statistics, no
-    dropout); on the card one replay of a captured eval forward per batch,
-    on the CPU a loop of forwards. The model's mode is restored."""
+    dropout); on the card, without a mesh or as a rank of an NCCL one
+    (`parallel.mesh.captures`), one replay of a captured eval forward per
+    batch; on the CPU and under a gloo mesh a loop of forwards. With a
+    mesh, xs are the rank's rows, forwarded under `points_sharding(mesh)`
+    (a points axis's gathers inside the graph). The model's mode is
+    restored."""
     was_training = model.training
     model.eval()
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), points_sharding(mesh):
             def forward(x):
                 return model(x)[output]
 
-            if not xs.is_cuda:
+            if not xs.is_cuda or not captures(mesh):
                 return torch.stack([forward(x) for x in xs])
             graph = (graphs or Graphs()).eval_forward(
                 model, output, forward, xs[0],
-                max(EVAL_SCAN_CHUNK, xs.shape[0]))
+                max(EVAL_SCAN_CHUNK, xs.shape[0]), mesh)
             return graph.run(xs)
     finally:
         model.train(was_training)

@@ -5,11 +5,12 @@ module the port may not import), the head tables and the YAML/CLI funnel.
 Field names and defaults mirror the reference's argparse surfaces
 (`PointDA/trainer.py:44-99`, `train_spst.py:56-100`,
 `PointSegDA/trainer.py:93-135`) plus their per-target radius tables.
-`scan_steps` keeps JAX's defaults (16, 8, 8; 1 = off): the trainers take
-an epoch as chunks of that many steps, each chunk on the card as that
-many replays of one captured CUDA graph of the step (`train.graphs`),
-then the remaining steps one at a time; on the CPU a chunk runs its steps
-eagerly. The precision and EdgeConv knobs keep JAX's names, defaults and
+`scan_steps` keeps JAX's defaults (16, 8, 8; 1 = single steps): the
+trainers take an epoch as chunks of that many steps, then the remaining
+steps as one shorter chunk, each chunk on the card as that many replays
+of one captured CUDA graph of the step (`train.graphs`; at 1, one replay
+a step, the counterpart of JAX's jitted single step); on the CPU a chunk
+runs its steps eagerly. The precision and EdgeConv knobs keep JAX's names, defaults and
 models (`models.model_kwargs`): `compute_dtype` ("f32" | "bf16": the
 DGCNN trunk, or with the seg trainer DGCNNSeg's edge blocks, in bf16 with
 float32 parameters and BatchNorm), `head_dtype`, `gather_dtype` ("" |
@@ -97,7 +98,7 @@ class PointDAConfig:
     compute_dtype: str = "f32"  # "bf16": the DGCNN trunk in bf16
     head_dtype: str = "bf16"  # the per-point heads; "f32" for full float32
     gather_dtype: str = ""  # "bf16": round the "moments" route's gather
-    scan_steps: int = 16  # train steps per captured-graph chunk (1 = off)
+    scan_steps: int = 16  # train steps a chunk of graph replays (1: single)
     # Test-only: forwards use the running BN statistics (eval-mode BN, no
     # statistics update), as the JAX package's `debug_bn_eval`.
     debug_bn_eval: bool = False

@@ -6,7 +6,9 @@ Marked `cuda`: they skip without a card. This file imports neither JAX nor
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import contextlib
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1298,3 +1300,103 @@ def test_eval_graph_matches_eager_forwards(card):
     with torch.inference_mode():
         want = torch.stack([model(x)["cls"] for x in xs]).cpu().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _paper_trainer(tmp_path, name, eager=False, **kw):
+    """One paper-recipe trainer epoch at N=256 (8 steps of B=32, 2 + 2
+    validation and 3 test batches) on the card: its metrics.jsonl record,
+    run.log, launches and launches inside replays. `eager`: the steps on
+    the eager route (`steps.replays_steps` refusing every recipe), the eval
+    forwards replayed as ever."""
+    from unittest import mock
+
+    from mlsp_tpu_torch.train import steps as steps_mod
+    from mlsp_tpu_torch.train.pointda_trainer import train_pointda
+
+    cfg = dataclasses.replace(PointDAConfig(
+        synthetic=True, epochs=1, num_points=256, out_path=str(tmp_path),
+        exp_name=name).paper_recipe, **kw)
+    kernels.reset_launches()
+    with mock.patch.object(steps_mod, "replays_steps", lambda c: False) \
+            if eager else contextlib.nullcontext():
+        train_pointda(cfg)
+    exp = tmp_path / name
+    (rec,) = [json.loads(ln) for ln in (exp / "metrics.jsonl").open()]
+    return {"rec": rec, "log": (exp / "run.log").read_text(),
+            "launches": kernels.launches(),
+            "in_graphs": kernels.launches_in_graphs()}
+
+
+PAPER_EPOCH = {"knn": 115, "edge_moments": 92, "edge_moments_bwd": 64,
+               "knn_moments": 8, "fps": 8}
+PAPER_EPOCH_EVALS = {"knn": 35, "edge_moments": 28, "edge_moments_bwd": 0,
+                     "knn_moments": 0, "fps": 0}
+
+
+@pytest.mark.parametrize("scan_steps", [16, 1])
+def test_trainer_tail_and_single_steps_replay(card, tmp_path, scan_steps):
+    """An 8-step epoch at scan_steps 16 (one tail of 8 replays) and at 1
+    (a replay a step): every K1-K4 launch inside graph replays, and the
+    losses and validation metrics bit-equal to the eager steps'."""
+    got = _paper_trainer(tmp_path, "g", scan_steps=scan_steps)
+    want = _paper_trainer(tmp_path, "e", eager=True, scan_steps=scan_steps)
+    assert got["launches"] == got["in_graphs"] == PAPER_EPOCH
+    assert want["launches"] == PAPER_EPOCH
+    assert want["in_graphs"] == PAPER_EPOCH_EVALS
+    assert got["rec"]["step_graphs"]
+    for k in ("train", "src_val", "trgt_val"):
+        assert got["rec"][k] == want["rec"][k], k
+    line = ("chunks of 16 steps and the epoch's tail replay one captured "
+            "graph" if scan_steps > 1
+            else "scan_steps 1: each step replays one captured graph")
+    assert line in got["log"]
+
+
+def test_host_drawn_pcm_takes_eager_steps_at_scan_steps_1(card, tmp_path):
+    """PCM at mixup_params 0.4 (its Beta ratio drawn on the host) at
+    scan_steps 1: the steps run eagerly, the log and the record say so,
+    the eval forwards still replay; at scan_steps 8 it is refused before
+    any step."""
+    got = _paper_trainer(tmp_path, "h", scan_steps=1, mixup_params=0.4)
+    assert got["launches"] == PAPER_EPOCH
+    assert got["in_graphs"] == PAPER_EPOCH_EVALS
+    assert got["rec"]["step_graphs"] is False
+    assert ("step graphs: off (scan_steps 1: eager steps, mixup_params=0.4"
+            in got["log"])
+    with pytest.raises(ValueError, match="mixup_params=0.4"):
+        _paper_trainer(tmp_path, "r", scan_steps=8, mixup_params=0.4)
+    assert not any(kernels.launches().values())
+
+
+def test_nccl_rank_eval_replays_equal_eager_mesh_forwards(card, nccl_mesh):
+    """An NCCL world of one: the eval logits of 5 batches of 5 through the
+    rank's captured eval forward, gathered after the replays, bit-equal
+    to the eager mesh forwards (`steps.captures` refusing the mesh) and
+    to one process's replays, every launch inside the replays."""
+    from unittest import mock
+
+    from mlsp_tpu_torch.train import steps as steps_mod
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.pointda_trainer import (
+        eval_batches,
+        eval_logits,
+    )
+
+    model = make_model("dgcnn", 10, device=card,
+                       generator=torch.Generator().manual_seed(4))
+    x = torch.from_numpy(make_classification(23, 256, 10, seed=6)[0]
+                         ).to(card)
+    sels, _ = eval_batches(23, 5)
+    kernels.reset_launches()
+    got = eval_logits(model, x, sels, mesh=nccl_mesh, graphs=Graphs())
+    assert kernels.launches() == kernels.launches_in_graphs() == {
+        "knn": 25, "edge_moments": 20, "edge_moments_bwd": 0,
+        "knn_moments": 0, "fps": 0}
+    with mock.patch.object(steps_mod, "captures", lambda mesh: False):
+        kernels.reset_launches()
+        eager = eval_logits(model, x, sels, mesh=nccl_mesh)
+        assert not any(kernels.launches_in_graphs().values())
+    one = eval_logits(model, x, sels, graphs=Graphs())
+    assert got.shape == (5, 5, 10)
+    np.testing.assert_array_equal(got, eager)
+    np.testing.assert_array_equal(got, one)

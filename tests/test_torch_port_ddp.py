@@ -33,7 +33,11 @@ import torch.distributed as dist
 from mlsp_tpu_torch import make_model, parallel
 from mlsp_tpu_torch.data.synthetic import make_classification, make_segmentation
 from mlsp_tpu_torch.models.layers import batch_norm
-from mlsp_tpu_torch.train.pointda_trainer import graphs_route
+from mlsp_tpu_torch.train.pointda_trainer import (
+    eval_batches,
+    eval_index,
+    graphs_route,
+)
 from mlsp_tpu_torch.testing import (
     free_port,
     grad_gaps,
@@ -268,14 +272,17 @@ class _Log:
     def cprint(self, line):
         self.lines.append(line)
 
+    def print_progress(self, *args):
+        pass
+
 
 @pytest.mark.parametrize("backend,device,on", [
     ("gloo", "cuda", False), ("nccl", "cuda", True), ("nccl", "cpu", False)])
 def test_graphs_route_by_backend(backend, device, on):
-    """A mesh's chunks replay step graphs on the card under NCCL, whose
-    collectives a graph holds, and run eagerly under gloo, which the log
-    says; eval forwards stay eager under a mesh. A fake mesh: no process
-    group, no card."""
+    """A mesh's steps (chunks and the epoch's tail) and eval forwards
+    replay graphs on the card under NCCL, whose collectives a graph holds,
+    and run eagerly under gloo and on the CPU, which the log says of
+    each. A fake mesh: no process group, no card."""
     mesh = parallel.Mesh(rank=0, size=2, device=torch.device(device),
                          backend=backend)
     log = _Log()
@@ -285,11 +292,156 @@ def test_graphs_route_by_backend(backend, device, on):
     assert parallel.captures(mesh) is (backend == "nccl")
     (line,) = log.lines
     assert line.startswith(f"step graphs: {'on' if on else 'off'}")
-    assert "eval forwards eager under a mesh" in line
     if on:
-        assert "NCCL collectives" in line
+        assert ("chunks of 4 steps and the epoch's tail replay one captured "
+                "graph with the mesh's NCCL collectives") in line
+        assert "eval forwards replay captured graphs of the rank's rows" in line
     elif device == "cuda":
-        assert "gloo collectives cannot be captured" in line
+        assert ("steps run eagerly under gloo (its collectives cannot be "
+                "captured); eval forwards run eagerly under gloo (its "
+                "collectives cannot be captured)") in line
+    else:
+        assert ("steps run eagerly on the cpu; eval forwards run eagerly on "
+                "the cpu") in line
+
+
+@pytest.mark.parametrize("mesh", [None, "nccl"])
+def test_graphs_route_at_scan_steps_1(mesh):
+    """On the card `scan_steps` 1 replays one graph a step, without a mesh
+    and under NCCL; PCM at mixup_params 0.4 (its Beta ratio drawn on the
+    host) takes eager steps there and says why, its eval forwards still
+    replayed, and is refused at scan_steps > 1 before any step."""
+    if mesh is not None:
+        mesh = parallel.Mesh(rank=0, size=2, device=torch.device("cuda"),
+                             backend=mesh)
+    card = torch.device("cuda")
+    log = _Log()
+    assert graphs_route(PointDAConfig(scan_steps=1), card, mesh, log)[0]
+    assert "scan_steps 1: each step replays one captured graph" in log.lines[0]
+    host = PointDAConfig(scan_steps=1, apply_PCM=True, mixup_params=0.4)
+    on, graphs = graphs_route(host, card, mesh, log)
+    assert not on and graphs is not None
+    assert ("step graphs: off (scan_steps 1: eager steps, mixup_params=0.4 "
+            "draws PCM's Beta ratio on the host, which a graph cannot hold; "
+            "eval forwards replay captured graphs") in log.lines[1]
+    with pytest.raises(ValueError, match="mixup_params=0.4"):
+        graphs_route(dataclasses.replace(host, scan_steps=8), card, mesh,
+                     log)
+
+
+@pytest.mark.parametrize("size,rank", [(1, 0), (2, 0), (2, 1), (3, 2),
+                                       (4, 3)])
+def test_eval_index_is_the_eager_branch_index(size, rank):
+    """`eval_index`, which the graph and the eager route share, gives the
+    index that the eager mesh forward built on the device before the mesh
+    eval graphs: each batch padded with its last index to a multiple of
+    the data ranks, then the rank's rows; the sels themselves without a
+    mesh."""
+    sels, _ = eval_batches(23, 5, np.arange(40, 63))
+    mesh = parallel.Mesh(rank=rank, size=size, device=torch.device("cpu"))
+    idx = torch.from_numpy(np.stack(sels))
+    pad = -idx.shape[1] % mesh.size
+    idx = torch.cat([idx, idx[:, -1:].expand(-1, pad)], 1)
+    want = parallel.shard_batch(mesh, idx.T).T
+    got = eval_index(sels, mesh)
+    assert got.dtype == want.numpy().dtype
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(eval_index(sels, None), np.stack(sels))
+
+
+EVAL_N, EVAL_B = 32, 5  # 5 rows a batch over 2 ranks: each pads to 6
+
+
+def _eval_case(m: int = 17) -> dict:
+    """A DGCNN whose weights are carried from a JAX model with random BN
+    statistics, a DGCNNSeg, and their clouds: m of each, 4 batches of
+    EVAL_B, the last padded."""
+    import jax
+    import jax.numpy as jnp
+
+    from mlsp_tpu.train import evaluation as jeval
+    from mlsp_tpu.train.state import create_train_state
+    from mlsp_tpu.utils import config as jconfig
+    from mlsp_tpu_torch.utils.jax_weights import dgcnn_state_dict_from_jax
+
+    jcfg = jconfig.EvalConfig(synthetic=True, num_points=EVAL_N,
+                              test_batch_size=EVAL_B).resolved()
+    jmodel, heads = jeval._build_model(jcfg)
+    state = create_train_state(jmodel, jax.random.key(1),
+                               jnp.zeros((EVAL_B, EVAL_N, 3)), heads=heads)
+    rng = np.random.default_rng(1)
+    state = state.replace(batch_stats=jax.tree_util.tree_map(
+        lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32),
+        state.batch_stats))
+    x, y = make_classification(m, EVAL_N, 10, seed=4)
+    sx, sy = make_segmentation(m, EVAL_N, 8, seed=5)
+    seg = make_model("dgcnn_seg", 8, device="cpu",
+                     generator=torch.Generator().manual_seed(2))
+    return {"jax": state, "x": x, "y": y, "idx": np.arange(1, m),
+            "sx": sx, "sy": sy, "seg": seg.state_dict(),
+            "cls": dgcnn_state_dict_from_jax(
+                {"params": state.params, "batch_stats": state.batch_stats})}
+
+
+def _eval_rank(mesh, case: dict) -> dict:
+    """On a rank of `mesh` (or one process): `evaluate` over `idx`,
+    `evaluate_seg`, and SPST's selection by max-prob at `threshold`."""
+    from mlsp_tpu_torch.train.pointda_trainer import evaluate
+    from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
+    from mlsp_tpu_torch.train.spst import select_pseudo_labels
+
+    cls = make_model("dgcnn", 10, device="cpu")
+    cls.load_state_dict(case["cls"])
+    seg = make_model("dgcnn_seg", 8, device="cpu")
+    seg.load_state_dict(case["seg"])
+    kept, labels = select_pseudo_labels(
+        cls, case["x"], case["y"], case["idx"], EVAL_B, case["threshold"],
+        False, _Log(), 0, mesh)
+    return {"evaluate": evaluate(cls, case["x"], case["y"], EVAL_B, 10,
+                                 case["idx"], mesh),
+            "evaluate_seg": evaluate_seg(seg, case["sx"], case["sy"], EVAL_B,
+                                         mesh),
+            "selected": (kept.numpy(), labels.numpy())}
+
+
+def test_two_rank_evals_equal_one_process_and_jax():
+    """2 gloo ranks, each forwarding its rows of every batch (B=5, padded
+    to 6): `evaluate` (over a subset, the trailing batch padded),
+    `evaluate_seg` and SPST's selection (max-prob above the one process's
+    median) equal one process's on both ranks, and `evaluate` equals the
+    JAX `evaluate` on the carried weights, each loss within 1e-5 and the
+    counts, predictions and selections equal (eval-mode BN)."""
+    from mlsp_tpu.train import pointda_trainer as jtrainer
+    from mlsp_tpu_torch.train.pointda_trainer import eval_logits
+
+    case = _eval_case()
+    jax_state = case.pop("jax")
+    model = make_model("dgcnn", 10, device="cpu")
+    model.load_state_dict(case["cls"])
+    sels, counts = eval_batches(len(case["y"]), EVAL_B, case["idx"])
+    logits = eval_logits(model, case["x"], sels)
+    prob = np.exp(logits - logits.max(-1, keepdims=True))
+    conf = np.concatenate([p[:n] for p, n in zip(
+        prob / prob.sum(-1, keepdims=True), counts)]).max(-1)
+    case["threshold"] = float(np.median(conf))
+    one = _eval_rank(None, case)
+    assert 0 < len(one["selected"][1]) < len(case["idx"])
+    want = jtrainer.evaluate(jax_state, case["x"], case["y"], EVAL_B, 10,
+                             case["idx"])
+
+    def close(a, b):
+        assert abs(a - b) <= 1e-5 * max(abs(b), 1.0), (a, b)
+
+    for r in run_ranks(2, _eval_rank, case) + [one]:
+        for ref in (one["evaluate"], want):
+            close(r["evaluate"]["loss"], ref["loss"])
+            assert r["evaluate"]["acc"] == ref["acc"]
+            np.testing.assert_array_equal(r["evaluate"]["conf_mat"],
+                                          ref["conf_mat"])
+        for a, b in zip(r["evaluate_seg"], one["evaluate_seg"]):
+            close(a, b)
+        for a, b in zip(r["selected"], one["selected"]):
+            np.testing.assert_array_equal(a, b)
 
 
 def _mesh_step_syncs(mesh, case: dict) -> dict:

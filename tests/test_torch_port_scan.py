@@ -214,12 +214,11 @@ def _train(tmp_path, scan_steps):
     return records, torch.load(exp / "last.ckpt", weights_only=True)
 
 
-def test_trainer_steps_do_not_depend_on_scan_steps(tmp_path):
-    """8 steps an epoch (PointNet: the chunking does not depend on the
-    model): scan_steps 3 (2 chunks, 2 single steps) gives the losses and
-    checkpoint of scan_steps 1 (every step single) bit for bit; the
-    records say the CPU ran no step graph."""
-    got, got_ckpt = _train(tmp_path, 3)
+def _same_runs(tmp_path, scan_steps):
+    """The trainer at `scan_steps` and at 1: the same losses and
+    checkpoint bit for bit, and records that say the CPU ran no step
+    graph."""
+    got, got_ckpt = _train(tmp_path, scan_steps)
     want, ckpt = _train(tmp_path, 1)
     assert [r["train"] for r in got] == [r["train"] for r in want]
     torch.testing.assert_close(got_ckpt["model"], ckpt["model"], rtol=0,
@@ -229,29 +228,43 @@ def test_trainer_steps_do_not_depend_on_scan_steps(tmp_path):
     assert all(r["step_graphs"] is False for r in got + want)
 
 
+def test_trainer_steps_do_not_depend_on_scan_steps(tmp_path):
+    """8 steps an epoch (PointNet: the chunking does not depend on the
+    model): scan_steps 3 (2 chunks, a tail of 2) gives the losses and
+    checkpoint of scan_steps 1 (a chunk a step) bit for bit."""
+    _same_runs(tmp_path, 3)
+
+
+def test_trainer_tail_and_single_steps_equal_a_long_scan_steps(tmp_path):
+    """The same at scan_steps 16, the default: the 8-step epoch is one
+    tail of 8."""
+    _same_runs(tmp_path, 16)
+
+
 @pytest.mark.parametrize("scan_steps,chunks,singles", [
     (3, [[0, 1, 2], [3, 4, 5]], [6, 7]),  # chunks, then the tail
     (4, [[0, 1, 2, 3], [4, 5, 6, 7]], []),
-    (16, [], list(range(8))),  # more than an epoch: every step single
-    (1, [], list(range(8)))])  # off
+    (16, [], list(range(8))),  # more than an epoch: the tail alone
+    (1, [[i] for i in range(8)], [])])  # a chunk a step
 def test_epoch_order_of_chunks_and_single_steps(scan_steps, chunks, singles):
     """`train_epoch` takes full chunks of `scan_steps` pairs, then the
-    remaining pairs one at a time, as the JAX trainer does; the chunk's
+    remaining pairs (`singles`) as one shorter chunk: `scan` sees stacks
+    of S, ..., S, r steps, as the JAX trainer's scan and then its jitted
+    single steps take them, and nothing goes round it; the chunks'
     stacked outputs come back one per step, in order."""
     pairs = torch.arange(8)[:, None, None].expand(8, 2, 1)
-    seen = {"chunks": [], "singles": []}
+    seen = []
 
     def scan(first, second):
-        seen["chunks"].append(first[:, 0].tolist())
+        seen.append(first[:, 0].tolist())
         return {"i": first[:, 0]}
 
-    def step(first, second):
-        seen["singles"].append(int(first[0]))
-        return {"i": first[0]}
-
-    out = pointda_trainer.train_epoch(pairs, lambda a, b: (a, b), scan, step,
+    out = pointda_trainer.train_epoch(pairs, lambda a, b: (a, b), scan,
                                       scan_steps)
-    assert seen == {"chunks": chunks, "singles": singles}
+    assert seen == chunks + ([singles] if singles else [])
+    assert [len(c) for c in seen] == (
+        [scan_steps] * (8 // scan_steps) + ([8 % scan_steps]
+                                            if 8 % scan_steps else []))
     assert [int(o["i"]) for o in out] == list(range(8))
 
 
@@ -343,6 +356,20 @@ def test_graphs_refuse_cpu_tensors_and_host_draws():
             mixup_params=0.5, apply_PCM=False),
             config.SPSTConfig(mixup_params=0.0, apply_PCM=True)):
         graphs.check_capturable(cfg)
+
+
+@pytest.mark.parametrize("cls", [config.PointDAConfig, config.SPSTConfig,
+                                 config.PointSegDAConfig])
+def test_only_the_host_drawn_recipe_takes_eager_steps(cls):
+    """Every recipe a graph can hold replays its steps at any scan_steps;
+    PCM at mixup_params 0.4 takes eager steps at scan_steps 1 and is
+    refused at more, before any step."""
+    assert graphs.replays_steps(cls(scan_steps=1))
+    assert graphs.replays_steps(cls(scan_steps=16, apply_PCM=True))
+    host = cls(scan_steps=1, apply_PCM=True, mixup_params=0.4)
+    assert not graphs.capturable(host) and not graphs.replays_steps(host)
+    with pytest.raises(ValueError, match="mixup_params=0.4"):
+        graphs.replays_steps(dataclasses.replace(host, scan_steps=2))
 
 
 FAMILIES = [

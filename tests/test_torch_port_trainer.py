@@ -12,6 +12,7 @@ import contextlib
 import functools
 import importlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -41,6 +42,17 @@ N, B = 64, 8
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mlsp_tpu"}
 _knn = importlib.import_module("mlsp_tpu_torch.ops.knn")
 _jdgcnn = importlib.import_module("mlsp_tpu.models.dgcnn")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the file's tests, then the count it had: beside
+    the other test processes the paper run's small steps go several times
+    faster on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _randomise(variables, seed):
@@ -368,7 +380,8 @@ class TestCli:
         def run(*argv):
             return subprocess.run([sys.executable, "-c", _CLI, *argv],
                                   cwd=ROOT, capture_output=True, text=True,
-                                  timeout=600)
+                                  timeout=600, env={**os.environ,
+                                                    "OMP_NUM_THREADS": "1"})
 
         common = ["--synthetic", "True", "--device", "cpu", "--num_points",
                   "32", "--test_batch_size", "32", "--out_path", str(tmp_path)]

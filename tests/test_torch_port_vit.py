@@ -33,6 +33,7 @@ import dataclasses
 import functools
 import importlib
 import json
+import os
 import subprocess
 import sys
 from unittest import mock
@@ -522,7 +523,8 @@ def test_clis_run_a_vit(tmp_path):
 
     def run(*argv):
         r = subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT,
-                           capture_output=True, text=True, timeout=600)
+                           capture_output=True, text=True, timeout=600,
+                           env={**os.environ, "OMP_NUM_THREADS": "1"})
         assert r.returncode == 0, r.stderr
         return r.stdout
 
