@@ -222,10 +222,15 @@ one JSON line each; any failure exits non-zero before the last line:
                eager route's, epoch times by scan_steps; `seg` and `spst`
                at their default scan_steps with exact launches, all inside
                replays, finite losses and "step_graphs" true in every
-               record; PCM at `--mixup_params 0.4`: eager steps at
-               `--scan_steps 1` (the log says so), refused at 16; PointNet
-               at 3 against 1; a profiled epoch at 8 (the device's busy
-               share); the scanned
+               record; PCM's Beta(a, a) ratio at a = 1e-3, 0.4 and 2.0,
+               4,096 draws each inside one CUDA graph (finite, in [0, 1],
+               variance within 5 sigma, the replay bit-equal to eager
+               draws); the paper `trainer` (3 epochs), `seg` and `spst`
+               with PCM at `--mixup_params 0.4` at their default
+               scan_steps (16, 8, 8), each against its eager route: exact
+               launches, all inside replays, losses and validation metrics
+               bit-equal, epoch times; PointNet at 3 against 1; a
+               profiled epoch at 8 (the device's busy share); the scanned
                eval against the eager forwards; step p50 of replayed
                chunks of 8 against eager steps, interleaved, for the
                paper, all-branch and seg recipes, with peak memory
@@ -3542,9 +3547,16 @@ GRAPH_PARAM_SLACK = 2.5
 # must take the eager steps' updates within LOSS_RTOL (whether bit for bit
 # is reported).
 GRAPH_CHUNK_CHECK = 3
-# PCM at this mixup_params draws its Beta ratio on the host: a graph cannot
-# hold its step, so scan_steps 1 takes it eagerly and more is refused
-GRAPH_HOST_MIXUP = 0.4
+# PCM at this mixup_params draws a Beta(a, a) ratio other than the paper's
+# uniform one (`steps.draw_mix_ratio`: gammas of the step's generator): the
+# paper, seg and SPST trainers at their default scan_steps replay it, each
+# against its eager route
+GRAPH_MIXUP = 0.4
+# The Beta(a, a) ratios drawn inside one captured graph (`graph_mix_ratio`):
+# GRAPH_MIX_DRAWS of each a, every variance within GRAPH_MIX_SIGMAS of
+# 1/(4(2a + 1))
+GRAPH_MIX_ALPHAS = (1e-3, GRAPH_MIXUP, 2.0)
+GRAPH_MIX_DRAWS, GRAPH_MIX_SIGMAS = 4096, 5.0
 
 
 class Graphed:
@@ -3912,16 +3924,18 @@ def graph_trainers(tmp: str, model_file: str) -> dict:
     (a replayed step, chunked, a tail or single, is the eager step); the
     epoch times by scan_steps beside the eager route's. The seg and SPST
     CLIs at their default scan_steps (the seg epoch's 3 steps one tail):
-    exact launches, all inside replays. PCM at GRAPH_HOST_MIXUP: eager
-    steps at scan_steps 1, said in the log, its eval forwards replayed,
-    and refused at 16. PointNet (DefRec, PCM) at scan_steps 3 against 1;
-    a profiled run."""
+    exact launches, all inside replays. The paper, seg and SPST CLIs with
+    PCM at GRAPH_MIXUP at their default scan_steps (16, 8, 8), each
+    against its eager route: exact launches, all inside replays,
+    "step_graphs" on, losses and validation metrics bit-equal, epoch
+    times. PointNet (DefRec, PCM) at scan_steps 3 against 1; a profiled
+    run."""
     out = os.path.join(tmp, "graph_runs")
     common = ["--synthetic", "True", "--out_path", out]
     paper = ["trainer", "--paper_recipe", "True", "--epochs",
              str(GRAPH_TIMED_EPOCHS), *common]
     eager_route = mock.patch.object(steps_mod, "replays_steps",
-                                    lambda cfg: False)
+                                    lambda x, mesh: False)
     order = ["eager", *GRAPH_TIMED_SCANS, *GRAPH_TIMED_SCANS[::-1], "eager"]
     timed, res = [], {}
     for i, S in enumerate(order):
@@ -3968,13 +3982,13 @@ def graph_trainers(tmp: str, model_file: str) -> dict:
 
     seg = ["seg", "--config", repo_file(SEG_CONFIG), "--apply_PCM", "True",
            "--epochs", str(SEG_TRAINER_EPOCHS), *common]
+    spst_argv = ["spst", "--model_file", model_file, "--rounds",
+                 str(SPST_ROUNDS), "--epochs", "1", "--threshold",
+                 str(SPST_THRESHOLD), "--apply_PCM", "True", *common]
     cli_runs = {
         "seg": graph_cli(tmp, [*seg, "--exp_name", "graph_seg"], "graph_seg"),
-        "spst": graph_cli(tmp, [
-            "spst", "--model_file", model_file, "--rounds", str(SPST_ROUNDS),
-            "--epochs", "1", "--threshold", str(SPST_THRESHOLD),
-            "--apply_PCM", "True", "--exp_name", "graph_spst", *common],
-            "graph_spst")}
+        "spst": graph_cli(tmp, [*spst_argv, "--exp_name", "graph_spst"],
+                          "graph_spst")}
     expected = {"seg": seg_trainer_launches(SEG_TRAINER_EPOCHS),
                 "spst": spst_launches(SPST_ROUNDS)}
     for name, r in cli_runs.items():
@@ -4018,35 +4032,59 @@ def graph_trainers(tmp: str, model_file: str) -> dict:
           f"the seg CLI's replays part from its eager route: "
           f"{res['seg']['eager_route']}")
 
-    # the host-drawn recipe: eager steps at scan_steps 1, refused above
-    host = ["trainer", "--paper_recipe", "True", "--mixup_params",
-            str(GRAPH_HOST_MIXUP), "--epochs", "1", *common]
-    hr = graph_cli(tmp, [*host, "--scan_steps", "1", "--exp_name",
-                         "graph_host"], "graph_host")
-    route = [ln.split("step graphs: ", 1)[-1]
-             for ln in hr["log"].splitlines() if "step graphs:" in ln]
-    try:
-        with open(os.path.join(tmp, "graph_host_refused.log"), "w") as f, \
-                contextlib.redirect_stdout(f):
-            cli.main([*host, "--scan_steps", "16", "--exp_name",
-                      "graph_host_refused"])
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    res["host_mixup"] = {"launches": hr["launches"],
-                         "launches_in_graphs": hr["in_graphs"],
-                         "step_graphs": [rec["step_graphs"]
-                                         for rec in hr["records"]],
-                         "route_line": route, "refused_at_16": refused}
-    emit("step_graphs", what="host_drawn_pcm", **res["host_mixup"])
-    check(hr["launches"] == trainer_launches(1)
-          and hr["in_graphs"] == eval_launches(hr["launches"], GRAPH_EPOCH)
-          and not any(res["host_mixup"]["step_graphs"])
-          and len(route) == 1 and route[0].startswith(
-              f"off (scan_steps 1: eager steps, mixup_params="
-              f"{GRAPH_HOST_MIXUP}")
-          and f"mixup_params={GRAPH_HOST_MIXUP}" in refused,
-          f"the host-drawn PCM recipe: {res['host_mixup']}")
+    # PCM at GRAPH_MIXUP: its Beta ratio drawn on the card, every trainer
+    # at its default scan_steps replays it, bit-equal to its eager route
+    mix = ["--mixup_params", str(GRAPH_MIXUP)]
+    mix_cases = {"paper": ([*paper, *mix], want),
+                 "seg": ([*seg, *mix], expected["seg"]),
+                 "spst": ([*spst_argv, *mix], expected["spst"])}
+    res["mixup"], mix_runs, mix_eager = {}, [], []
+    for name, (argv, expect) in mix_cases.items():
+        got = graph_cli(tmp, [*argv, "--exp_name", f"graph_mix_{name}"],
+                        f"graph_mix_{name}")
+        with eager_route:
+            ref = graph_cli(tmp, [*argv, "--exp_name",
+                                  f"graph_mix_{name}_eager"],
+                            f"graph_mix_{name}_eager")
+        mix_runs.append(got)
+        mix_eager.append(ref)
+        metrics = {r: [{k: rec[k] for k in ("train", "src_val", "trgt_val")}
+                       for rec in run["records"]]
+                   for r, run in (("graph", got), ("eager", ref))}
+        res["mixup"][name] = {
+            "mixup_params": GRAPH_MIXUP,
+            "launches": got["launches"], "launches_expected": expect,
+            "launches_in_graphs": got["in_graphs"],
+            "eager_route_launches": ref["launches"],
+            "eager_route_launches_in_graphs": ref["in_graphs"],
+            "step_graphs": [rec["step_graphs"] for rec in got["records"]],
+            "bit_equal_to_eager_route": metrics["graph"] == metrics["eager"],
+            "finite": all(np.isfinite(v) for m in metrics["graph"]
+                          for v in m["train"].values()),
+            "losses": [m["train"] for m in metrics["graph"]],
+            "epoch_seconds": [rec["seconds"] for rec in got["records"]],
+            "eager_route_epoch_seconds": [rec["seconds"]
+                                          for rec in ref["records"]],
+            "route_line": [ln.split(": ", 1)[-1]
+                           for ln in got["log"].splitlines()
+                           if "step graphs:" in ln]}
+        emit("step_graphs", what=f"mixup_{name}_cli", **res["mixup"][name])
+        check(got["launches"] == expect == got["in_graphs"]
+              and ref["launches"] == expect
+              and all(res["mixup"][name]["step_graphs"])
+              and res["mixup"][name]["finite"]
+              and res["mixup"][name]["bit_equal_to_eager_route"],
+              f"the {name} CLI with PCM at mixup_params {GRAPH_MIXUP}: "
+              f"{res['mixup'][name]}")
+    mp = res["mixup"]["paper"]
+    res["epochs"]["mixup_scan_steps_16"] = {
+        "epoch_s_median": statistics.median(
+            t["epoch"] for t in mp["epoch_seconds"][1:]),
+        "eager_route_epoch_s_median": statistics.median(
+            t["epoch"] for t in mp["eager_route_epoch_seconds"][1:]),
+        "epochs": len(mp["epoch_seconds"]) - 1}
+    emit("step_graphs", what="mixup_trainer_epochs",
+         epochs=res["epochs"]["mixup_scan_steps_16"])
 
     # PointNet's trainer (reproducible since the first kernels) at
     # scan_steps 3 against 1: 2 epochs
@@ -4081,9 +4119,12 @@ def graph_trainers(tmp: str, model_file: str) -> dict:
         "graph_paper_trainers": added_launches(r["launches"] for r in timed),
         **{f"graph_{n}": r["launches"] for n, r in cli_runs.items()},
         "graph_seg_eager_route": se["launches"],
-        "graph_host_mixup": hr["launches"]}
+        "graph_mixup": added_launches(r["launches"] for r in mix_runs),
+        "graph_mixup_eager_route": added_launches(r["launches"]
+                                                  for r in mix_eager)}
     res["in_graphs"] = added_launches(
-        r["in_graphs"] for r in [*timed, *cli_runs.values(), se, hr])
+        r["in_graphs"] for r in [*timed, *cli_runs.values(), se, *mix_runs,
+                                 *mix_eager])
     return res
 
 
@@ -4177,9 +4218,65 @@ def graph_step_times(device, card: str) -> dict:
     return res
 
 
+def graph_mix_ratio(device, card: str) -> dict:
+    """PCM's Beta(a, a) ratios (`steps.draw_mix_ratio`, `draw_pcm`'s λ)
+    at each of GRAPH_MIX_ALPHAS, GRAPH_MIX_DRAWS each, drawn inside one
+    CUDA graph from a registered generator: every λ finite in [0, 1], each
+    variance within GRAPH_MIX_SIGMAS sigma of 1/(4(2a + 1)), and the
+    replay bit-equal to the same draws taken eagerly from the same state;
+    the capture's seconds, the replay's and the eager draws' ms."""
+    n = GRAPH_MIX_DRAWS
+
+    def draws(gen):
+        return [steps_mod.draw_mix_ratio(gen, a, (n,))
+                for a in GRAPH_MIX_ALPHAS]
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    draws(gen)  # the gamma kernel's first launch, outside the capture
+    torch.cuda.synchronize()
+    state = gen.get_state()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        out = draws(gen)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    gen.set_state(state)
+    graph.replay()
+    replayed, after = [t.clone() for t in out], gen.get_state()
+    gen.set_state(state)
+    eager = draws(gen)
+    res = {"draws": n, "bit_equal_to_eager": [
+               bool(torch.equal(a, b)) for a, b in zip(replayed, eager)],
+           "generator_state_equal": bool(torch.equal(gen.get_state(),
+                                                      after)),
+           "by_a": {}, "capture_s": capture_s,
+           "replay_ms": median_ms(graph.replay),
+           "eager_ms": median_ms(lambda: draws(gen)), "card": card}
+    for a, t in zip(GRAPH_MIX_ALPHAS, replayed):
+        lam = t.double().cpu().numpy()
+        var = 1 / (4 * (2 * a + 1))
+        mu4 = 3 / (16 * (2 * a + 1) * (2 * a + 3))  # 4th central moment
+        sigma = float(np.sqrt((mu4 - var ** 2) / n))
+        res["by_a"][str(a)] = {
+            "finite": bool(np.isfinite(lam).all()),
+            "min": float(lam.min()), "max": float(lam.max()),
+            "mean": float(lam.mean()), "var": float(lam.var()),
+            "var_expected": var, "var_sigmas": float(lam.var() - var) / sigma}
+    emit("step_graphs", what="mix_ratio_in_graph", **res)
+    check(all(res["bit_equal_to_eager"]) and res["generator_state_equal"]
+          and all(r["finite"] and 0.0 <= r["min"] and r["max"] <= 1.0
+                  and abs(r["var_sigmas"]) <= GRAPH_MIX_SIGMAS
+                  for r in res["by_a"].values()),
+          f"PCM's Beta ratios drawn in a CUDA graph: {res}")
+    return res
+
+
 def step_graphs(device, card: str, g: torch.Generator, tmp: str,
                 model_file: str) -> dict:
     """The `step_graphs` phase; returns the launches of its paths."""
+    mr = graph_mix_ratio(device, card)
     rv = graph_vs_eager(device)
     ce = graph_chunks_vs_eager(device)
     kc = graph_kernels(device, g)
@@ -4189,9 +4286,11 @@ def step_graphs(device, card: str, g: torch.Generator, tmp: str,
     by_path = {**tr["by_path"],
                "graph_replay_vs_eager": rv["launches_graph"]}
     in_graphs = added_launches([tr["in_graphs"], rv["launches_in_graph"]])
+    emit("step_graphs", what="launches", launches=added_launches(
+        by_path.values()), launches_in_graphs=in_graphs)
     return {"by_path": by_path, "in_graphs": in_graphs, "kernel_checks": kc,
             "replay_vs_eager": rv, "chunks_vs_eager": ce, "trainers": tr,
-            "eval": ev,
+            "eval": ev, "mix_ratio": mr,
             "times": times}
 
 

@@ -36,6 +36,9 @@ buffers thus exist before capture, else the graph would hold its
 first-step branch. The step's `torch.Generator` is registered with the
 graph: each replay draws from the generator's Philox stream where an
 eager step would, and leaves its offset where the eager step leaves it.
+Every draw of every recipe is such a device op, PCM's Beta(a, a) ratio
+at any `mixup_params` included (`steps.draw_mix_ratio`: gammas and
+uniforms of the generator), so a step graph holds every recipe.
 
 An `EvalGraph` is the ChunkGraph of one eval forward (eval mode, no
 dropout, no statistics update) over [chunk, B, ...] batches; a rank of an
@@ -61,35 +64,6 @@ from torch.utils import _pytree as pytree
 
 from mlsp_tpu_torch.ops import kernels
 from mlsp_tpu_torch.train.state import lr_tensors
-
-
-def capturable(cfg) -> bool:
-    """Whether a step graph can hold cfg's step: not PCM with
-    `mixup_params` other than 1 (or <= 0), which draws λ from a numpy
-    Beta seeded on the host (`steps.draw_pcm`)."""
-    a = getattr(cfg, "mixup_params", 1.0)
-    return not (getattr(cfg, "apply_PCM", False) and a > 0 and a != 1.0)
-
-
-def check_capturable(cfg) -> None:
-    """Raise ValueError for a recipe a step graph cannot hold
-    (`capturable`)."""
-    if not capturable(cfg):
-        a = cfg.mixup_params
-        raise ValueError(
-            f"mixup_params={a}: PCM draws its Beta({a}, {a}) mixing ratio "
-            "on the host, which a step graph cannot capture; set "
-            "scan_steps 1 (eager steps) or mixup_params 1.0")
-
-
-def replays_steps(cfg) -> bool:
-    """Whether the card takes cfg's train steps as replays of a step
-    graph: every recipe a graph can hold, at any `scan_steps`. A recipe it
-    cannot hold (`capturable`) takes eager steps at `scan_steps` 1 and
-    raises ValueError at more (`check_capturable`)."""
-    if cfg.scan_steps > 1:
-        check_capturable(cfg)
-    return capturable(cfg)
 
 
 def stack_steps(outs: list):

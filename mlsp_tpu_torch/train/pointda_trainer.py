@@ -14,16 +14,16 @@ remaining steps as one shorter chunk, as the JAX trainer runs its scan
 and then its jitted single steps (`steps.pointda_train_scan`: on the card
 every step, the tail's and `scan_steps` 1's too, is a replay of one
 captured CUDA graph of the step, captured at the first chunk of the run,
-after any `--resume`). Under an NCCL mesh the graph holds the step's
-collectives; a gloo mesh takes its steps eagerly, and so does the card at
-`scan_steps` 1 for the one recipe a graph cannot hold
-(`graphs.replays_steps`): the log and every `metrics.jsonl` record say
-whether step graphs ran ("step_graphs"). The log names each EdgeConv
-layer's route. Each step's loss terms stay on the device until the end
-of the epoch, when they are fetched in one copy and fed to `MeterDict` in
-step order. Evaluation runs through the scanned eval forward
-(`steps.eval_scan`, a captured graph on the card, a rank's own under an
-NCCL mesh) and fetches its logits once per chunk of batches.
+after any `--resume`; every recipe, PCM at any `mixup_params` too).
+Under an NCCL mesh the graph holds the step's collectives; a gloo mesh
+takes its steps eagerly (`steps.replays_steps`): the log and every
+`metrics.jsonl` record say whether step graphs ran ("step_graphs"). The
+log names each EdgeConv layer's route. Each step's loss terms stay on
+the device until the end of the epoch, when they are fetched in one copy
+and fed to `MeterDict` in step order. Evaluation runs through the
+scanned eval forward (`steps.eval_scan`, a captured graph on the card, a
+rank's own under an NCCL mesh) and fetches its logits once per chunk of
+batches.
 
 Each epoch is one `torch.profiler` range, "mlsp/epoch {epoch}" (a trace
 taken with the CLI's --profile_dir shows it beside the kernels), and its
@@ -62,7 +62,7 @@ from mlsp_tpu_torch.parallel.mesh import (
     replicate_for_mesh,
     shard_batch,
 )
-from mlsp_tpu_torch.train.graphs import Graphs, replays_steps, unstack_steps
+from mlsp_tpu_torch.train.graphs import Graphs, unstack_steps
 from mlsp_tpu_torch.train.guard import check_finite_losses
 from mlsp_tpu_torch.train.state import make_optimizer
 from mlsp_tpu_torch.train.steps import (
@@ -205,39 +205,29 @@ def train_epoch(pairs: torch.Tensor, gather, scan, scan_steps: int) -> list:
 
 def graphs_route(cfg, device: torch.device, mesh: Mesh | None,
                  io: IOStream) -> tuple[bool, Graphs | None]:
-    """Whether the trainer's steps replay step graphs (on the card, with
-    no mesh or an NCCL one, `parallel.mesh.captures`: chunks, the epoch's
-    tail and `scan_steps` 1's single steps alike, but for a recipe a graph
-    cannot hold at `scan_steps` 1, `graphs.replays_steps`), said in the
-    log with the eval forwards' route, and the run's graphs (`Graphs`;
-    None where nothing is captured: the CPU, a gloo mesh). Raises for a
-    recipe a graph cannot hold at `scan_steps` > 1."""
+    """Whether the trainer's steps and eval forwards replay graphs (on the
+    card, with no mesh or an NCCL one, `parallel.mesh.captures`: chunks,
+    the epoch's tail and `scan_steps` 1's single steps alike, every
+    recipe), said in the log, and the run's graphs (`Graphs`; None where
+    nothing is captured: the CPU, a gloo mesh)."""
     S = cfg.scan_steps
-    capture = device.type == "cuda" and captures(mesh)
-    on = capture and replays_steps(cfg)
-    eager = (f"on the {device.type}" if device.type != "cuda"
-             else f"under {mesh.backend} (its collectives cannot be captured)"
-             if not capture else "")
+    on = device.type == "cuda" and captures(mesh)
     if on:
         how = (f"chunks of {S} steps and the epoch's tail replay one "
                "captured graph" if S > 1
                else "scan_steps 1: each step replays one captured graph")
         if mesh is not None:
             how += " with the mesh's NCCL collectives"
-    elif capture:
-        how = (f"scan_steps 1: eager steps, mixup_params={cfg.mixup_params} "
-               "draws PCM's Beta ratio on the host, which a graph cannot "
-               "hold")
-    else:
-        how = f"steps run eagerly {eager}"
-    if capture:
         how += "; eval forwards replay captured graphs"
         if mesh is not None:
             how += " of the rank's rows"
     else:
-        how += f"; eval forwards run eagerly {eager}"
+        eager = (f"on the {device.type}" if device.type != "cuda"
+                 else f"under {mesh.backend} (its collectives cannot be "
+                 "captured)")
+        how = f"steps run eagerly {eager}; eval forwards run eagerly {eager}"
     io.cprint(f"step graphs: {'on' if on else 'off'} ({how})")
-    return on, Graphs() if capture else None
+    return on, Graphs() if on else None
 
 
 def log_edge_routes(model: torch.nn.Module, n: int, device: torch.device,

@@ -56,7 +56,7 @@ from mlsp_tpu_torch.parallel.mesh import (
     points_sharding,
     shard_batch,
 )
-from mlsp_tpu_torch.train.graphs import Graphs, replays_steps, stack_steps
+from mlsp_tpu_torch.train.graphs import Graphs, stack_steps
 from mlsp_tpu_torch.transforms import augment, deform
 from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
 
@@ -105,26 +105,41 @@ def draw_deform_dispatch(generator: torch.Generator, x: torch.Tensor, cfg):
     return deform.draw_deform(generator, x.shape, cfg.num_regions)
 
 
+def draw_mix_ratio(generator: torch.Generator, a: float,
+                   shape: tuple = ()) -> torch.Tensor:
+    """PCM's mixing ratios λ ~ Beta(a, a) [shape] float32, drawn on the
+    generator's device with nothing read back to the host, so that a step
+    graph holds the draw.
+
+    a = 1 (the paper recipe): Beta(1, 1) is uniform on [0, 1), one
+    `torch.rand`. a <= 0: λ = 1, no draw. Any other a > 0: two gammas
+    G(a) combined in log space as `jax.random.beta` combines them, λ =
+    G₁ / (G₁ + G₂), each log G(a) = log G(a + 1) + log(U) / a (the gamma
+    from `torch._standard_gamma`, U in (0, 1] from `torch.rand`), which
+    stays finite for tiny a where G(a) itself underflows; λ is then in
+    [0, 1]. `torch.distributions.Beta` takes no generator."""
+    g, dev = generator, generator.device
+    if a == 1.0:
+        return torch.rand(shape, generator=g, device=dev)
+    if a <= 0:
+        return torch.ones(shape, device=dev)
+    alpha = torch.full((2, *shape), a + 1.0, device=dev)
+    log_g = (torch._standard_gamma(alpha, generator=g).log()
+             + torch.rand(alpha.shape, generator=g, device=dev).neg_()
+             .log1p_().div_(a))
+    e = (log_g - log_g.amax(0)).exp_()
+    return e[0] / (e[0] + e[1])
+
+
 def draw_pcm(generator: torch.Generator, batch: int, num_points: int,
              mixup_params: float) -> dict[str, torch.Tensor]:
-    """PCM's random numbers: the batch permutation, λ ~ Beta(a, a), the two
-    FPS start indices and the final point permutation.
-
-    λ: with a = 1 (the paper recipe) Beta(1, 1) is uniform on [0, 1), drawn
-    with `torch.rand` from the generator; for another a > 0 it comes from a
-    numpy generator seeded by one draw of this generator
-    (`torch.distributions.Beta` takes no generator); a <= 0 gives λ = 1.
-    """
+    """PCM's random numbers, in this order: the batch permutation, λ ~
+    Beta(a, a) (`draw_mix_ratio`, a = `mixup_params`), the two FPS start
+    indices and the final point permutation. Nothing is read back to the
+    host: a step graph holds them at any a."""
     g, dev = generator, generator.device
-    draws = {"perm": torch.randperm(batch, generator=g, device=dev)}
-    if mixup_params == 1.0:
-        draws["lam"] = torch.rand((), generator=g, device=dev)
-    elif mixup_params > 0:
-        seed = int(torch.randint(0, 2 ** 62, (), generator=g, device=dev))
-        lam = np.random.default_rng(seed).beta(mixup_params, mixup_params)
-        draws["lam"] = torch.tensor(lam, dtype=torch.float32, device=dev)
-    else:
-        draws["lam"] = torch.ones((), device=dev)
+    draws = {"perm": torch.randperm(batch, generator=g, device=dev),
+             "lam": draw_mix_ratio(g, mixup_params)}
     for name in ("start_a", "start_b"):
         draws[name] = torch.randint(0, num_points, (batch,), generator=g,
                                     device=dev)
@@ -466,13 +481,21 @@ def pointda_train_step(model, opt, sched, src_x, src_y, trgt_x,
     return m
 
 
+def replays_steps(x: torch.Tensor, mesh) -> bool:
+    """Whether `run_chunk` takes the steps on `x` as replays of a step
+    graph: on the card, without a mesh or with NCCL's
+    (`parallel.mesh.captures`), every recipe at any `scan_steps`; on the
+    CPU and under a gloo mesh, eager steps. (Patched to False, it gives
+    the card's eager route, the reference that replays are held to.)"""
+    return x.is_cuda and captures(mesh)
+
+
 def run_chunk(kind: str, step, eager_step, inputs, consts, model, opt,
               sched, generator, cfg, graphs: Graphs | None, mesh):
     """r steps on the stacked `inputs` [r, ...]: a chunk of
-    `cfg.scan_steps`, an epoch's tail of fewer, or one step. On the CPU,
-    under a gloo mesh, or for a recipe a graph cannot hold at scan_steps 1
-    (`graphs.replays_steps`), `eager_step(*batch)` r times; on the card
-    (without a mesh or with NCCL's, `parallel.mesh.captures`) r replays of
+    `cfg.scan_steps`, an epoch's tail of fewer, or one step. On the CPU
+    and under a gloo mesh (`replays_steps`), `eager_step(*batch)` r times;
+    on the card (without a mesh or with NCCL's) r replays of
     the graph of `step(*batch, *consts)` (`graphs`' own, or a new one; a
     step of a mesh holds its collectives), then r scheduler steps. The
     graph is keyed by one step's shapes and holds max(r, scan_steps)
@@ -482,8 +505,7 @@ def run_chunk(kind: str, step, eager_step, inputs, consts, model, opt,
     that fails raises: nothing falls back to eager steps. Returns the
     outputs stacked over r."""
     r = inputs[0].shape[0]
-    if (not inputs[0].is_cuda or not captures(mesh)
-            or not replays_steps(cfg)):
+    if not replays_steps(inputs[0], mesh):
         return stack_steps([eager_step(*batch) for batch in zip(*inputs)])
     if sched is not None and any(
             len({f(sched.last_epoch + i) for i in range(r)}) > 1

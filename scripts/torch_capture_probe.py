@@ -9,7 +9,9 @@ context unusable) and prints one JSON line:
               inside `torch.cuda.graph` after an eager launch, the replay
               against the eager output (the launchers call
               `cudaFuncSetAttribute`: is that legal while capturing?)
-  rng         torch.rand/randn/randint/randperm/argsort drawn from a
+  rng         torch.rand/randn/randint/randperm/argsort and PCM's
+              Beta(a, a) ratios (`steps.draw_mix_ratio` at a = 1e-3, 0.4,
+              2.0: `torch._standard_gamma` and `torch.rand`) drawn from a
               `torch.Generator` registered with the graph, a replay
               against the same draws taken eagerly from the same state
   lr          LambdaLR and an optimizer with a tensor LR: is it written in
@@ -92,9 +94,12 @@ def probe_kernels() -> dict:
 
 
 def probe_rng() -> dict:
+    from mlsp_tpu_torch.train.steps import draw_mix_ratio
+
     def draws(gen):
         dev = gen.device
-        return [torch.rand(32, generator=gen, device=dev),
+        return [*(draw_mix_ratio(gen, a, (4096,)) for a in (1e-3, 0.4, 2.0)),
+                torch.rand(32, generator=gen, device=dev),
                 torch.randn(32, 1024, 3, generator=gen, device=dev),
                 torch.randint(0, 1024, (64,), generator=gen, device=dev),
                 torch.randperm(32, generator=gen, device=dev),

@@ -1317,7 +1317,7 @@ def _paper_trainer(tmp_path, name, eager=False, **kw):
         synthetic=True, epochs=1, num_points=256, out_path=str(tmp_path),
         exp_name=name).paper_recipe, **kw)
     kernels.reset_launches()
-    with mock.patch.object(steps_mod, "replays_steps", lambda c: False) \
+    with mock.patch.object(steps_mod, "replays_steps", lambda x, m: False) \
             if eager else contextlib.nullcontext():
         train_pointda(cfg)
     exp = tmp_path / name
@@ -1352,20 +1352,57 @@ def test_trainer_tail_and_single_steps_replay(card, tmp_path, scan_steps):
     assert line in got["log"]
 
 
-def test_host_drawn_pcm_takes_eager_steps_at_scan_steps_1(card, tmp_path):
-    """PCM at mixup_params 0.4 (its Beta ratio drawn on the host) at
-    scan_steps 1: the steps run eagerly, the log and the record say so,
-    the eval forwards still replay; at scan_steps 8 it is refused before
-    any step."""
-    got = _paper_trainer(tmp_path, "h", scan_steps=1, mixup_params=0.4)
-    assert got["launches"] == PAPER_EPOCH
-    assert got["in_graphs"] == PAPER_EPOCH_EVALS
-    assert got["rec"]["step_graphs"] is False
-    assert ("step graphs: off (scan_steps 1: eager steps, mixup_params=0.4"
-            in got["log"])
-    with pytest.raises(ValueError, match="mixup_params=0.4"):
-        _paper_trainer(tmp_path, "r", scan_steps=8, mixup_params=0.4)
-    assert not any(kernels.launches().values())
+def test_mix_ratio_draws_replay_as_eager(card):
+    """PCM's Beta(a, a) ratios at a = 1e-3, 0.4 and 2.0, 4,096 each,
+    drawn inside one CUDA graph from a registered generator: a replay
+    equals the same draws taken eagerly from the same state, bit for bit,
+    and leaves the generator where they leave it; every λ is finite in
+    [0, 1], with a variance within 5 sigma of 1/(4(2a + 1))."""
+    from mlsp_tpu_torch.train.steps import draw_mix_ratio
+
+    alphas, n = (1e-3, 0.4, 2.0), 4096
+
+    def draws(gen):
+        return [draw_mix_ratio(gen, a, (n,)) for a in alphas]
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    state = gen.get_state()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = draws(gen)
+    gen.set_state(state)
+    graph.replay()
+    replayed, after = [t.clone() for t in out], gen.get_state()
+    gen.set_state(state)
+    eager = draws(gen)
+    assert torch.equal(gen.get_state(), after)
+    for a, got, want in zip(alphas, replayed, eager):
+        assert torch.equal(got, want), a
+        lam = got.double().cpu().numpy()
+        assert np.isfinite(lam).all() and lam.min() >= 0 and lam.max() <= 1
+        # the variance of a sample variance: (mu4 - sigma^4) / n
+        var = 1 / (4 * (2 * a + 1))
+        mu4 = 3 / (16 * (2 * a + 1) * (2 * a + 3))
+        assert abs(lam.var() - var) <= 5 * np.sqrt((mu4 - var ** 2) / n), a
+
+
+@pytest.mark.parametrize("scan_steps", [1, 8])
+def test_pcm_at_mixup_params_0_4_replays(card, tmp_path, scan_steps):
+    """PCM at mixup_params 0.4 (its Beta ratio drawn on the card) at
+    scan_steps 1 and 8: every K1-K4 launch inside graph replays, and the
+    losses and validation metrics bit-equal to the eager steps'."""
+    got = _paper_trainer(tmp_path, "m", scan_steps=scan_steps,
+                         mixup_params=0.4)
+    want = _paper_trainer(tmp_path, "e", eager=True, scan_steps=scan_steps,
+                          mixup_params=0.4)
+    assert got["launches"] == got["in_graphs"] == PAPER_EPOCH
+    assert want["launches"] == PAPER_EPOCH
+    assert want["in_graphs"] == PAPER_EPOCH_EVALS
+    assert got["rec"]["step_graphs"]
+    for k in ("train", "src_val", "trgt_val"):
+        assert got["rec"][k] == want["rec"][k], k
+    assert "step graphs: on (" in got["log"]
 
 
 def test_nccl_rank_eval_replays_equal_eager_mesh_forwards(card, nccl_mesh):

@@ -308,9 +308,8 @@ def test_graphs_route_by_backend(backend, device, on):
 @pytest.mark.parametrize("mesh", [None, "nccl"])
 def test_graphs_route_at_scan_steps_1(mesh):
     """On the card `scan_steps` 1 replays one graph a step, without a mesh
-    and under NCCL; PCM at mixup_params 0.4 (its Beta ratio drawn on the
-    host) takes eager steps there and says why, its eval forwards still
-    replayed, and is refused at scan_steps > 1 before any step."""
+    and under NCCL, and so does PCM at mixup_params 0.4 (its Beta ratio
+    drawn on the device), at scan_steps 1 and 8."""
     if mesh is not None:
         mesh = parallel.Mesh(rank=0, size=2, device=torch.device("cuda"),
                              backend=mesh)
@@ -318,15 +317,18 @@ def test_graphs_route_at_scan_steps_1(mesh):
     log = _Log()
     assert graphs_route(PointDAConfig(scan_steps=1), card, mesh, log)[0]
     assert "scan_steps 1: each step replays one captured graph" in log.lines[0]
-    host = PointDAConfig(scan_steps=1, apply_PCM=True, mixup_params=0.4)
-    on, graphs = graphs_route(host, card, mesh, log)
-    assert not on and graphs is not None
-    assert ("step graphs: off (scan_steps 1: eager steps, mixup_params=0.4 "
-            "draws PCM's Beta ratio on the host, which a graph cannot hold; "
-            "eval forwards replay captured graphs") in log.lines[1]
-    with pytest.raises(ValueError, match="mixup_params=0.4"):
-        graphs_route(dataclasses.replace(host, scan_steps=8), card, mesh,
-                     log)
+    pcm = PointDAConfig(scan_steps=1, apply_PCM=True, mixup_params=0.4)
+    on, graphs = graphs_route(pcm, card, mesh, log)
+    assert on and graphs is not None
+    assert log.lines[1].startswith(
+        "step graphs: on (scan_steps 1: each step replays one captured "
+        "graph")
+    assert "; eval forwards replay captured graphs" in log.lines[1]
+    on, _ = graphs_route(dataclasses.replace(pcm, scan_steps=8), card, mesh,
+                         log)
+    assert on and log.lines[2].startswith(
+        "step graphs: on (chunks of 8 steps and the epoch's tail replay one "
+        "captured graph")
 
 
 @pytest.mark.parametrize("size,rank", [(1, 0), (2, 0), (2, 1), (3, 2),

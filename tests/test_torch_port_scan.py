@@ -5,17 +5,19 @@ CPU (`pointda_train_scan`, `pointsegda_train_scan`, `spst_train_scan`) is S
 single steps, bit for bit; the trainer takes the same steps whatever
 `scan_steps` is; the scanned eval (`scan_in_chunks` of `eval_scan` and
 `seg_eval_scan`) against JAX's `scan_in_chunks` on the same weights and
-the port's kNN graphs; the graph module refuses CPU tensors and PCM's
-host-drawn mixing ratio; every family's eval forward reads nothing on the
+the port's kNN graphs; the graph module refuses CPU tensors; every
+recipe replays its steps on the card (PCM's mixing ratio is drawn on the
+device at any `mixup_params`); every family's eval forward reads nothing on the
 host (so the card can capture it); a checkpoint written by the card's
 optimizers (tensor LRs, capturable/fused) resumes on the CPU. The card's
 side (replays against eager steps) is in `test_torch_port_cuda.py`.
 """
 
+import collections
 import copy
-import dataclasses
 import importlib
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,7 @@ from mlsp_tpu.utils import config as jconfig
 from mlsp_tpu_torch import cli, make_model
 from mlsp_tpu_torch.testing import host_syncs
 from mlsp_tpu_torch.train import graphs, pointda_trainer
+from mlsp_tpu_torch.train import steps as steps_mod
 from mlsp_tpu_torch.train.seg_steps import (
     pointsegda_train_scan,
     pointsegda_train_step,
@@ -113,9 +116,9 @@ def _state(model, opt):
     return out
 
 
-def _pointda(seed):
-    cfg = config.PointDAConfig(num_points=N, batch_size=B,
-                               epochs=2).paper_recipe
+def _pointda(seed, mixup_params=1.0):
+    cfg = config.PointDAConfig(num_points=N, batch_size=B, epochs=2,
+                               mixup_params=mixup_params).paper_recipe
     model = make_model("dgcnn", 10, device="cpu",
                        generator=torch.Generator().manual_seed(seed))
     opt, sched = make_optimizer(model, cfg.lr, cfg.wd, cfg.epochs, 2)
@@ -135,9 +138,9 @@ def _pointda(seed):
     return model, opt, gen, scan, steps
 
 
-def _seg(seed):
+def _seg(seed, mixup_params=1.0):
     cfg = config.PointSegDAConfig(num_points=N, batch_size=B, epochs=2,
-                                  apply_PCM=True,
+                                  apply_PCM=True, mixup_params=mixup_params,
                                   Norm_on_trgt=True).resolved()
     model = make_model("dgcnn_seg", 8, device="cpu",
                        generator=torch.Generator().manual_seed(seed))
@@ -159,8 +162,9 @@ def _seg(seed):
     return model, opt, gen, scan, steps
 
 
-def _spst(seed):
-    cfg = config.SPSTConfig(num_points=N, batch_size=B, apply_PCM=True)
+def _spst(seed, mixup_params=1.0):
+    cfg = config.SPSTConfig(num_points=N, batch_size=B, apply_PCM=True,
+                            mixup_params=mixup_params)
     model = make_model("dgcnn", 10, device="cpu",
                        generator=torch.Generator().manual_seed(seed))
     opt = make_epoch_lr_optimizer(model, "ADAMW", 1e-3, 5e-5, 0.9)
@@ -338,10 +342,9 @@ def test_scanned_eval_against_jax(task):
 # ------------------------------------------------------ refusals
 
 
-def test_graphs_refuse_cpu_tensors_and_host_draws():
-    """The graph module takes CUDA tensors only (the CPU takes its steps
-    eagerly), and PCM with mixup_params other than 1 (its Beta ratio
-    is drawn on the host) cannot be captured."""
+def test_graphs_refuse_cpu_tensors():
+    """The graph module takes CUDA tensors only: the CPU takes its steps
+    eagerly."""
     model = make_model("dgcnn", 10, device="cpu")
     opt, _ = make_optimizer(model, 1e-3, 0.0, 1, 1)
     x = torch.zeros(S, B, N, 3)
@@ -350,26 +353,35 @@ def test_graphs_refuse_cpu_tensors_and_host_draws():
                          torch.Generator())
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         graphs.EvalGraph(lambda x: x, x[0], 4)
-    with pytest.raises(ValueError, match="mixup_params=0.5"):
-        graphs.check_capturable(config.PointDAConfig(mixup_params=0.5))
-    for cfg in (config.PointDAConfig(), config.PointDAConfig(
-            mixup_params=0.5, apply_PCM=False),
-            config.SPSTConfig(mixup_params=0.0, apply_PCM=True)):
-        graphs.check_capturable(cfg)
 
 
-@pytest.mark.parametrize("cls", [config.PointDAConfig, config.SPSTConfig,
-                                 config.PointSegDAConfig])
-def test_only_the_host_drawn_recipe_takes_eager_steps(cls):
-    """Every recipe a graph can hold replays its steps at any scan_steps;
-    PCM at mixup_params 0.4 takes eager steps at scan_steps 1 and is
-    refused at more, before any step."""
-    assert graphs.replays_steps(cls(scan_steps=1))
-    assert graphs.replays_steps(cls(scan_steps=16, apply_PCM=True))
-    host = cls(scan_steps=1, apply_PCM=True, mixup_params=0.4)
-    assert not graphs.capturable(host) and not graphs.replays_steps(host)
-    with pytest.raises(ValueError, match="mixup_params=0.4"):
-        graphs.replays_steps(dataclasses.replace(host, scan_steps=2))
+@pytest.mark.parametrize("cls,build", [
+    (config.PointDAConfig, _pointda), (config.SPSTConfig, _spst),
+    (config.PointSegDAConfig, _seg)], ids=["pointda", "spst", "pointsegda"])
+def test_every_recipe_replays_steps(cls, build):
+    """On the card every recipe replays its steps at scan_steps 1 and 16,
+    PCM at mixup_params 0.4 and 0 included (its Beta ratio is drawn on the
+    device), and the CPU takes them eagerly. PCM at 0.4 adds no host sync
+    to the chunk that the paper ratio (mixup_params 1) does not make."""
+    card = torch.device("cuda")
+    for S_ in (1, 16):
+        for kw in ({}, {"apply_PCM": True},
+                   {"apply_PCM": True, "mixup_params": 0.4},
+                   {"apply_PCM": True, "mixup_params": 0.0}):
+            log = types.SimpleNamespace(lines=[])
+            log.cprint = log.lines.append
+            on, run_graphs = pointda_trainer.graphs_route(
+                cls(scan_steps=S_, **kw), card, None, log)
+            assert on and run_graphs is not None, kw
+            (line,) = log.lines
+            assert line.startswith("step graphs: on (") and (
+                "replay one captured graph" if S_ > 1
+                else "each step replays one captured graph") in line, line
+    assert steps_mod.replays_steps(types.SimpleNamespace(is_cuda=True), None)
+    assert not steps_mod.replays_steps(torch.zeros(1), None)
+    syncs = {a: collections.Counter(host_syncs(build(7, a)[3]))
+             for a in (1.0, 0.4)}
+    assert syncs[0.4] == syncs[1.0]
 
 
 FAMILIES = [

@@ -475,16 +475,18 @@ class TestDGCNNSeg:
 
 
 class TestSegOps:
-    def test_pcm_mix_segmentation_matches_jax(self):
-        """The port's PCM-seg on the JAX step's draws (its key splits):
-        clouds and labels equal."""
+    @pytest.mark.parametrize("a,seed", [(1.0, 6), (0.4, 7)])
+    def test_pcm_mix_segmentation_matches_jax(self, a, seed):
+        """The port's PCM-seg on the JAX step's draws (its key splits) at
+        mixup_params a (key 7's Beta(0.4, 0.4) ratio, 0.41, takes points
+        of both clouds): clouds and labels equal."""
         B, N = 3, 64
         x = _unit_clouds(np.random.default_rng(7), B, N)
         y = np.random.default_rng(8).integers(0, 8, (B, N))
-        key = jax.random.key(6)
+        key = jax.random.key(seed)
         kperm, klam, ksa, ksb, kpts = jax.random.split(key, 5)
         draws = {"perm": jax.random.permutation(kperm, B),
-                 "lam": jax.random.beta(klam, 1.0, 1.0),
+                 "lam": jax.random.beta(klam, a, a),
                  "start_a": jax.random.randint(ksa, (B,), 0, N),
                  "start_b": jax.random.randint(ksb, (B,), 0, N),
                  "points": jax.random.permutation(kpts, N)}
@@ -492,7 +494,7 @@ class TestSegOps:
             _t(x), _t(y), {k: _t(v).long() if k != "lam" else _t(v)
                            for k, v in draws.items()})
         want, want_y = jsteps.pcm_mix_segmentation(key, jnp.asarray(x),
-                                                   jnp.asarray(y), 1.0)
+                                                   jnp.asarray(y), a)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
 

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.stats
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
@@ -44,6 +45,7 @@ from mlsp_tpu_torch.ops import (
     reconstruction_loss,
 )
 from mlsp_tpu_torch.ops.normals import knn_moments_torch
+from mlsp_tpu_torch.testing import host_syncs
 from mlsp_tpu_torch.train import steps
 from mlsp_tpu_torch.transforms import augment, deform
 
@@ -352,16 +354,19 @@ class TestTransforms:
         np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
-    def test_pcm_mix_matches_jax(self):
-        """The port's PCM on the JAX step's draws (`pcm_mix` key splits)."""
+    @pytest.mark.parametrize("a,seed", [(1.0, 6), (0.4, 7)])
+    def test_pcm_mix_matches_jax(self, a, seed):
+        """The port's PCM on the JAX step's draws (`pcm_mix` key splits) at
+        mixup_params a (key 7's Beta(0.4, 0.4) ratio, 0.41, takes points
+        of both clouds)."""
         B, N = 3, 64
         x = _unit_clouds(15, B, N)
         y = np.arange(B)
-        key = jax.random.key(6)
+        key = jax.random.key(seed)
         kperm, klam, ksa, ksb, kpts = jax.random.split(key, 5)
         draws = {
             "perm": jax.random.permutation(kperm, B),
-            "lam": jax.random.beta(klam, 1.0, 1.0),
+            "lam": jax.random.beta(klam, a, a),
             "start_a": jax.random.randint(ksa, (B,), 0, N),
             "start_b": jax.random.randint(ksb, (B,), 0, N),
             "points": jax.random.permutation(kpts, N),
@@ -370,7 +375,7 @@ class TestTransforms:
             _t(x), _t(y), {k: _t(v).long() if k != "lam" else _t(v)
                            for k, v in draws.items()})
         want, (wa, wb, wlam) = jsteps.pcm_mix(key, jnp.asarray(x),
-                                              jnp.asarray(y), 1.0)
+                                              jnp.asarray(y), a)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         np.testing.assert_array_equal(yb.numpy(), np.asarray(wb))
         assert float(lam) == float(wlam)
@@ -405,8 +410,67 @@ class TestDraws:
                             for _ in range(2000)])
         assert 0.0 <= float(lams.min()) and float(lams.max()) < 1.0
         assert abs(float(lams.mean()) - 0.5) < 4 * 0.2887 / math.sqrt(2000)
-        d = steps.draw_pcm(g, 8, 64, 0.4)  # Beta(0.4, 0.4) via numpy
+        d = steps.draw_pcm(g, 8, 64, 0.4)  # Beta(0.4, 0.4) on the device
         assert 0.0 <= float(d["lam"]) <= 1.0
         assert torch.equal(torch.sort(d["perm"]).values, torch.arange(8))
         assert torch.equal(torch.sort(d["points"]).values, torch.arange(64))
         assert int(d["start_a"].max()) < 64 and int(d["start_b"].min()) >= 0
+
+    @pytest.mark.parametrize("a", [1e-3, 0.05, 0.4, 2.0])
+    def test_pcm_mix_ratio_is_beta(self, a):
+        """20,000 of `draw_pcm`'s λ at mixup_params a: finite, in [0, 1],
+        the mean within 4 sigma of 1/2 (variance 1/(4(2a + 1))), and a
+        Kolmogorov-Smirnov test against as many draws of
+        `scipy.stats.beta(a, a)` gives p > 1e-3. Those are rounded to
+        float32 as λ is: below a = 0.1 a share of Beta(a, a) lies within
+        float32's smallest step of 0 or 1 (45% at 1e-3), an atom in both
+        samples, which the one-sample test against the continuous CDF
+        would count as a gap."""
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            g = torch.Generator().manual_seed(11)
+            lams = torch.stack([steps.draw_pcm(g, 2, 2, a)["lam"]
+                                for _ in range(20000)]).numpy()
+        finally:
+            torch.set_num_threads(threads)
+        assert lams.dtype == np.float32 and np.isfinite(lams).all()
+        assert lams.min() >= 0.0 and lams.max() <= 1.0
+        sd = math.sqrt(1 / (4 * (2 * a + 1)) / lams.size)
+        assert abs(float(lams.mean()) - 0.5) < 4 * sd
+        ref = scipy.stats.beta(a, a).rvs(
+            lams.size, random_state=np.random.default_rng(12))
+        assert scipy.stats.ks_2samp(
+            lams, ref.astype(np.float32)).pvalue > 1e-3
+
+    @pytest.mark.parametrize("a", [1.0, 0.4, 0.0])
+    def test_pcm_draw_order(self, a):
+        """`draw_pcm` draws the batch permutation, λ, the two FPS starts and
+        the point permutation in that order from the generator: at a = 1
+        λ is one `torch.rand` (the paper recipe's stream as before), at
+        a <= 0 λ = 1 and nothing is drawn."""
+        g = torch.Generator().manual_seed(3)
+        again = torch.Generator()
+        again.set_state(g.get_state())
+        got = steps.draw_pcm(g, 8, 64, a)
+        want = {"perm": torch.randperm(8, generator=again)}
+        want["lam"] = (torch.rand((), generator=again) if a == 1.0
+                       else steps.draw_mix_ratio(again, a) if a > 0
+                       else torch.ones(()))
+        want["start_a"] = torch.randint(0, 64, (8,), generator=again)
+        want["start_b"] = torch.randint(0, 64, (8,), generator=again)
+        want["points"] = torch.randperm(64, generator=again)
+        assert list(got) == list(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert torch.equal(g.get_state(), again.get_state())
+        if a <= 0:
+            assert float(got["lam"]) == 1.0
+
+    @pytest.mark.parametrize("a", [1e-3, 0.4, 1.0, 2.0])
+    def test_pcm_draws_read_nothing_on_the_host(self, a):
+        """No item, host copy or tensor made from a Python value in
+        `draw_pcm` at any mixup_params: a step graph holds the draws."""
+        g = torch.Generator().manual_seed(4)
+        assert host_syncs(steps.draw_pcm, g, 8, 64, a) == []
+
