@@ -26,6 +26,8 @@ import os
 import numpy as np
 import torch
 
+from mlsp_tpu_torch.utils.profiling import span
+
 FORMAT = "mlsp_tpu_torch/state_dict-v1"
 AOT_FORMAT = "torch.export/pt2-v1"
 _WEIGHTS_FILE = "weights.pt"
@@ -142,14 +144,22 @@ class ServingModel:
 
     def predict(self, x) -> np.ndarray:
         """x [B, N, 3] (numpy or tensor) -> logits, [B, num_class] or
-        [B, N, num_class]. N is fixed by the bundle, B is any."""
+        [B, N, num_class]. N is fixed by the bundle, B is any. Spans: the
+        "request", and in it "request_copy_in", "request_forward",
+        "request_copy_out"."""
         N = self.meta["num_points"]
         if x.ndim != 3 or tuple(x.shape[1:]) != (N, 3):
             raise ValueError(
                 f"bundle expects ('any', {N}, 3) inputs, got {tuple(x.shape)}")
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        with torch.inference_mode():
-            return self._fn(x).float().cpu().numpy()
+        with span("request"):
+            with span("request_copy_in"):
+                x = torch.as_tensor(x, dtype=torch.float32,
+                                    device=self.device)
+            with torch.inference_mode():
+                with span("request_forward"):
+                    y = self._fn(x)
+                with span("request_copy_out"):
+                    return y.float().cpu().numpy()
 
 
 def load_serving_bundle(path: str,

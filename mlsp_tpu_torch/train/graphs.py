@@ -64,6 +64,7 @@ from torch.utils import _pytree as pytree
 
 from mlsp_tpu_torch.ops import kernels
 from mlsp_tpu_torch.train.state import lr_tensors
+from mlsp_tpu_torch.utils.profiling import span
 
 
 def stack_steps(outs: list):
@@ -197,23 +198,27 @@ class ChunkGraph:
 
     def run(self, inputs, consts=()):
         """r <= S replays on the stacked `inputs` [r, ...] with `consts`;
-        returns the outputs stacked over r, a pytree like `fn`'s."""
+        returns the outputs stacked over r, a pytree like `fn`'s. Spans:
+        "copy_in", "replay", "outputs"."""
         r = inputs[0].shape[0]
         if r > self.inputs[0].shape[0] or [t.shape[1:] for t in inputs] != [
                 t.shape[1:] for t in self.inputs]:
             raise ValueError(
                 f"{type(self).__name__}.run: {[tuple(t.shape) for t in inputs]}"
                 f" does not fit {[tuple(t.shape) for t in self.inputs]}")
-        for buf, t in zip(self.inputs, inputs):
-            buf[:r].copy_(t)
-        for buf, t in zip(self.consts, consts):
-            buf.copy_(t)
-        self.slot.zero_()
-        for _ in range(r):
-            self.graph.replay()
+        with span("copy_in"):
+            for buf, t in zip(self.inputs, inputs):
+                buf[:r].copy_(t)
+            for buf, t in zip(self.consts, consts):
+                buf.copy_(t)
+            self.slot.zero_()
+        with span("replay"):
+            for _ in range(r):
+                self.graph.replay()
         kernels.add_launches(self.launches, r)
-        return pytree.tree_unflatten([o[:r].clone() for o in self.outs],
-                                     self.spec)
+        with span("outputs"):
+            return pytree.tree_unflatten([o[:r].clone() for o in self.outs],
+                                         self.spec)
 
 
 class StepGraph(ChunkGraph):
@@ -270,7 +275,7 @@ class Graphs:
         """The graph of `key`, captured now by `build(pool)` if there is
         none, the state it holds moved (`fingerprint()`, taken after the
         capture: its warm-up may create optimizer state) or it holds fewer
-        than `steps` steps."""
+        than `steps` steps. A capture is the span "capture"."""
         g = self._graphs.get(key)
         if (g is not None and g.fingerprint == fingerprint()
                 and g.inputs[0].shape[0] >= steps):
@@ -278,8 +283,9 @@ class Graphs:
         self._graphs.pop(key, None)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        g = build(self._pool)
-        g.fingerprint = fingerprint()
+        with span("capture"):
+            g = build(self._pool)
+            g.fingerprint = fingerprint()
         self._graphs[key] = g
         return g
 

@@ -25,10 +25,12 @@ scanned eval forward (`steps.eval_scan`, a captured graph on the card, a
 rank's own under an NCCL mesh) and fetches its logits once per chunk of
 batches.
 
-Each epoch is one `torch.profiler` range, "mlsp/epoch {epoch}" (a trace
-taken with the CLI's --profile_dir shows it beside the kernels), and its
-wall time goes into its `metrics.jsonl` record: "seconds" {"train": the
-steps up to the fetch of their losses, "epoch": with validation}.
+Each epoch is one span, "epoch {epoch}" (`utils.profiling.span`: a trace
+taken with the CLI's --profile_dir shows the range "mlsp/epoch {epoch}"
+beside the kernels), inside it the spans of the batch order, each
+chunk's gather and steps, the fetch and the eval forwards and metrics;
+its wall time goes into its `metrics.jsonl` record: "seconds" {"train":
+the steps up to the fetch of their losses, "epoch": with validation}.
 
 Random streams per epoch, derived from (seed, epoch) and not consumed
 across epochs, so that a resumed run repeats the uninterrupted one: the
@@ -80,6 +82,7 @@ from mlsp_tpu_torch.utils.config import (
 )
 from mlsp_tpu_torch.utils.device import resolve_device
 from mlsp_tpu_torch.utils.logging import IOStream
+from mlsp_tpu_torch.utils.profiling import span
 
 
 def eval_batches(n_examples: int, batch_size: int,
@@ -124,14 +127,16 @@ def eval_logits(model: torch.nn.Module, data, sels: list[np.ndarray],
     `points_sharding`) and every rank gets all the logits (`fetch_global`
     once a chunk, after its forwards)."""
     device = next(model.parameters()).device
-    x = torch.as_tensor(data, device=device)
-    idx = torch.from_numpy(eval_index(sels, mesh)).to(device)
 
     def scan(m, xs, graphs):
         out = eval_scan(m, xs, graphs, output, mesh)
         return fetch_global(out.transpose(0, 1), mesh).transpose(0, 1)
 
-    out = scan_in_chunks(scan, model, x[idx], graphs=graphs)
+    with span("eval_logits"):
+        x = torch.as_tensor(data, device=device)
+        with span("eval_index"):
+            idx = torch.from_numpy(eval_index(sels, mesh)).to(device)
+        out = scan_in_chunks(scan, model, x[idx], graphs=graphs)
     return out[:, :len(sels[0])]
 
 
@@ -150,20 +155,21 @@ def evaluate(model: torch.nn.Module, data, label: np.ndarray,
     if not sels:
         raise ValueError("evaluate: empty evaluation split")
     all_logits = eval_logits(model, data, sels, mesh=mesh, graphs=graphs)
-    preds, trues, losses = [], [], []
-    for logits, sel, n in zip(all_logits, sels, counts):
-        logits, by = logits[:n], label[sel][:n]
-        logp = metrics.log_softmax_np(logits)
-        losses.append(-logp[np.arange(n), by].sum())
-        preds.append(logits.argmax(-1))
-        trues.append(by)
-    preds, trues = np.concatenate(preds), np.concatenate(trues)
-    return {
-        "acc": metrics.accuracy(trues, preds),
-        "balanced_acc": metrics.balanced_accuracy(trues, preds),
-        "loss": float(np.sum(losses) / float(np.sum(counts))),
-        "conf_mat": metrics.confusion_matrix(trues, preds, num_classes),
-    }
+    with span("eval_metrics"):
+        preds, trues, losses = [], [], []
+        for logits, sel, n in zip(all_logits, sels, counts):
+            logits, by = logits[:n], label[sel][:n]
+            logp = metrics.log_softmax_np(logits)
+            losses.append(-logp[np.arange(n), by].sum())
+            preds.append(logits.argmax(-1))
+            trues.append(by)
+        preds, trues = np.concatenate(preds), np.concatenate(trues)
+        return {
+            "acc": metrics.accuracy(trues, preds),
+            "balanced_acc": metrics.balanced_accuracy(trues, preds),
+            "loss": float(np.sum(losses) / float(np.sum(counts))),
+            "conf_mat": metrics.confusion_matrix(trues, preds, num_classes),
+        }
 
 
 def epoch_pairs(src, trgt, batch_size: int, seed: int, epoch: int
@@ -171,12 +177,13 @@ def epoch_pairs(src, trgt, batch_size: int, seed: int, epoch: int
     """The epoch's (source, target) batch indices: each train split
     shuffled by one generator from (seed, epoch), the source first, full
     batches only, zipped to the shorter."""
-    erng = np.random.default_rng(np.random.SeedSequence((seed, epoch)))
-    return list(zip(
-        batch_indices(len(src), batch_size, indices=src.train_ind,
-                      shuffle=True, drop_last=True, rng=erng),
-        batch_indices(len(trgt), batch_size, indices=trgt.train_ind,
-                      shuffle=True, drop_last=True, rng=erng)))
+    with span("epoch_pairs"):
+        erng = np.random.default_rng(np.random.SeedSequence((seed, epoch)))
+        return list(zip(
+            batch_indices(len(src), batch_size, indices=src.train_ind,
+                          shuffle=True, drop_last=True, rng=erng),
+            batch_indices(len(trgt), batch_size, indices=trgt.train_ind,
+                          shuffle=True, drop_last=True, rng=erng)))
 
 
 def seed_epoch(generator: torch.Generator, seed: int,
@@ -197,9 +204,11 @@ def train_epoch(pairs: torch.Tensor, gather, scan, scan_steps: int) -> list:
     per-step outputs."""
     S = max(scan_steps, 1)
     out = []
-    for c in range(0, len(pairs), S):
-        out += unstack_steps(scan(*gather(pairs[c:c + S, 0],
-                                          pairs[c:c + S, 1])))
+    with span("train_epoch"):
+        for c in range(0, len(pairs), S):
+            with span("gather"):
+                chunk = gather(pairs[c:c + S, 0], pairs[c:c + S, 1])
+            out += unstack_steps(scan(*chunk))
     return out
 
 
@@ -244,8 +253,9 @@ def fetch_metrics(steps: list[dict]) -> list[dict]:
     if not steps:
         return []
     names = list(steps[0])
-    vals = torch.stack([torch.stack([m[k].float() for k in names])
-                        for m in steps]).cpu().numpy()
+    with span("fetch_metrics"):
+        vals = torch.stack([torch.stack([m[k].float() for k in names])
+                            for m in steps]).cpu().numpy()
     return [dict(zip(names, row)) for row in vals]
 
 
@@ -323,7 +333,7 @@ def train_pointda(cfg: PointDAConfig, io: IOStream | None = None,
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
-        with torch.profiler.record_function(f"mlsp/epoch {epoch}"):
+        with span(f"epoch {epoch}"):
             pairs = epoch_pairs(src_train, trgt_train, B, cfg.seed, epoch)
             seed_epoch(gen, cfg.seed, epoch)
             steps = []

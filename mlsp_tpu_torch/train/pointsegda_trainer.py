@@ -26,8 +26,9 @@ numpy generator shared by the source and then the target iterator (the
 JAX trainer's indices), the step draws and dropout from the run's
 `torch.Generator` seeded anew each epoch (`pointda_trainer.seed_epoch`).
 Each epoch is one
-`torch.profiler` range, "mlsp/epoch {epoch}", and its wall time goes into
-its `metrics.jsonl` record.
+span, "epoch {epoch}" (the profiler range "mlsp/epoch {epoch}"), with the
+PointDA trainer's spans inside and "fetch_preds" beside "fetch_metrics",
+and its wall time goes into its `metrics.jsonl` record.
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ from mlsp_tpu_torch.utils.config import (
 )
 from mlsp_tpu_torch.utils.device import resolve_device
 from mlsp_tpu_torch.utils.logging import IOStream
+from mlsp_tpu_torch.utils.profiling import span
 from mlsp_tpu_torch.utils.summary import model_summary
 
 MAX_LOSS = 9e9
@@ -91,15 +93,17 @@ def evaluate_seg(model: torch.nn.Module, data, label: np.ndarray,
         raise ValueError("evaluate_seg: empty evaluation split")
     all_logits = eval_logits(model, data, sels, "seg", mesh,
                              graphs)  # [S, B, N, C]
-    seg_loss = miou = acc = 0.0
-    for logits, sel, n in zip(all_logits, sels, counts):
-        logits, by = logits[:n], label[sel][:n]
-        logp = metrics.log_softmax_np(logits)
-        seg_loss += -np.take_along_axis(logp, by[..., None], -1).mean() * n
-        bm, ba = metrics.seg_metrics(by, logits.argmax(-1))
-        miou += bm
-        acc += ba
     n_total = float(np.sum(counts))
+    with span("eval_metrics"):
+        seg_loss = miou = acc = 0.0
+        for logits, sel, n in zip(all_logits, sels, counts):
+            logits, by = logits[:n], label[sel][:n]
+            logp = metrics.log_softmax_np(logits)
+            seg_loss += (-np.take_along_axis(logp, by[..., None], -1).mean()
+                         * n)
+            bm, ba = metrics.seg_metrics(by, logits.argmax(-1))
+            miou += bm
+            acc += ba
     return (float(seg_loss / n_total), float(miou / n_total),
             float(acc / n_total))
 
@@ -109,7 +113,8 @@ def _fetch_preds(steps: list) -> list[tuple[np.ndarray, np.ndarray]]:
     copy."""
     if not steps:
         return []
-    both = torch.stack([torch.stack(p) for p in steps]).cpu().numpy()
+    with span("fetch_preds"):
+        both = torch.stack([torch.stack(p) for p in steps]).cpu().numpy()
     return [(p, y) for p, y in both]
 
 
@@ -183,7 +188,7 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
 
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
-        with torch.profiler.record_function(f"mlsp/epoch {epoch}"):
+        with span(f"epoch {epoch}"):
             pairs = epoch_pairs(src_train, trgt_train, B, cfg.seed, epoch)
             seed_epoch(gen, cfg.seed, epoch)
             steps = []

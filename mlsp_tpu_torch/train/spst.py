@@ -88,6 +88,7 @@ from mlsp_tpu_torch.utils.average_meter import MeterDict
 from mlsp_tpu_torch.utils.config import SPSTConfig
 from mlsp_tpu_torch.utils.device import resolve_device
 from mlsp_tpu_torch.utils.logging import IOStream
+from mlsp_tpu_torch.utils.profiling import span
 
 
 def check_spst(cfg: SPSTConfig) -> None:
@@ -347,8 +348,7 @@ def train_spst(cfg: SPSTConfig, io: IOStream | None = None,
             set_learning_rate(opt, lr)
             io.cprint(f"spl_weight: {spl_weight:.4f}, cls_weight: "
                       f"{cls_weight:.4f}, lr: {lr:.6f}")
-            with torch.profiler.record_function(f"mlsp/spst epoch "
-                                                f"{global_epoch}"):
+            with span(f"spst epoch {global_epoch}"):
                 pairs = epoch_pairs(len(pcs), src_train, B, rng)
                 seed_epoch(gen, cfg.seed, global_epoch)
                 steps = []

@@ -59,6 +59,7 @@ from mlsp_tpu_torch.parallel.mesh import (
 from mlsp_tpu_torch.train.graphs import Graphs, stack_steps
 from mlsp_tpu_torch.transforms import augment, deform
 from mlsp_tpu_torch.transforms.scan import draw_scan, scan_batch
+from mlsp_tpu_torch.utils.profiling import span
 
 SSL_HEADS = ("defrec", "normal", "density")
 
@@ -503,24 +504,31 @@ def run_chunk(kind: str, step, eager_step, inputs, consts, model, opt,
     replays read the LR as it is: a chunk whose steps the schedule gives
     different LRs (one that crosses an epoch) raises ValueError. A capture
     that fails raises: nothing falls back to eager steps. Returns the
-    outputs stacked over r."""
+    outputs stacked over r. Its span, "run_chunk", holds "eager_steps" or
+    the graph's ("capture", "copy_in", "replay", "outputs") and
+    "scheduler"."""
     r = inputs[0].shape[0]
-    if not replays_steps(inputs[0], mesh):
-        return stack_steps([eager_step(*batch) for batch in zip(*inputs)])
-    if sched is not None and any(
-            len({f(sched.last_epoch + i) for i in range(r)}) > 1
-            for f in sched.lr_lambdas):
-        raise ValueError(f"a chunk of {r} steps from step "
-                         f"{sched.last_epoch} crosses a change of the LR "
-                         "schedule; a step graph reads one LR a chunk")
-    key = (kind, cfg, tuple(tuple(t.shape[1:]) for t in inputs))
-    graph = (graphs or Graphs()).train_step(key, step, inputs, consts, model,
-                                            opt, generator, cfg.scan_steps)
-    out = graph.run(inputs, consts)
-    if sched is not None:
-        for _ in range(r):
-            sched.step()
-    return out
+    with span("run_chunk"):
+        if not replays_steps(inputs[0], mesh):
+            with span("eager_steps"):
+                return stack_steps([eager_step(*batch)
+                                    for batch in zip(*inputs)])
+        if sched is not None and any(
+                len({f(sched.last_epoch + i) for i in range(r)}) > 1
+                for f in sched.lr_lambdas):
+            raise ValueError(f"a chunk of {r} steps from step "
+                             f"{sched.last_epoch} crosses a change of the LR "
+                             "schedule; a step graph reads one LR a chunk")
+        key = (kind, cfg, tuple(tuple(t.shape[1:]) for t in inputs))
+        graph = (graphs or Graphs()).train_step(key, step, inputs, consts,
+                                                model, opt, generator,
+                                                cfg.scan_steps)
+        out = graph.run(inputs, consts)
+        if sched is not None:
+            with span("scheduler"):
+                for _ in range(r):
+                    sched.step()
+        return out
 
 
 def pointda_train_scan(model, opt, sched, src_xs, src_ys, trgt_xs,
@@ -576,7 +584,8 @@ def eval_scan(model, xs: torch.Tensor, graphs: Graphs | None = None,
     was_training = model.training
     model.eval()
     try:
-        with torch.inference_mode(), points_sharding(mesh):
+        with (torch.inference_mode(), points_sharding(mesh),
+              span("eval_scan")):
             def forward(x):
                 return model(x)[output]
 
@@ -603,6 +612,7 @@ def scan_in_chunks(scan_fn, model, batches, chunk: int | None = None,
         part = batches[s:s + chunk]
         xs = (part if isinstance(part, torch.Tensor)
               else torch.stack([torch.as_tensor(b) for b in part]))
-        outs.append(scan_fn(model, xs.to(device), graphs=graphs)
-                    .float().cpu().numpy())
+        out = scan_fn(model, xs.to(device), graphs=graphs)
+        with span("fetch_logits"):
+            outs.append(out.float().cpu().numpy())
     return np.concatenate(outs)

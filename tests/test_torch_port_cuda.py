@@ -1437,3 +1437,99 @@ def test_nccl_rank_eval_replays_equal_eager_mesh_forwards(card, nccl_mesh):
     assert got.shape == (5, 5, 10)
     np.testing.assert_array_equal(got, eager)
     np.testing.assert_array_equal(got, one)
+
+
+# ------------------------------------------------------------------ spans
+
+
+def _spans_on_and_off(card, run):
+    """`run()` with the profiler off, then on (CPU and CUDA activity), on
+    fresh state each time: (off's output, on's output, the records, the
+    profiler's "mlsp/..." host ranges as (name, start_ns, end_ns))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlsp_tpu_torch.utils import profiling
+
+    profiling.clear_spans()
+    off = run()
+    assert profiling.spans() == []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        on = run()
+    records = profiling.spans()
+    profiling.clear_spans()
+    ranges = sorted(
+        (e.name()[5:], e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.name().startswith("mlsp/")
+        and e.device_type() == torch.autograd.DeviceType.CPU)
+    for name in {r[0] for r in records}:
+        mine = [r for r in records if r[0] == name]
+        theirs = [r for r in ranges if r[0] == name]
+        assert len(mine) == len(theirs), name
+        for (_, s, e, _), (_, ps, pe) in zip(mine, theirs):
+            assert abs(s - ps) < 1_000_000 and abs(e - pe) < 1_000_000, (
+                name, s - ps, e - pe)
+    return off, on, records
+
+
+def _span_tree(records):
+    return [(n, None if p is None else records[p][0])
+            for n, _, _, p in records]
+
+
+def test_replayed_chunks_record_their_spans(card):
+    """Two chunks (2 steps, then 1) of the paper step on one `Graphs`
+    under the profiler: the first records its capture, then each
+    its copy-in, replays, outputs and scheduler steps; the losses and the
+    parameters are bit-equal to the same chunks with the profiler off."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+
+    def run():
+        cfg, model, opt, sched, x, y = _graph_setup(card)
+        gen = torch.Generator(device=card).manual_seed(3)
+        graphs = Graphs()
+        outs = [pointda_train_scan(model, opt, sched, x[c], y[c],
+                                   x[c].flip(1), gen, cfg, graphs)
+                for c in (slice(0, 2), slice(2, 3))]
+        torch.cuda.synchronize()
+        return outs, [p.detach().clone() for p in model.parameters()]
+
+    (outs_off, params_off), (outs_on, params_on), records = (
+        _spans_on_and_off(card, run))
+    chunk = [("run_chunk", None), ("copy_in", "run_chunk"),
+             ("replay", "run_chunk"), ("outputs", "run_chunk"),
+             ("scheduler", "run_chunk")]
+    assert _span_tree(records) == [
+        chunk[0], ("capture", "run_chunk"), *chunk[1:], *chunk]
+    for a, b in zip(outs_off, outs_on):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(a, b) for a, b in zip(params_off, params_on))
+
+
+def test_replayed_eval_records_its_spans(card):
+    """`evaluate_seg` twice on one `Graphs` under the profiler: the first
+    call's eval forward records its capture, both their copy-in, replay
+    and outputs inside `eval_scan`; the (loss, mIoU, accuracy) are
+    bit-equal to the calls with the profiler off."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
+
+    x, y = make_segmentation(20, 512, 8, seed=5)
+
+    def run():
+        model = make_model("dgcnn_seg", 8, device=card,
+                           generator=torch.Generator().manual_seed(2))
+        graphs = Graphs()
+        return [evaluate_seg(model, torch.from_numpy(x).to(card), y, 16,
+                             graphs=graphs) for _ in range(2)]
+
+    off, on, records = _spans_on_and_off(card, run)
+    assert off == on
+    call = [("eval_logits", None), ("eval_index", "eval_logits"),
+            ("eval_scan", "eval_logits"), ("copy_in", "eval_scan"),
+            ("replay", "eval_scan"), ("outputs", "eval_scan"),
+            ("fetch_logits", "eval_logits"), ("eval_metrics", None)]
+    capture = ("capture", "eval_scan")
+    assert _span_tree(records) == [*call[:3], capture, *call[3:], *call]

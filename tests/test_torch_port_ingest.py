@@ -1,6 +1,6 @@
 """The port's native ingest (`mlsp_tpu_torch/native.py`, the data pipeline's
-`standardize_files`), `data/meta.py`, `calibrate` and the timing helpers,
-held against the JAX package on the CPU.
+`standardize_files`), `data/meta.py` and `calibrate`, held against the JAX
+package on the CPU.
 
 Both packages bind the same C++ source (`native/mlsp_host.cpp`), so the
 native routes must agree bit for bit, and so must the numpy routes; the
@@ -9,7 +9,6 @@ bound): the native unit cube sums in double, numpy in float32.
 """
 
 import os
-import time
 
 import numpy as np
 import pytest
@@ -20,7 +19,7 @@ from mlsp_tpu.data import pipeline as jpipeline
 from mlsp_tpu_torch import native
 from mlsp_tpu_torch.cli import main as port_main
 from mlsp_tpu_torch.data import meta, pipeline
-from mlsp_tpu_torch.utils import chipcal, profiling
+from mlsp_tpu_torch.utils import chipcal
 
 NUM_POINTS = 128
 
@@ -172,17 +171,3 @@ def test_calibrate_routes_on_the_cpu(monkeypatch):
         routes["fused"]()
     assert torch.equal(routes["moments"]()[1], du)
 
-
-def test_timer_and_log_execution_time(capsys):
-    timer = profiling.Timer()
-    time.sleep(0.01)
-    lap = timer.tick()
-    assert lap >= 0.01 and timer.laps == [lap]
-    assert timer.tick() < lap and len(timer.laps) == 2
-
-    @profiling.log_execution_time
-    def add(a, b):
-        return a + b
-
-    assert add(2, 3) == 5
-    assert capsys.readouterr().out.startswith("[add] took ")
