@@ -487,3 +487,49 @@ def merge_rank_tapes(results: list, batch: int, points: int = 1) -> "Tape":
              else np.concatenate(parts))
         graphs.append(torch.from_numpy(g))
     return Tape(graphs, [torch.from_numpy(o) for o in results[0]["orders"]])
+
+
+SEG_METRIC_CASES = ("random", "ties", "only_predicted", "only_true",
+                    "one_part", "padded")
+
+
+class _SegLookup(torch.nn.Module):
+    """Seg logits looked up by cloud: every point of cloud m carries m."""
+
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        self.register_buffer("table", table)
+        self.w = torch.nn.Parameter(torch.zeros((), device=table.device))
+
+    def forward(self, x):
+        return {"seg": self.table[x[:, 0, 0].long()]}
+
+
+def seg_metric_case(case: str, device="cpu"):
+    """A split for `evaluate_seg` at batch 4 whose seg logits are a fixed
+    table: (model on `device`, clouds [M, N, 3], labels [M, N], logits
+    [M, N, C] float32, batch). `case` (`SEG_METRIC_CASES`): random logits,
+    exact ties between the maxima (some on the label), a part only in the
+    prediction, a part only in the truth (and one in neither), clouds of
+    one part (predicted right, then wrong), 7 clouds (the last batch's
+    first 3 real)."""
+    rng = np.random.default_rng(11)
+    M, N, C, B = (7 if case == "padded" else 8), 64, 8, 4
+    y = rng.integers(0, C, (M, N))
+    logits = rng.standard_normal((M, N, C)).astype(np.float32)
+    if case == "ties":
+        logits = rng.integers(0, 2, (M, N, C)).astype(np.float32)
+        logits[:, ::3] = 1.0
+    elif case == "only_predicted":  # part 5 in no truth
+        y[y == 5] = 4
+        logits[:, ::4, 5] = 9.0
+    elif case == "only_true":  # part 6 in no prediction, 1 in neither
+        logits[..., (1, 6)] = -9.0
+        y[y == 1] = 0
+    elif case == "one_part":
+        y[:2] = 3
+        logits[0, :, 3] = 9.0
+        logits[1, :, 2] = 9.0
+    x = np.repeat(np.arange(M, dtype=np.float32), N * 3).reshape(M, N, 3)
+    model = _SegLookup(torch.from_numpy(logits).to(device))
+    return model, x, y, logits, B

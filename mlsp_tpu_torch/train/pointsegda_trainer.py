@@ -18,8 +18,9 @@ eagerly on the CPU and under gloo), and each step's loss terms,
 predictions and labels stay on the device until one fetch at the end of
 the epoch, where the train mIoU is computed step by step as the JAX
 trainer does. Evaluation runs through the scanned eval (`eval_logits`,
-a captured forward on the card) and fetches its logits once per chunk
-of batches.
+a captured forward on the card, its logits fetched once per chunk of
+batches) and reduces the logits to per-cloud statistics on the device
+(`evaluate_seg`).
 
 Random streams per epoch from (seed, epoch): the batch order from one
 numpy generator shared by the source and then the target iterator (the
@@ -63,6 +64,7 @@ from mlsp_tpu_torch.train.seg_steps import (
     pointsegda_train_scan,
 )
 from mlsp_tpu_torch.train.state import make_optimizer
+from mlsp_tpu_torch.train.steps import EVAL_SCAN_CHUNK
 from mlsp_tpu_torch.utils import checkpoint, metrics
 from mlsp_tpu_torch.utils.average_meter import MeterDict
 from mlsp_tpu_torch.utils.config import (
@@ -78,33 +80,51 @@ from mlsp_tpu_torch.utils.summary import model_summary
 MAX_LOSS = 9e9
 
 
-def evaluate_seg(model: torch.nn.Module, data, label: np.ndarray,
+def evaluate_seg(model: torch.nn.Module, data, label,
                  batch_size: int, mesh: Mesh | None = None,
                  graphs: Graphs | None = None) -> tuple[float, float, float]:
     """(seg loss, mIoU, accuracy) over a split, each averaged per sample
     as the reference does; the trailing batch is repetition-padded and
-    only its real clouds count. `data` [M, N, 3] is a numpy array or a
-    tensor (staged on the model's device, it is not copied); `label`
-    [M, N] numpy. With a mesh the forwards are split over the ranks and
-    every rank gets the same metrics (`eval_logits`)."""
-    label = np.asarray(label)
-    sels, counts = eval_batches(label.shape[0], batch_size)
+    only its real clouds count. `data` [M, N, 3] and `label` [M, N] are
+    numpy arrays or tensors (staged on the model's device, they are not
+    copied; numpy labels go in in one copy).
+
+    Where each number is computed: `eval_logits` forwards the batches and
+    fetches their logits, as every eval does (it stays the one source of
+    the logits, so a stand-in for it, as the benchmark's control and
+    planted faults are, reaches these metrics). On the model's device,
+    `metrics.seg_stats` reduces them, a chunk of `EVAL_SCAN_CHUNK` batches
+    at a time, to per-cloud statistics (the loss summed in float64, the
+    points predicted right, each part's intersection and counts), fetched
+    in one copy a chunk. The host finishes them (`metrics.seg_sums`): the
+    mIoU and accuracy bit for bit as numpy's `metrics.seg_metrics` on the
+    same predictions (which stays for the train mIoU and the JAX-parity
+    tests), the loss as the sum over the real clouds' points over their
+    count. With a mesh the forwards are split over the ranks and every
+    rank gets all the logits, so every rank gets the same metrics."""
+    M, N = label.shape
+    sels, counts = eval_batches(M, batch_size)
     if not sels:
         raise ValueError("evaluate_seg: empty evaluation split")
-    all_logits = eval_logits(model, data, sels, "seg", mesh,
-                             graphs)  # [S, B, N, C]
+    logits = eval_logits(model, data, sels, "seg", mesh,
+                         graphs)  # [S, B, N, C]
     n_total = float(np.sum(counts))
     with span("eval_metrics"):
+        with span("fetch_stats"):
+            device = next(model.parameters()).device
+            rows = torch.from_numpy(np.stack(sels)).to(device)
+            y = torch.as_tensor(label, device=device)[rows]
+            K = EVAL_SCAN_CHUNK
+            stats = np.concatenate([metrics.seg_stats(
+                torch.from_numpy(logits[s:s + K]).to(device),
+                y[s:s + K]).cpu().numpy() for s in range(0, len(sels), K)])
         seg_loss = miou = acc = 0.0
-        for logits, sel, n in zip(all_logits, sels, counts):
-            logits, by = logits[:n], label[sel][:n]
-            logp = metrics.log_softmax_np(logits)
-            seg_loss += (-np.take_along_axis(logp, by[..., None], -1).mean()
-                         * n)
-            bm, ba = metrics.seg_metrics(by, logits.argmax(-1))
+        for st, n in zip(stats, counts):
+            bl, bm, ba = metrics.seg_sums(st[:n], N)
+            seg_loss += bl
             miou += bm
             acc += ba
-    return (float(seg_loss / n_total), float(miou / n_total),
+    return (float(seg_loss / (n_total * N)), float(miou / n_total),
             float(acc / n_total))
 
 
@@ -143,12 +163,12 @@ def train_pointsegda(cfg: PointSegDAConfig, io: IOStream | None = None,
     trgt_train, trgt_val = (load(cfg.trgt_dataset, "train"),
                             load(cfg.trgt_dataset, "val"))
     trgt_test = load(cfg.trgt_dataset, "test")
-    staged = {name: (torch.from_numpy(d.data).to(device), d.label)
+    staged = {name: (torch.from_numpy(d.data).to(device),
+                     torch.from_numpy(d.label).to(device))
               for name, d in (("src_train", src_train), ("src_val", src_val),
-                              ("trgt_train", trgt_train),
                               ("trgt_val", trgt_val), ("trgt_test", trgt_test))}
-    src_x, trgt_x = staged["src_train"][0], staged["trgt_train"][0]
-    src_y = torch.from_numpy(src_train.label).to(device)
+    src_x, src_y = staged["src_train"]
+    trgt_x = torch.from_numpy(trgt_train.data).to(device)
 
     # batch = min(len(src), len(trgt), batch_size)  (trainer.py:184)
     B = min(len(src_train), len(trgt_train), cfg.batch_size)

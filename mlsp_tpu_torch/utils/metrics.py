@@ -1,14 +1,23 @@
-"""Classification and segmentation metrics in numpy (a copy of
-`mlsp_tpu/utils/metrics.py`). Semantics of the reference's sklearn calls
-(`utils/log.py:48-59`, `PointSegDA/trainer.py:224-233`): balanced accuracy
-is the mean per-class recall over the classes present in y_true; the seg
-mIoU of a shape is the macro IoU over the labels in its truth or
-prediction.
+"""Classification and segmentation metrics. Semantics of the reference's
+sklearn calls (`utils/log.py:48-59`, `PointSegDA/trainer.py:224-233`):
+balanced accuracy is the mean per-class recall over the classes present in
+y_true; the seg mIoU of a shape is the macro IoU over the labels in its
+truth or prediction.
+
+Where each number is computed: everything but `seg_stats` is numpy on the
+host, a copy of `mlsp_tpu/utils/metrics.py` (classification eval, SPST
+selection, `run_infer`, the seg train mIoU, and the JAX-parity tests).
+The seg eval (`pointsegda_trainer.evaluate_seg`) reduces its fetched
+logits on the model's device with `seg_stats` to per-cloud loss sums and
+integer counts, fetches those, and finishes the mIoU and accuracy on the
+host with `seg_sums`, equal bit for bit to `seg_metrics` on the same
+predictions.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def log_softmax_np(logits: np.ndarray) -> np.ndarray:
@@ -64,3 +73,43 @@ def seg_metrics(labels, preds) -> tuple[float, float]:
         miou += jaccard_macro(labels[b], preds[b])
         acc += (labels[b] == preds[b]).mean()
     return miou, acc
+
+
+def seg_stats(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-cloud statistics [..., 2 + 3C] float64 of logits [..., N, C]
+    and integer labels [..., N], computed where they are: the sum over
+    the points of -log_softmax(logits)[label] in float64, the count of
+    points whose argmax (the first maximum) is the label, then for each
+    part c < C the points predicted c and labelled c, predicted c, and
+    labelled c. The counts are exact in float64; integer and fixed-shape
+    reductions only, so equal inputs give equal bits on the card."""
+    y = labels.long()
+    logp = torch.log_softmax(logits.double(), -1)
+    nll = -logp.gather(-1, y[..., None])[..., 0].sum(-1, keepdim=True)
+    pred = logits.argmax(-1)
+    parts = torch.arange(logits.shape[-1], device=logits.device)
+    p1, y1 = pred[..., None] == parts, y[..., None] == parts
+    counts = torch.cat([(pred == y).sum(-1, keepdim=True),
+                        (p1 & y1).sum(-2), p1.sum(-2), y1.sum(-2)], -1)
+    return torch.cat([nll, counts.double()], -1)
+
+
+def seg_sums(stats: np.ndarray, num_points: int) -> tuple[float, float,
+                                                          float]:
+    """Sums over the clouds of `seg_stats` [B, 2 + 3C] of the loss (the
+    per-point losses' sum), the per-cloud mIoU and accuracy: the last two
+    in `seg_metrics`' arithmetic (the IoU over the parts in the cloud's
+    truth or prediction, int64 over int64, their `np.mean`), so equal to
+    it bit for bit on the same predictions."""
+    C = (stats.shape[-1] - 2) // 3
+    counts = stats[:, 1:].astype(np.int64)
+    correct = counts[:, 0]
+    inter, pred_n, true_n = (counts[:, 1:1 + C], counts[:, 1 + C:1 + 2 * C],
+                             counts[:, 1 + 2 * C:])
+    union = pred_n + true_n - inter
+    miou = acc = 0.0
+    for b in range(stats.shape[0]):
+        present = union[b] > 0
+        miou += float(np.mean(inter[b][present] / union[b][present]))
+        acc += correct[b] / num_points
+    return float(np.sum(stats[:, 0])), miou, acc

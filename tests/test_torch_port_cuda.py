@@ -34,10 +34,12 @@ from mlsp_tpu_torch.ops.kernels import (
 )
 from mlsp_tpu_torch.ops.knn import knn_gather, knn_indices_torch
 from mlsp_tpu_torch.testing import (
+    SEG_METRIC_CASES,
     Tape,
     edge_grad_magnitude,
     grad_gaps,
     knn_set_gap,
+    seg_metric_case,
 )
 from mlsp_tpu_torch.train import (
     make_optimizer,
@@ -1530,6 +1532,79 @@ def test_replayed_eval_records_its_spans(card):
     call = [("eval_logits", None), ("eval_index", "eval_logits"),
             ("eval_scan", "eval_logits"), ("copy_in", "eval_scan"),
             ("replay", "eval_scan"), ("outputs", "eval_scan"),
-            ("fetch_logits", "eval_logits"), ("eval_metrics", None)]
+            ("fetch_logits", "eval_logits"), ("eval_metrics", None),
+            ("fetch_stats", "eval_metrics")]
     capture = ("capture", "eval_scan")
     assert _span_tree(records) == [*call[:3], capture, *call[3:], *call]
+
+
+def test_evaluate_seg_reduces_on_the_card(card):
+    """`evaluate_seg` with its statistics reduced on the card, against the
+    numpy metrics of the same split's logits fetched from the card
+    (`eval_logits` on the same graph): mIoU and accuracy equal, the loss
+    within 1e-6 of numpy's float32 loss and 1e-12 of its float64 one; ten
+    calls on one `Graphs` return bit-equal (loss, mIoU, accuracy)."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.pointda_trainer import (
+        eval_batches,
+        eval_logits,
+    )
+    from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
+    from mlsp_tpu_torch.utils import metrics
+
+    x, y = make_segmentation(20, 512, 8, seed=7)
+    model = make_model("dgcnn_seg", 8, device=card,
+                       generator=torch.Generator().manual_seed(4))
+    xs, graphs = torch.from_numpy(x).to(card), Graphs()
+    got = [evaluate_seg(model, xs, y, 16, graphs=graphs) for _ in range(10)]
+    assert all(g == got[0] for g in got)
+    loss, miou, acc = got[0]
+
+    sels, counts = eval_batches(20, 16)
+    logits = eval_logits(model, xs, sels, "seg", graphs=graphs)
+    want_m = want_a = 0.0
+    for lg, sel, n in zip(logits, sels, counts):
+        bm, ba = metrics.seg_metrics(y[sel][:n], lg[:n].argmax(-1))
+        want_m += bm
+        want_a += ba
+    assert (miou, acc) == (float(want_m / 20), float(want_a / 20))
+    lg = np.concatenate([lg[:n] for lg, n in zip(logits, counts)])
+    for dtype, bound in ((np.float32, 1e-6), (np.float64, 1e-12)):
+        want = -np.take_along_axis(metrics.log_softmax_np(lg.astype(dtype)),
+                                   y[..., None], -1).mean()
+        assert abs(loss - want) <= bound * abs(want), dtype
+
+
+@pytest.mark.parametrize("case", SEG_METRIC_CASES)
+def test_evaluate_seg_on_the_card_equals_the_numpy_metrics(card, case):
+    """`evaluate_seg` on the card (the eval forward a replayed graph, the
+    statistics reduced there) over `testing.seg_metric_case`'s split of
+    fixed logits (ties, parts only predicted or only true, one part, a
+    padded batch): mIoU and accuracy equal to numpy's `seg_metrics` on
+    the same logits and to the same split's on the CPU, the loss within
+    1e-12 of numpy's float64 one and of the CPU's; two calls on one
+    `Graphs` bit-equal."""
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.pointsegda_trainer import evaluate_seg
+    from mlsp_tpu_torch.utils import metrics
+
+    model, x, y, logits, B = seg_metric_case(case, card)
+    graphs = Graphs()
+    got = [evaluate_seg(model, torch.from_numpy(x).to(card), y, B,
+                        graphs=graphs) for _ in range(2)]
+    assert got[0] == got[1]
+    loss, miou, acc = got[0]
+    on_cpu = evaluate_seg(seg_metric_case(case)[0], x, y, B)
+    assert (miou, acc) == on_cpu[1:]
+    assert abs(loss - on_cpu[0]) <= 1e-12 * abs(on_cpu[0])
+
+    M = len(y)
+    want_m = want_a = 0.0
+    for s in range(0, M, B):
+        bm, ba = metrics.seg_metrics(y[s:s + B], logits[s:s + B].argmax(-1))
+        want_m += bm
+        want_a += ba
+    assert (miou, acc) == (float(want_m / M), float(want_a / M))
+    want = -np.take_along_axis(metrics.log_softmax_np(
+        logits.astype(np.float64)), y[..., None], -1).mean()
+    assert abs(loss - want) <= 1e-12 * abs(want)

@@ -42,8 +42,13 @@ from mlsp_tpu_torch import losses as L
 from mlsp_tpu_torch.data import synthetic
 from mlsp_tpu_torch.data.pointsegda import load_pointsegda
 from mlsp_tpu_torch.models.dgcnn_seg import LinearEdgeBlock
-from mlsp_tpu_torch.testing import Tape, grad_gaps
-from mlsp_tpu_torch.train import seg_steps, steps
+from mlsp_tpu_torch.testing import (
+    SEG_METRIC_CASES,
+    Tape,
+    grad_gaps,
+    seg_metric_case,
+)
+from mlsp_tpu_torch.train import pointsegda_trainer, seg_steps, steps
 from mlsp_tpu_torch.utils import config, metrics
 from mlsp_tpu_torch.utils.config import PointDAConfig, PointSegDAConfig
 from mlsp_tpu_torch.utils.jax_weights import (
@@ -170,6 +175,39 @@ class TestSegMetrics:
             assert metrics.jaccard_macro(y[b], p[b]) == \
                 jmetrics.jaccard_macro(y[b], p[b])
         assert metrics.jaccard_macro([], []) == jmetrics.jaccard_macro([], [])
+
+    @pytest.mark.parametrize("case", SEG_METRIC_CASES)
+    def test_device_statistics_equal_the_numpy_metrics(self, case):
+        """`evaluate_seg`'s metrics from `seg_stats` reduced where the
+        logits are and `seg_sums` on the host: mIoU and accuracy equal to
+        `seg_metrics` (and each cloud's to `jaccard_macro`) on numpy's
+        argmax of the same logits, the loss within 1e-12 of numpy's in
+        float64 and 1e-6 of its float32 one (`testing.seg_metric_case`:
+        random logits, ties, parts only predicted or only true, one part,
+        a padded batch)."""
+        model, x, y, logits, B = seg_metric_case(case)
+        M, N = y.shape
+        table = torch.from_numpy(logits)
+        loss, miou, acc = pointsegda_trainer.evaluate_seg(model, x, y, B)
+
+        want_m = want_a = 0.0
+        for s in range(0, M, B):
+            bm, ba = metrics.seg_metrics(y[s:s + B],
+                                         logits[s:s + B].argmax(-1))
+            want_m += bm
+            want_a += ba
+        assert (miou, acc) == (float(want_m / M), float(want_a / M))
+        stats = metrics.seg_stats(table, torch.from_numpy(y)).numpy()
+        for m in range(M):
+            _, cm, ca = metrics.seg_sums(stats[m:m + 1], N)
+            assert cm == metrics.jaccard_macro(y[m], logits[m].argmax(-1))
+            assert ca == metrics.accuracy(y[m], logits[m].argmax(-1))
+        nll64 = -np.take_along_axis(metrics.log_softmax_np(
+            logits.astype(np.float64)), y[..., None], -1).mean()
+        nll32 = -np.take_along_axis(metrics.log_softmax_np(logits),
+                                    y[..., None], -1).mean()
+        assert abs(loss - nll64) <= 1e-12 * abs(nll64)
+        assert abs(loss - nll32) <= 1e-6 * abs(nll32)
 
     def test_summary_total_equals_the_jax_total(self, seg_variables):
         model = make_model("dgcnn_seg", 8, device="cpu")

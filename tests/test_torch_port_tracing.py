@@ -158,6 +158,7 @@ def test_evaluate_seg_records_its_spans():
         ("eval_scan", "eval_logits"),
         ("fetch_logits", "eval_logits"),
         ("eval_metrics", None),
+        ("fetch_stats", "eval_metrics"),
     ]
 
 
