@@ -52,8 +52,11 @@ def model_kwargs(cfg, name: str | None = None) -> dict:
     (which builds no graph), DGCNN's and DGCNNSeg's density head sizes,
     DGCNN's precision and EdgeConv route (`compute_dtype`, and the
     `head_dtype`, `gather_dtype` and `edge_impl` the config has:
-    `dgcnn_dtype_kwargs`), and the seg trainer's `compute_dtype` for
-    DGCNNSeg (JAX's eval builds DGCNNSeg in float32)."""
+    `dgcnn_dtype_kwargs`), the seg trainer's `compute_dtype` for
+    DGCNNSeg (JAX's eval builds DGCNNSeg in float32), and the config's
+    `transformer_dim` as the Hengshuang models' `d_model` where the
+    config has one (`PointDAConfig`, `EvalConfig`; the seg trainer and
+    SPST build them at the default width)."""
     from mlsp_tpu_torch.utils.config import PointSegDAConfig
 
     name = canonical_name(name or cfg.model)
@@ -69,6 +72,9 @@ def model_kwargs(cfg, name: str | None = None) -> dict:
                 kw[key] = getattr(cfg, key)
     if name == "dgcnn_seg" and isinstance(cfg, PointSegDAConfig):
         kw["compute_dtype"] = cfg.compute_dtype
+    if name in ("hengshuang", "hengshuang_seg") and hasattr(
+            cfg, "transformer_dim"):
+        kw["d_model"] = cfg.transformer_dim
     return kw
 
 

@@ -23,7 +23,14 @@ interpolation are plain PyTorch, as the JAX package runs them on XLA.
 
 Parameter names are the reference's state_dict (what
 `mlsp_tpu.utils.torch_export.export_hengshuang` emits); `HengshuangSeg`
-adds its `DefRec.*`, which the reference's seg model lacks.
+adds its `DefRec.*`, which the reference's seg model lacks. `d_model` is
+the reference YAML's `transformer_dim` (published: 512; the trainer's
+`--transformer_dim`, `models.model_kwargs`).
+
+Tracing (`utils.profiling`): each vector attention, transition down and
+transition up runs in its span ("vector_attention", "transition_down",
+"transition_up"), so that a profiled eager step puts each kernel on its
+stage.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from mlsp_tpu_torch.models.transformer import feature_propagation
 from mlsp_tpu_torch.ops.fps import fps, fps_gather
 from mlsp_tpu_torch.ops.grouping import group_points
 from mlsp_tpu_torch.ops.knn import knn_gather, knn_indices
+from mlsp_tpu_torch.utils.profiling import span
 
 
 def _mlp2(cin: int, cmid: int, cout: int) -> nn.ModuleList:
@@ -77,18 +85,19 @@ class VectorAttention(nn.Module):
         self.fc2 = nn.Linear(d_model, cin)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(feats)
-        q, kf, vf = self.w_qs(x), self.w_ks(x), self.w_vs(x)
-        xyz_c = xyz.detach()
-        idx = knn_indices(xyz_c, min(self.k, xyz.shape[1]),
-                          backend=self.knn_backend)
-        rel = xyz_c[:, :, None, :] - knn_gather(xyz_c, idx)  # p_i - p_j
-        delta = _run_mlp(self.fc_delta, rel)
-        gamma = _run_mlp(self.fc_gamma,
-                         q[:, :, None, :] - knn_gather(kf, idx) + delta)
-        attn = torch.softmax(gamma / math.sqrt(q.shape[-1]), dim=-2)
-        y = (attn * (knn_gather(vf, idx) + delta)).sum(-2)
-        return self.fc2(y) + feats
+        with span("vector_attention"):
+            x = self.fc1(feats)
+            q, kf, vf = self.w_qs(x), self.w_ks(x), self.w_vs(x)
+            xyz_c = xyz.detach()
+            idx = knn_indices(xyz_c, min(self.k, xyz.shape[1]),
+                              backend=self.knn_backend)
+            rel = xyz_c[:, :, None, :] - knn_gather(xyz_c, idx)  # p_i - p_j
+            delta = _run_mlp(self.fc_delta, rel)
+            gamma = _run_mlp(self.fc_gamma,
+                             q[:, :, None, :] - knn_gather(kf, idx) + delta)
+            attn = torch.softmax(gamma / math.sqrt(q.shape[-1]), dim=-2)
+            y = (attn * (knn_gather(vf, idx) + delta)).sum(-2)
+            return self.fc2(y) + feats
 
 
 class SetAbstractionKNN(nn.Module):
@@ -118,13 +127,16 @@ class TransitionDown(nn.Module):
         self.sa = SetAbstractionKNN(cin + 3, channels)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, npoint: int):
-        xyz_c = xyz.detach()
-        start = torch.zeros(xyz.shape[0], dtype=torch.int64, device=xyz.device)
-        centers = fps_gather(xyz_c, fps(xyz_c, npoint, start,
-                                        backend=self.knn_backend))
-        nidx = knn_indices(centers, min(self.k, xyz.shape[1]), y=xyz_c,
-                           backend=self.knn_backend)
-        return centers, self.sa(group_points(xyz_c, feats, centers, nidx))
+        with span("transition_down"):
+            xyz_c = xyz.detach()
+            start = torch.zeros(xyz.shape[0], dtype=torch.int64,
+                                device=xyz.device)
+            centers = fps_gather(xyz_c, fps(xyz_c, npoint, start,
+                                            backend=self.knn_backend))
+            nidx = knn_indices(centers, min(self.k, xyz.shape[1]), y=xyz_c,
+                               backend=self.knn_backend)
+            return centers, self.sa(group_points(xyz_c, feats, centers,
+                                                 nidx))
 
 
 class TransitionUp(nn.Module):
@@ -144,8 +156,10 @@ class TransitionUp(nn.Module):
         return F.relu(batch_norm(layers[2], layers[0](x)))
 
     def forward(self, xyz_c, f_c, xyz_f, f_f):
-        return (feature_propagation(xyz_f, xyz_c, self._proj(self.fc1, f_c))
-                + self._proj(self.fc2, f_f))
+        with span("transition_up"):
+            return (feature_propagation(xyz_f, xyz_c,
+                                        self._proj(self.fc1, f_c))
+                    + self._proj(self.fc2, f_f))
 
 
 class Backbone(nn.Module):
@@ -184,11 +198,13 @@ class _Decoded(nn.Module):
     """The backbone and the U-Net decoder (`hengshuang_model.py:104-139,
     145-206`) under the reference's top-level names: `fc2` (Linear/ReLU,
     no BN), `transformer2` at the coarsest scale, then per level a
-    `transition_ups` and a `transformers` block back to all points."""
+    `transition_ups` and a `transformers` block back to all points. `k`
+    is the neighbours a point attends over (`nneighbor`), as DGCNN's."""
 
     def __init__(self, nblocks: int, nneighbor: int, d_model: int,
                  base_dim: int, knn_backend: str):
         super().__init__()
+        self.k = nneighbor
         self.backbone = Backbone(nblocks, nneighbor, d_model, base_dim,
                                  knn_backend)
         top = base_dim * 2 ** nblocks

@@ -21,7 +21,10 @@ other `edge_impl` as "direct"; the port's models raise for them. Left
 out: `debug_aux` (`pointda_losses` and `pointsegda_losses` take the draws
 as inputs), refused as an unknown key. Added: `device`, where the entry
 points run ("" is the CUDA card, which they require unless given
-"cpu").
+"cpu"), and, in `PointDAConfig` and `EvalConfig`, `transformer_dim`,
+the Hengshuang models' `d_model` (the name of the reference's
+Point-Transformers YAML; its published value is 512, the default 128
+keeps the JAX package's width).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ class PointDAConfig:
     momentum: float = 0.9
     wd: float = 5e-5
     dropout: float = 0.5
+    transformer_dim: int = 128  # hengshuang's d_model (models.model_kwargs)
 
     # SSL recipe flags (reference defaults; `paper_recipe` turns on
     # Density_normal_viainput + Normal_ondef + Density_ondef).
@@ -253,6 +257,7 @@ class EvalConfig:
     num_points: int = 1024
     test_batch_size: int = 32
     dropout: float = 0.5
+    transformer_dim: int = 128  # see PointDAConfig
     density_num_class: int = 16
     pergroup: float = 2.0
     knn_backend: str = "auto"

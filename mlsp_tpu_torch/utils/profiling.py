@@ -13,11 +13,14 @@ closes: the profiler's events carry Unix-epoch nanoseconds too, so spans
 and device operations share one time axis. `parent` is the index of the
 enclosing span's record (None at the top). Without a profiler `span`
 returns one shared null context: no clock is read, nothing is recorded,
-and the program computes what it computes traced. No span synchronizes,
-reads a tensor or opens inside a graph capture. Spans nest on the thread
-that opens them (the program's boundaries all run on the main thread).
+and the program computes what it computes traced. No span synchronizes
+or reads a tensor. Spans nest on the thread that opens them (the
+program's boundaries all run on the main thread).
 The list holds at most `MAX_SPANS` records; spans beyond them are
-counted (`dropped()`) and not kept.
+counted (`dropped()`) and not kept. The models' spans
+(`vector_attention`, `transition_down`, `transition_up`) open wherever
+their forwards run, inside a graph capture too: a capture under a
+profiler records them once, and its replays record none.
 """
 
 from __future__ import annotations

@@ -1608,3 +1608,93 @@ def test_evaluate_seg_on_the_card_equals_the_numpy_metrics(card, case):
     want = -np.take_along_axis(metrics.log_softmax_np(
         logits.astype(np.float64)), y[..., None], -1).mean()
     assert abs(loss - want) <= 1e-12 * abs(want)
+
+
+# ---- the Point Transformer (Hengshuang) at its published width
+
+def _bench_root():
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+
+
+def test_hengshuang_cell_replays_within_its_limits(card):
+    """The benchmark's `pointda_hengshuang.train_defrec_pcm` at its
+    published widths (B 32, N 1024, transformer_dim 512, k 16, four
+    levels), one whole run: set-up's steps and a window's chunk, all
+    replays of one captured step graph; its first three steps held to the
+    plain reference within the cell's committed limits. A step: 15 vector
+    attentions over 2,090,496 edges, K1 15 and K4 9 launches."""
+    import time
+
+    _bench_root()
+    from benchmark.harness import core
+
+    cell = core.load_cell("pointda_hengshuang.train_defrec_pcm")
+    notes = []
+    result, checks, _ = core.execute(cell, 2**31 + 11, 0.0, False, card,
+                                     time.perf_counter(), note=notes.append)
+    assert result["correct"], (checks, notes)
+    listed = cell.ref.train_vector_attentions(cell.ref_cfg)
+    assert len(listed) == 15
+    assert sum(b * n * k for b, n, k, _, _ in listed) == 2_090_496
+    (window,) = [n for n in notes if n.startswith("window:")]
+    assert "'knn': 15.0" in window and "'fps': 9.0" in window, window
+
+
+def test_hengshuang_replays_add_one_k1_launch_a_vector_attention(card):
+    """Two chunks (2 steps, then 1) of the Hengshuang step on one
+    `Graphs`: each replay adds one K1 launch for each vector attention of
+    the reference's list and no other, which `va_ns_per_edge.train` takes
+    as proof that the listed attentions ran."""
+    _bench_root()
+    from benchmark.reference import pointda_hengshuang as R
+    from mlsp_tpu_torch.models import model_kwargs
+    from mlsp_tpu_torch.train.graphs import Graphs
+    from mlsp_tpu_torch.train.steps import pointda_train_scan
+
+    n, b = 256, 4
+    cfg = PointDAConfig(model="hengshuang", num_points=n, batch_size=b,
+                        transformer_dim=64, DefRec_on_trgt=True,
+                        scan_steps=4).resolved()
+    model = make_model("hengshuang", 10, device=card, **model_kwargs(cfg))
+    opt, sched = make_optimizer(model, cfg.lr, cfg.wd, 2, 4)
+    x, y = make_classification(3 * b, n, 10, seed=5)
+    x = torch.from_numpy(x).to(card).view(3, b, n, 3)
+    y = torch.from_numpy(y).to(card).view(3, b)
+    gen = torch.Generator(device=card).manual_seed(3)
+    listed = R.train_vector_attentions({
+        "num_points": n, "batch_size": b, "k": 16, "nblocks": 4,
+        "d_model": 64, "base_dim": 32})
+    knn0 = kernels.launches()["knn"]
+    graphs = Graphs()
+    for c, steps in ((slice(0, 2), 2), (slice(2, 3), 3)):
+        pointda_train_scan(model, opt, sched, x[c], y[c], x[c].flip(1), gen,
+                           cfg, graphs)
+        assert kernels.launches()["knn"] - knn0 == steps * len(listed)
+
+
+def test_trainer_trains_hengshuang_at_the_published_width(card, tmp_path):
+    """`trainer --model hengshuang --transformer_dim 512` with PCM and
+    DefRec on the target for one synthetic epoch on the card (its steps
+    replayed), then `eval` of its checkpoint at that width; at the default
+    width the checkpoint is refused."""
+    from mlsp_tpu_torch import cli
+
+    out = str(tmp_path)
+    assert cli.main(["trainer", "--model", "hengshuang", "--transformer_dim",
+                     "512", "--DefRec_on_trgt", "True", "--synthetic", "True",
+                     "--epochs", "1", "--out_path", out,
+                     "--exp_name", "h"]) == 0
+    (rec,) = [json.loads(ln) for ln in (tmp_path / "h" / "metrics.jsonl")
+              .open()]
+    assert rec["step_graphs"] and np.isfinite(rec["train"]["total"]), rec
+    ckpt = str(tmp_path / "h" / "model.ckpt")
+    args = ["eval", "--model", "hengshuang", "--model_file", ckpt,
+            "--synthetic", "True", "--out_path", out, "--exp_name", "e"]
+    assert cli.main(args + ["--transformer_dim", "512"]) == 0
+    with pytest.raises(ValueError, match="does not match"):
+        cli.main(args)

@@ -32,7 +32,7 @@ YAMLS = sorted(str(p.relative_to(ROOT)) for p in
                [*ROOT.glob("configs/pointda*.yaml"),
                 *ROOT.glob("configs/pointda/*.yaml")])
 # The port's own fields: where the device runs (the JAX package has none).
-PORT_ONLY = {"device"}
+PORT_ONLY = {"device", "transformer_dim"}
 
 
 def _shared(port_cfg, jax_cfg) -> tuple[dict, dict]:
