@@ -11,7 +11,13 @@ one JSON line each; any failure exits non-zero before the last line:
   knn          the kNN kernel (K1) against its plain version, on the inputs
                the serving forward gives it, plus a ragged N, then on
                integer coordinates (every distance exact), where the
-               indices must be equal, tie order included
+               indices must be equal, tie order included; then K1 per
+               launch beside its bound at the cells' graph shapes
+               (KNN_CELL_SHAPES: B32 N1024 C 3/64/128, B16 and B32 N2048
+               C 3/64, N 256/64/16/4 at k 16 and 4, N 32, B 1), with the
+               share of candidates its register filter let through and the
+               buffer flushes a query took (`knn_cuda_stats`, whose
+               indices must equal `knn_cuda`'s)
   edge         the neighbourhood-statistics kernel (K2-fwd) against its
                plain version, on the serving forward's inputs, a ragged
                N = 1000 at C = 64 and the repeated-point graph (a cloud of
@@ -357,6 +363,7 @@ from mlsp_tpu_torch.ops.kernels import (
     knn_cuda,
     knn_moments_cuda,
 )
+from mlsp_tpu_torch.ops.kernels.knn import knn_cuda_stats
 from mlsp_tpu_torch.ops.knn import (
     edge_features,
     knn_gather,
@@ -648,6 +655,40 @@ def check_knn_exact(g: torch.Generator, device) -> None:
             emit("knn_moments", **res)
             check(res["rows_unequal"] == 0,
                   f"K3 indices differ on exact distances: {res}")
+
+
+# K1's per-launch time at the graph shapes the benchmark's cells build (B,
+# N, C, k): the DGCNN forward at B32 N1024 (train, serve's largest
+# request), the seg train forward at B16 N2048 and its eval at B32 N2048,
+# Hengshuang's levels at k 16, a Point-ViT "dgcnn" group (N 32) and a
+# serving request of one cloud
+KNN_CELL_SHAPES = (
+    (32, 1024, 3, K), (32, 1024, 64, K), (32, 1024, 128, K),
+    (16, 2048, 3, K), (16, 2048, 64, K), (32, 2048, 3, K), (32, 2048, 64, K),
+    (32, 256, 3, 16), (32, 64, 3, 16), (32, 16, 3, 16), (32, 4, 3, 4),
+    (2048, 32, 3, K), (2048, 32, 64, K), (1, 1024, 3, K), (1, 1024, 64, K),
+    (1, 1024, 128, K))
+
+
+def knn_cell_times(g: torch.Generator, device) -> None:
+    """K1 per launch beside its bound at KNN_CELL_SHAPES, with what its
+    register filter did there (`knn_cuda_stats`: the share of candidates
+    that passed it, the buffer flushes a query took); the counting
+    instance's indices must equal the main one's. Clouds: the synthetic
+    shapes at C = 3, gaussian features otherwise."""
+    for b, n, c, k in KNN_CELL_SHAPES:
+        x = (torch.from_numpy(make_classification(b, n, NUM_CLASS,
+                                                  seed=SEED + n)[0])
+             if c == 3 else torch.randn(b, n, c, generator=g)).to(device)
+        got = knn_cuda(x, k)
+        idx, stats = knn_cuda_stats(x, k)
+        check(bool(torch.equal(idx, got)),
+              f"knn_cuda_stats indices differ from knn_cuda's at {x.shape}")
+        b_ms, b_by = bound(*knn_cost(x, k))
+        emit("knn", kernel="knn", what="per_launch", shape=[b, n, c], k=k,
+             ms=median_ms(lambda: knn_cuda(x, k)), bound_ms=b_ms,
+             bound_by=b_by, pass_share=stats["pass_share"],
+             flushes_per_query=stats["flushes_per_query"])
 
 
 def check_edge(name: str, xg: torch.Tensor, u: torch.Tensor) -> dict:
@@ -5209,6 +5250,7 @@ def run(device: torch.device, card: str) -> None:
     ragged = torch.randn(B, RAGGED_N, 64, generator=g).to(device)
     knn_checks.append(check_knn("ragged", ragged))
     check_knn_exact(g, device)
+    knn_cell_times(g, device)
     # a ragged N at C = 64, and the repeated-point graph at conv1's shape
     edge_extra = [
         ("ragged", torch.randn(B, RAGGED_N, 64, generator=g).to(device),

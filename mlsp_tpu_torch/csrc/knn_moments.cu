@@ -29,16 +29,15 @@
 
 namespace {
 
-using knn_topk::THREADS;
-
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(knn_topk::MAX_THREADS, 2)
 knn_moments_kernel(const float* __restrict__ x, float* __restrict__ s1,
                    float* __restrict__ s2, int64_t* __restrict__ idx_out,
-                   int N, int k) {
+                   int N, int k, int qw) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   // one flat grid axis, as in knn.cu: block = cloud * tiles + query tile
-  const int tiles = (N + knn_topk::QB - 1) / knn_topk::QB;
+  const int qb = qw * (blockDim.x >> 5);
+  const int tiles = (N + qb - 1) / qb;
   const int64_t b = blockIdx.x / tiles;
   const int tile = blockIdx.x - (int)b * tiles;
   const float* xb = x + b * N * 3;
@@ -46,35 +45,39 @@ knn_moments_kernel(const float* __restrict__ x, float* __restrict__ s1,
   // (FMAs of coordinates u and v); the other lanes' sums are dropped
   const int u = lane < 3 ? lane : lane < 6 ? 0 : lane < 8 ? 1 : 2;
   const int v = lane < 3 ? lane : lane < 6 ? lane - 3 : lane < 8 ? lane - 5 : 2;
-  knn_topk::select(
-      xb, N, 3, k, tile * knn_topk::QB, N, smem,
-      [&](int q, knn_topk::key_t key) {
-        const size_t row = (size_t)b * N + q;
-        const int j = (int)(uint32_t)key;
-        float p[3] = {0.f, 0.f, 0.f};
-        if (lane < k) {
-          p[0] = xb[3 * j];
-          p[1] = xb[3 * j + 1];
-          p[2] = xb[3 * j + 2];
-          if (idx_out != nullptr) idx_out[row * k + lane] = j;
-        }
-        float acc = 0.f;
-        for (int i = 0; i < k; ++i) {
-          const float c0 = __shfl_sync(knn_topk::FULL, p[0], i);
-          const float c1 = __shfl_sync(knn_topk::FULL, p[1], i);
-          const float c2 = __shfl_sync(knn_topk::FULL, p[2], i);
-          const float pu = u == 0 ? c0 : u == 1 ? c1 : c2;
-          const float pv = v == 0 ? c0 : v == 1 ? c1 : c2;
-          acc = lane < 3 ? acc + pu : fmaf(pu, pv, acc);
-        }
-        if (lane < 3) s1[row * 3 + lane] = acc;
-        // s2 is symmetric, row-major 3x3: the off-diagonal terms twice
-        float* o2 = s2 + row * 9;
-        if (lane >= 3 && lane < 9) {
-          o2[3 * u + v] = acc;
-          if (u != v) o2[3 * v + u] = acc;
-        }
-      });
+  auto emit = [&](int q, knn_topk::key_t key) {
+    const size_t row = (size_t)b * N + q;
+    const int j = (int)(uint32_t)key;
+    float p[3] = {0.f, 0.f, 0.f};
+    if (lane < k) {
+      p[0] = xb[3 * j];
+      p[1] = xb[3 * j + 1];
+      p[2] = xb[3 * j + 2];
+      if (idx_out != nullptr) idx_out[row * k + lane] = j;
+    }
+    float acc = 0.f;
+    for (int i = 0; i < k; ++i) {
+      const float c0 = __shfl_sync(knn_topk::FULL, p[0], i);
+      const float c1 = __shfl_sync(knn_topk::FULL, p[1], i);
+      const float c2 = __shfl_sync(knn_topk::FULL, p[2], i);
+      const float pu = u == 0 ? c0 : u == 1 ? c1 : c2;
+      const float pv = v == 0 ? c0 : v == 1 ? c1 : c2;
+      acc = lane < 3 ? acc + pu : fmaf(pu, pv, acc);
+    }
+    if (lane < 3) s1[row * 3 + lane] = acc;
+    // s2 is symmetric, row-major 3x3: the off-diagonal terms twice
+    float* o2 = s2 + row * 9;
+    if (lane >= 3 && lane < 9) {
+      o2[3 * u + v] = acc;
+      if (u != v) o2[3 * v + u] = acc;
+    }
+  };
+  if (qw == knn_topk::QW)
+    knn_topk::select<false, knn_topk::QW>(xb, N, 3, k, tile * qb, N, smem,
+                                          emit);
+  else
+    knn_topk::select<false, knn_topk::QW / 2>(xb, N, 3, k, tile * qb, N,
+                                              smem, emit);
 }
 
 }  // namespace
@@ -88,15 +91,14 @@ int mlsp_knn_moments(const float* x, float* s1, float* s2, int64_t* idx_out,
                      int B, int N, int k, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || k <= 0 || k > N || k > 32)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = knn_topk::smem_bytes(3);
+  const knn_topk::Shape sh = knn_topk::shape(B, N, 3, knn_topk::sm_count());
+  if (sh.blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       knn_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)sh.smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (int64_t)B * ((N + knn_topk::QB - 1) / knn_topk::QB);
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  knn_moments_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
-      x, s1, s2, idx_out, N, k);
+  knn_moments_kernel<<<(unsigned)sh.blocks, 32 * sh.warps, sh.smem, stream>>>(
+      x, s1, s2, idx_out, N, k, sh.qw);
   return (int)cudaGetLastError();
 }
 

@@ -156,6 +156,61 @@ def test_knn_kernel_duplicates_lower_index_first(card):
     assert torch.equal(got[0::4], torch.arange(0, 64, 4))
 
 
+# Every graph shape the benchmark's cells build (B, N, C, k): the DGCNN
+# forward (train, serve) at B32 N1024, the seg train forward at B16 N2048,
+# the seg eval forward at B32 N2048, Hengshuang's five levels at k 16 (k 4
+# at N 4); then a clustered cloud whose first points lie far from the
+# rest, so that the seeded threshold is poor and every query's buffer
+# overflows and flushes again and again.
+K1_CELL_SHAPES = [
+    (32, 1024, 3, 20), (32, 1024, 64, 20), (32, 1024, 128, 20),
+    (16, 2048, 3, 20), (16, 2048, 64, 20),
+    (32, 2048, 3, 20), (32, 2048, 64, 20),
+    (32, 1024, 3, 16), (32, 256, 3, 16), (32, 64, 3, 16), (32, 16, 3, 16),
+    (32, 4, 3, 4),
+]
+
+
+def _clustered(seed, shape, device):
+    """The first 128 points of each cloud far away, the rest a tight
+    cluster: the seed (the lane minima of the first sub-tiles) puts the
+    cluster's queries' thresholds far above their k-th distances."""
+    x = _x(seed, shape, device) * 0.01
+    x[:, :128] += 50.0
+    return x
+
+
+@pytest.mark.parametrize("B,N,C,k,cloud",
+                         [(*s, "random") for s in K1_CELL_SHAPES]
+                         + [(4, 1024, 64, 20, "clustered")])
+def test_knn_kernel_equals_the_benchmark_reference(card, B, N, C, k, cloud):
+    """K1 index for index against the benchmark's plain reference
+    (`benchmark/reference/plain.py::knn`: the documented FMA chain and a
+    stable sort) on random float clouds at every graph shape the cells run,
+    and on a clustered cloud that makes the buffers overflow and flush; the
+    counting instance (`knn_cuda_stats`) returns the same indices, and K3's
+    equal K1's at C = 3."""
+    _bench_root()
+    from benchmark.reference import plain
+    from mlsp_tpu_torch.ops.kernels.knn import knn_cuda_stats
+
+    if cloud == "clustered":
+        x = _clustered(7, (B, N, C), card)
+    else:
+        x = _x(B * N + C + k, (B, N, C), card)
+    got = knn_cuda(x, k)
+    want = torch.cat([plain.knn(x[b:b + 8], k) for b in range(0, B, 8)])
+    assert torch.equal(got, want)
+    idx, stats = knn_cuda_stats(x, k)
+    assert torch.equal(idx, got)
+    assert 0 < stats["pass_share"] <= 1 and stats["flushes_per_query"] >= 1
+    if cloud == "clustered":
+        assert stats["flushes_per_query"] > 4, stats
+    if C == 3:
+        assert torch.equal(knn_moments_cuda(x, k, return_indices=True)[2],
+                           got)
+
+
 def _sums_within(got, want, u, idx):
     """s1 and s2 within 1e-5 of the summed magnitudes of their terms."""
     scale = (edge_moments_torch(u.abs(), idx, True)[2], want[3])
