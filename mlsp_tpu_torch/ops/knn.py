@@ -2,7 +2,8 @@
 
 `knn_indices` runs the hand-written CUDA kernel (`ops/kernels/knn.py`) on a
 CUDA tensor and its plain PyTorch version, below, on a CPU tensor. The plain
-version is also what the tests and `chip_smoke.py` hold the kernel against.
+version is also what the card tests (`tests/test_torch_port_cuda.py`) and
+`chip_smoke.py`'s guards hold the kernel against.
 Inside `parallel.points_sharding` each rank builds the graph of its rows of
 the queries (K1's query range on the card) and the rows are gathered over
 the points group: the JAX package partitions the same work there through its

@@ -1,4 +1,4 @@
-"""Check helpers shared by the port's tests and `chip_smoke.py`.
+"""Check helpers shared by the port's tests and `chip_smoke.py`'s guards.
 
 The library does not use them. They say how far two routes (the kernels
 and the plain versions, or the port and the JAX package) may differ, and

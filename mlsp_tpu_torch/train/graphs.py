@@ -50,7 +50,9 @@ optimizer or generator) or a chunk outgrows it. The graphs
 refuse CPU tensors: on the CPU the scan functions take their steps
 eagerly. The kernels' launchers need no change to be captured: their
 per-launch `cudaFuncSetAttribute` is host-side and legal while a stream
-captures in torch's global mode (`scripts/torch_capture_probe.py`).
+captures in torch's global mode (`tests/test_torch_port_cuda.py`: the
+step graphs replay every kernel, K1's query range and K2-bwd replay
+graphs of their own).
 Under an NCCL (data, points) mesh the step graph holds the points
 group's collectives (the gathered kNN rows, Chamfer's cotangent sums)
 beside the data group's: the warm-up step runs every one of them, so

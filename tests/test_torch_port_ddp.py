@@ -499,7 +499,8 @@ def test_mesh_step_and_chunk_make_no_host_sync():
     through `pointda_train_scan` make those of 2 steps in one process,
     and no other; `average_metrics` none. The step alone syncs on the CPU only
     (its optimizer, not capturable there, and `one_hot`'s range check),
-    and the card captures it (`chip_smoke.py` `step_graphs`). A gloo
+    and the card captures it (`tests/test_torch_port_cuda.py::
+    test_nccl_chunk_replays_match_eager_mesh_steps`). A gloo
     chunk, taken eagerly, equals its eager steps bit for bit."""
     case = _case("pointda")
     for r in run_ranks(2, _mesh_step_syncs, case):

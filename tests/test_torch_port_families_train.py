@@ -125,7 +125,9 @@ def test_pointda_clis_run_a_pointnet(tmp_path):
     --model pointnet` from its checkpoint (equal accuracies, 80 rows of
     probabilities), then one `spst` round of one epoch from it, all on the
     CPU. (PointNet: the cheapest family on the CPU; the full-width
-    PointTransformer and Hengshuang take these paths in `chip_smoke.py`.)"""
+    PointTransformer and Hengshuang take these paths on the card in
+    `tests/test_torch_port_cuda.py::test_cli_on_the_card` and
+    `::test_eval_and_infer_agree_on_the_card`.)"""
     out = str(tmp_path)
     common = ["--synthetic", "True", "--device", "cpu", "--num_points", "64",
               "--out_path", out, "--model", "pointnet"]

@@ -147,9 +147,11 @@ def _fixed_point_du(u, idx, cots, split, cs, order):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_fixed_point_sum_is_order_free_and_within_tolerance(seed):
     """Two orders of the edges give bit-equal fixed-point du, within 1e-5
-    of the summed term magnitudes of autograd's du (chip_smoke.py's
-    `check_edge_bwd` bound), on a graph where a third of the rows point
-    at the same few points; the 32-bit sums do not overflow."""
+    of the summed term magnitudes of autograd's du (the card's bound:
+    `tests/test_torch_port_cuda.py::
+    test_edge_gradient_within_tolerance_of_the_plain_version`), on a graph
+    where a third of the rows point at the same few points; the 32-bit
+    sums do not overflow."""
     u, idx, cots = _operands(B=2, N=24, C=19, k=5, seed=seed)
     idx[:, : 8] = np.arange(5)  # in-degree >= 8 at rows 0-4
     u[:, 1::2] = u[:, 0::2]  # ties at the max and the min
