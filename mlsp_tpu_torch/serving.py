@@ -15,13 +15,20 @@ kernels run on the card) and loads an AOT bundle with `torch.export.load`
 alone: no model class, no model code. A bundle of a classifier
 (`task="pointda"`) serves class logits [B, num_class], one of a segmenter
 (`task="pointsegda"`) per-point logits [B, N, num_class].
+
+A weights bundle served on a CUDA card replays its eval forward as a
+captured CUDA graph (`train.graphs.EvalGraph`), one graph per batch
+size, captured the first time that size is asked for; an AOT bundle, or
+any bundle on the CPU, runs its forward eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import threading
 
 import numpy as np
 import torch
@@ -113,6 +120,23 @@ class ServingModel:
     Runs on `device`, the CUDA card if None (raises without one). An AOT
     bundle is moved to it with `move_to_device_pass`, so a bundle written
     on the CPU serves on the card, and the reverse.
+
+    A weights bundle on a CUDA device replays a captured CUDA graph of its
+    eval forward (`Graphs.eval_forward`, the trainers' capture), one per
+    batch size B, captured the first time B is asked for (in eval mode and
+    under `torch.inference_mode()`); the point count is the bundle's. A
+    request is then its clouds copied to the card, one replay and the
+    logits copied back: the same kernels on the same inputs as the eager
+    forward, so the same logits. The graphs keep their intermediates in
+    one shared memory pool; each new size adds its own static input and
+    output buffers to the memory held. Since a graph's buffers and the
+    pool are shared by every request, one lock holds a request's copy-in,
+    replay and copy-out: two threads calling `predict` wait for each
+    other. An AOT bundle, and any bundle on the CPU, runs its forward
+    eagerly.
+
+    `counts`: the requests served, those served by a replay, and the
+    graphs captured.
     """
 
     def __init__(self, path: str, device: str | torch.device | None = None):
@@ -121,6 +145,9 @@ class ServingModel:
         with open(os.path.join(path, _META_FILE)) as f:
             self.meta = json.load(f)
         self.device = resolve_device(device)
+        self.counts = {"requests": 0, "replays": 0, "captures": 0}
+        self._graphs = None
+        self._lock = contextlib.nullcontext()
         fmt = self.meta.get("format")
         if fmt == AOT_FORMAT:
             from torch.export.passes import move_to_device_pass
@@ -138,6 +165,11 @@ class ServingModel:
             model.load_state_dict(state, strict=True)
             self.model = model
             self._fn = EvalForward(model, self.meta.get("task", "pointda"))
+            if self.device.type == "cuda":
+                from mlsp_tpu_torch.train.graphs import Graphs
+
+                self._graphs, self._by_size = Graphs(), {}
+                self._lock = threading.Lock()
         else:
             raise ValueError(f"{path}: not a {FORMAT} or {AOT_FORMAT} bundle "
                              f"(format {fmt!r})")
@@ -146,20 +178,35 @@ class ServingModel:
         """x [B, N, 3] (numpy or tensor) -> logits, [B, num_class] or
         [B, N, num_class]. N is fixed by the bundle, B is any. Spans: the
         "request", and in it "request_copy_in", "request_forward",
-        "request_copy_out"."""
+        "request_copy_out"; a replay's "copy_in", "replay" and "outputs",
+        and a new size's "capture", lie in "request_forward"."""
         N = self.meta["num_points"]
         if x.ndim != 3 or tuple(x.shape[1:]) != (N, 3):
             raise ValueError(
                 f"bundle expects ('any', {N}, 3) inputs, got {tuple(x.shape)}")
-        with span("request"):
+        with span("request"), self._lock:
+            self.counts["requests"] += 1
             with span("request_copy_in"):
                 x = torch.as_tensor(x, dtype=torch.float32,
                                     device=self.device)
             with torch.inference_mode():
                 with span("request_forward"):
-                    y = self._fn(x)
+                    y = self._forward(x)
                 with span("request_copy_out"):
                     return y.float().cpu().numpy()
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval forward of x [B, N, 3] on the device: eager, or one
+        replay of B's graph, captured now if B is new."""
+        if self._graphs is None:
+            return self._fn(x)
+        graph = self._by_size.get(x.shape[0])
+        if graph is None:
+            graph = self._by_size[x.shape[0]] = self._graphs.eval_forward(
+                self.model, self._fn.output, self._fn, x, chunk=1)
+            self.counts["captures"] += 1
+        self.counts["replays"] += 1
+        return graph.run(x[None])[0]
 
 
 def load_serving_bundle(path: str,

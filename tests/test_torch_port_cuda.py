@@ -1013,10 +1013,15 @@ def test_aot_bundle_saved_on_the_cpu_serves_on_the_card(card, tmp_path, name,
     got = served.predict(x)
     torch.cuda.synchronize()
     assert sum(kernels.launches().values()) == 0
+    assert served.counts == {"requests": 1, "replays": 0, "captures": 0}
     assert got.shape == want.shape
     assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.99
     prob = [torch.softmax(torch.from_numpy(a), -1) for a in (got, want)]
     assert float((prob[0] - prob[1]).abs().max()) <= 2e-2
+
+
+# request sizes that each follow another size's capture in the shared pool
+SIZES = (7, 1, 32, 7, 32, 1)
 
 
 @pytest.mark.parametrize("name,N,classes,launches,requests", [
@@ -1024,18 +1029,25 @@ def test_aot_bundle_saved_on_the_cpu_serves_on_the_card(card, tmp_path, name,
     ("point_transformer", 1024, 10, {"fps": 1}, (8, 3)),
     ("vit", 1024, 10, {"fps": 1}, (8, 3)),
     ("dgcnn_seg", 2048, 8, {"knn": 4}, (4,)),
-    ("hengshuang_seg", 2048, 8, {"knn": 10, "fps": 4}, (4,))])
+    ("hengshuang_seg", 2048, 8, {"knn": 10, "fps": 4}, (4,)),
+    ("dgcnn", 256, 10, {"knn": 5, "edge_moments": 4}, SIZES),
+    ("dgcnn_seg", 256, 8, {"knn": 4}, SIZES)])
 def test_seg_bundle_on_the_card_counts_its_kernels(card, tmp_path, name, N,
                                                    classes, launches,
                                                    requests):
-    """A weights bundle on the card, of a classifier (full width, 10
-    classes, randomised BatchNorm, requests of 8 and 3 clouds) or of a
-    segmenter (8 parts, one request of 4): each request launches one
-    forward's kernels (DGCNN K1 5 and K2-fwd 4, the PointTransformer and
-    Point-ViT K4 1, DGCNNSeg K1 4, HengshuangSeg K1 10 and K4 4); its
-    answers those of the plain route: classes agree on >= 99% and max
-    |dprob| <= 2e-2, and a classifier's max |dlogit| <= 2e-2."""
+    """A weights bundle on the card, of a classifier (10 classes,
+    randomised BatchNorm, requests of 8 and 3 clouds) or of a segmenter (8
+    parts, one request of 4), at full width, and DGCNN and DGCNNSeg at
+    N=256 asked for 7, 1, 32, 7, 32 and 1 clouds (a size's replay after
+    another size's capture in the shared pool): one capture a size, each
+    request one replay of its size's graph, launching one forward's
+    kernels there (DGCNN K1 5 and K2-fwd 4, the PointTransformer and
+    Point-ViT K4 1, DGCNNSeg K1 4, HengshuangSeg K1 10 and K4 4); each
+    answer bit-equal to the eager `EvalForward`'s, and those of the plain
+    route: classes agree on >= 99% and max |dprob| <= 2e-2, and a
+    classifier's max |dlogit| <= 2e-2."""
     from mlsp_tpu_torch import ServingModel, save_serving_bundle
+    from mlsp_tpu_torch.serving import EvalForward
 
     seg = name.endswith("_seg")
     g = torch.Generator().manual_seed(2)
@@ -1046,11 +1058,20 @@ def test_seg_bundle_on_the_card_counts_its_kernels(card, tmp_path, name, N,
     served = ServingModel(str(tmp_path / "b"), device=card)
     x = (make_segmentation if seg else make_classification)(
         sum(requests), N, classes, seed=3)[0]
+    parts = np.split(x, np.cumsum(requests)[:-1])
     kernels.reset_launches()
-    got = np.concatenate([served.predict(r) for r in
-                          np.split(x, np.cumsum(requests)[:-1])])
-    assert kernels.launches() == _launches(
+    got = [served.predict(r) for r in parts]
+    assert kernels.launches() == kernels.launches_in_graphs() == _launches(
         **{k: len(requests) * v for k, v in launches.items()})
+    assert served.counts == {"requests": len(requests),
+                             "replays": len(requests),
+                             "captures": len(set(requests))}
+    eager = EvalForward(served.model, served.meta["task"])
+    for r, y in zip(parts, got):
+        with torch.inference_mode():
+            want = eager(torch.from_numpy(r).to(card)).float().cpu().numpy()
+        np.testing.assert_array_equal(y, want)
+    got = np.concatenate(got)
     plain = make_model(name, classes, device=card, knn_backend="torch")
     plain.load_state_dict(model.state_dict())
     with torch.no_grad():

@@ -53,6 +53,14 @@ class TestServingBundle:
         with pytest.raises(ValueError, match="expects"):
             served.predict(np.zeros((N, 3), np.float32))
 
+    def test_cpu_takes_the_eager_route(self, bundle):
+        """On the CPU a weights bundle runs its forward eagerly: every
+        request counted, no graph captured or replayed."""
+        served = ServingModel(bundle[1], device="cpu")
+        for bs in (3, 1, 3):
+            served.predict(make_classification(bs, N, seed=bs)[0])
+        assert served.counts == {"requests": 3, "replays": 0, "captures": 0}
+
     def test_no_card_no_device_raises(self, bundle, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
